@@ -1,0 +1,84 @@
+"""Scalar-or-tensor helpers shared by the port's physics.
+
+The physics functions take Python numbers as well as tensors, like the
+reference's ``jnp`` functions do.  A Python number stays a Python float
+(rounded to float32) and enters tensor ops as a kernel argument: turning
+it into a device tensor would copy it from the host, and such a copy
+waits for the device -- inside a tick loop that sets the loop's pace.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+
+def f32(x, device=None):
+    """Tensors -> float32 tensors (moved to ``device`` when given);
+    numbers -> Python floats holding a float32 value; arrays -> tensors."""
+    if isinstance(x, torch.Tensor):
+        return x.to(device=device or x.device, dtype=torch.float32)
+    a = np.asarray(x, np.float32)
+    if a.ndim == 0:
+        return float(a)
+    return torch.from_numpy(a.copy()).to(device or "cpu")
+
+
+def clip(x, lo=None, hi=None):
+    """``jnp.clip`` for a tensor or a Python number."""
+    if isinstance(x, torch.Tensor):
+        return torch.clamp(x, lo, hi)
+    if lo is not None:
+        x = max(x, lo)
+    if hi is not None:
+        x = min(x, hi)
+    return x
+
+
+def where(cond, a, b):
+    """``jnp.where`` for a tensor or a Python condition."""
+    if isinstance(cond, torch.Tensor):
+        return torch.where(cond, a, b)
+    return a if cond else b
+
+
+def device_of(*xs, default=None):
+    """The device of the first tensor among ``xs`` (else ``default``)."""
+    for x in xs:
+        if isinstance(x, torch.Tensor):
+            return x.device
+    return default
+
+
+def tensor(x, device=None) -> torch.Tensor:
+    """``x`` as a float32 tensor on ``device`` (a tensor keeps its device
+    when ``device`` is None).  A number becomes a filled 0-d tensor,
+    which needs no copy from the host; an array is copied (set-up code
+    only: the copy waits for the device)."""
+    if isinstance(x, torch.Tensor):
+        return x.to(device=device or x.device, dtype=torch.float32)
+    a = np.array(x, np.float32)
+    if a.ndim == 0:
+        return torch.full((), float(a), dtype=torch.float32, device=device)
+    return torch.from_numpy(a).to(device or "cpu")
+
+
+_CONSTS: dict = {}
+
+
+def const(table, device, dtype=torch.float32) -> torch.Tensor:
+    """A small constant table as a tensor on ``device``, copied from the
+    host once per device and process and reused after that."""
+    a = np.asarray(table)
+    key = (a.tobytes(), a.shape, a.dtype.str, str(dtype), str(device))
+    t = _CONSTS.get(key)
+    if t is None:
+        t = _CONSTS[key] = torch.as_tensor(a, device=device).to(dtype)
+    return t
+
+
+def take(table, idx):
+    """``table[idx]`` of a numpy table: a Python float for an int index,
+    a float32 tensor on the index's device for a tensor index."""
+    if isinstance(idx, torch.Tensor):
+        return const(np.asarray(table, np.float32), idx.device)[idx.long()]
+    return float(np.float32(np.asarray(table)[int(idx)]))

@@ -1,0 +1,167 @@
+"""Accelerator power/thermal plant: the port of ``repro.core.plant``.
+
+Model (paper Sect. 5.1, E1):      P = P_idle + a*f + b*f^2*L + g*L
+with a voltage floor at F_VMIN: below it the quadratic term degrades to
+b*f*F_VMIN*L.  Demand-side moves follow a first-order response; with
+``slew_w_ms`` set, cap-enforced drops go through the firmware governor's
+multiplicative slew.  Thermal: first-order junction, tau = 8 s.
+
+Constants are copies of the reference's; ``tests/test_torch_common.py``
+pins each against ``repro.core.plant``.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional
+
+import numpy as np
+import torch
+
+from repro_torch import resolve_device
+from repro_torch._num import clip, device_of, f32, where
+
+P_IDLE = 39.0
+ALPHA = 0.027
+BETA = 9.27e-5
+GAMMA = 2.7
+TDP = 300.0
+CAP_MIN, CAP_MAX = 100.0, 300.0
+F_MAX = 1530.0
+F_MIN = 405.0
+F_VMIN = 945.0
+F_NOMINAL = 1480.0
+
+GOV_SLEW = 0.00344     # 1/ms
+ACTUATE_DELAY_MS = 5.0
+
+TAU_THERMAL = 8.0      # s
+T_AMBIENT_INT = 30.0   # degC
+R_TH = 50.0 / 300.0    # degC/W
+T_FALLBACK = 85.0      # degC
+CAP_FALLBACK = 200.0   # W
+
+CONTROL_HZ = 200.0     # Tier-1 tick
+
+# (mean load, fast-noise sigma, slow-noise sigma, demand tau ms)
+_ARCHETYPES = {
+    "matmul": dict(mean=0.97, fast_sigma=0.021, slow_sigma=0.012,
+                   tau_ms=4.33),
+    "inference": dict(mean=0.58, fast_sigma=0.008, slow_sigma=0.010,
+                      tau_ms=5.33),
+    "bursty": dict(mean=0.95, fast_sigma=0.008, slow_sigma=0.02, tau_ms=8.0),
+}
+BURSTY_PERIOD_S = 4.0
+BURSTY_DUTY = 0.5
+BURSTY_LOW = 0.05
+BURSTY_EDGE_JITTER_S = 0.12
+SLOW_FREQS_HZ = (0.031, 0.073, 0.127, 0.211)
+BURSTY_JITTER_FREQ_HZ = 0.017
+
+
+def power_model(f_mhz, load, *, p_idle=P_IDLE, a=ALPHA, b=BETA, g=GAMMA):
+    """Steady-state board power at SM clock ``f_mhz`` and utilisation
+    ``load``, with the voltage floor below F_VMIN.
+
+    A Python-number clock (the loops' F_NOMINAL) folds its terms on the
+    host in float32, so no scalar is copied to the device per call."""
+    if not isinstance(f_mhz, torch.Tensor):
+        f = np.float32(f_mhz)
+        f2 = f * f if f >= F_VMIN else f * np.float32(F_VMIN)
+        c0 = np.float32(p_idle) + np.float32(a) * f
+        c1 = np.float32(b) * f2
+        L = f32(load)
+        if not isinstance(L, torch.Tensor):
+            L = np.float32(L)
+            return float(c0 + c1 * L + np.float32(g) * L)
+        return float(c0) + float(c1) * L + g * L
+    dev = device_of(load, f_mhz)
+    f = f32(f_mhz, dev)
+    L = f32(load, dev)
+    f2 = torch.where(f >= F_VMIN, f * f, f * F_VMIN)
+    return p_idle + a * f + b * f2 * L + g * L
+
+
+def freq_at_cap(cap, load, *, a=ALPHA, b=BETA, g=GAMMA, p_idle=P_IDLE):
+    """SM clock the governor settles at so that P(f, L) == cap; branch-
+    aware in the voltage floor, clipped to [F_MIN, F_MAX]."""
+    dev = device_of(cap, load)
+    cap = f32(cap, dev)
+    L = clip(f32(load, dev), 1e-3)
+    budget = cap - p_idle - g * L
+    disc = a * a + 4.0 * b * L * clip(budget, 0.0)
+    f_quad = (-a + disc ** 0.5) / (2.0 * b * L)
+    f_lin = budget / (a + b * F_VMIN * L)
+    f = where(f_quad >= F_VMIN, f_quad, f_lin)
+    return clip(f, F_MIN, F_MAX)
+
+
+@dataclasses.dataclass
+class PlantState:
+    """Per-chip plant state; every field has the chip shape."""
+
+    power: torch.Tensor        # board power, W
+    cap: torch.Tensor          # enforced power cap, W
+    pending_cap: torch.Tensor  # cap written, still in the NVML latency window
+    pending_ms: torch.Tensor   # time until the pending cap is active (ms)
+    temp: torch.Tensor         # junction temperature, degC
+    freq: torch.Tensor         # governor SM clock, MHz
+
+
+def init_plant(n_chips: int, cap: float = CAP_MAX, *,
+               device="cuda") -> PlantState:
+    z = torch.zeros((n_chips,), dtype=torch.float32,
+                    device=resolve_device(device))
+    return PlantState(power=z + P_IDLE, cap=z + cap, pending_cap=z + cap,
+                      pending_ms=z.clone(), temp=z + T_AMBIENT_INT,
+                      freq=z + F_NOMINAL)
+
+
+def write_cap(state: PlantState, cap) -> PlantState:
+    """Queue a cap write (takes ACTUATE_DELAY_MS to reach the firmware)."""
+    cap = f32(cap, state.cap.device)
+    cap = (cap.expand(state.cap.shape) if isinstance(cap, torch.Tensor)
+           else torch.full_like(state.cap, cap))
+    cap = torch.clamp(cap, CAP_MIN, CAP_MAX)
+    return dataclasses.replace(
+        state, pending_cap=cap,
+        pending_ms=torch.full_like(state.pending_ms, ACTUATE_DELAY_MS))
+
+
+def _decay(dt: float, tau: float) -> float:
+    """``1 - exp(-dt / tau)`` in float32, as the reference computes it."""
+    e = np.exp(np.float32(-np.float32(dt) / np.float32(tau)))
+    return float(np.float32(1.0) - np.float32(e))
+
+
+def plant_step(state: PlantState, load, dt_ms, *, tau_ms: float = 6.0,
+               slew_w_ms: Optional[float] = None,
+               noise: Optional[torch.Tensor] = None) -> PlantState:
+    """Advance the plant by ``dt_ms`` under per-chip utilisation ``load``.
+
+    ``noise`` takes the place of the reference's ``noise_key``: standard
+    normals of the chip shape, added at 0.35 W.  ``dt_ms`` is a Python
+    number, so the blend factors are host constants and the step never
+    waits for the device.
+    """
+    dt = float(np.float32(dt_ms))
+    pend = torch.clamp(state.pending_ms - dt, min=0.0)
+    cap = torch.where(pend <= 0.0, state.pending_cap, state.cap)
+
+    demand = power_model(F_NOMINAL, load)
+    target = torch.minimum(demand, cap)
+    move = (target - state.power) * _decay(dt, tau_ms)
+    if slew_w_ms is not None:
+        cap_bound = (state.power > cap) & (target < state.power)
+        max_drop = slew_w_ms * state.power * dt
+        move = torch.where(cap_bound, torch.maximum(move, -max_drop), move)
+    power = state.power + move
+    if noise is not None:
+        power = power + 0.35 * noise
+    power = torch.clamp(power, P_IDLE * 0.9, TDP * 1.02)
+
+    t_inf = T_AMBIENT_INT + R_TH * power
+    temp = state.temp + (t_inf - state.temp) * _decay(dt / 1000.0,
+                                                        TAU_THERMAL)
+    freq = freq_at_cap(cap, clip(f32(load, power.device), 1e-3))
+    return PlantState(power=power, cap=cap, pending_cap=state.pending_cap,
+                      pending_ms=pend, temp=temp, freq=freq)

@@ -1,0 +1,82 @@
+"""Build the port's CUDA kernels with ``nvcc`` and load them with ctypes.
+
+Each source ``csrc/<name>.cu`` compiles on its own into a shared library
+with a plain C interface:
+
+    nvcc -gencode arch=compute_90a,code=sm_90a -O3 -std=c++17 -shared
+         -Xcompiler -fPIC -o build/kernels/<name>-<hash>.so csrc/<name>.cu
+
+The library goes into ``build/kernels/`` at the root of the checkout (a
+directory git ignores), at first use, and its file name carries a hash of
+the source and the flags: an edited source builds anew, an unchanged one
+loads the library already there.  Without ``nvcc`` the build raises; it
+never skips a kernel.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3",
+              "-std=c++17", "-shared", "-Xcompiler", "-fPIC",
+              "-Xptxas", "-v")
+
+_LOADED: dict[str, ctypes.CDLL] = {}
+# ptxas' register/spill report of each library built by this process
+PTXAS_REPORT: dict[str, str] = {}
+
+
+def find_nvcc() -> str:
+    """Path of ``nvcc``: on PATH, else under CUDA_HOME or /usr/local/cuda."""
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    for root in (os.environ.get("CUDA_HOME"), "/usr/local/cuda"):
+        if root and (Path(root) / "bin" / "nvcc").is_file():
+            return str(Path(root) / "bin" / "nvcc")
+    raise RuntimeError(
+        "nvcc not found (looked on PATH, in $CUDA_HOME/bin and "
+        "/usr/local/cuda/bin): the port's CUDA kernels cannot be built")
+
+
+def library_path(name: str) -> Path:
+    src = CSRC / f"{name}.cu"
+    h = hashlib.sha256(src.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
+
+
+def build_all(names) -> dict[str, Path]:
+    """Compile every named source not built yet, one after another;
+    raises on the first failure with its output."""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    for name in names:
+        out = library_path(name)
+        if out.is_file():
+            continue
+        tmp = out.with_suffix(f".{os.getpid()}.tmp")
+        cmd = [find_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
+               str(CSRC / f"{name}.cu")]
+        res = subprocess.run(cmd, capture_output=True, text=True)
+        log = res.stdout + res.stderr
+        if res.returncode != 0:
+            raise RuntimeError(f"nvcc failed for {name}.cu "
+                               f"(exit {res.returncode}):\n{log}")
+        os.replace(tmp, out)
+        PTXAS_REPORT[name] = log
+    return {name: library_path(name) for name in names}
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The loaded library of kernel ``name``, built first if needed."""
+    lib = _LOADED.get(name)
+    if lib is None:
+        path = build_all([name])[name]
+        lib = _LOADED[name] = ctypes.CDLL(str(path))
+    return lib

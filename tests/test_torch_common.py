@@ -1,0 +1,300 @@
+"""Shared helpers of the port's parity tests, and the port's package-level
+checks: import hygiene, copied constants, the CUDA default.
+
+The helpers carry state between the two packages as numpy arrays: the
+JAX reference's outputs and draws go through numpy into the port.
+"""
+import ast
+import dataclasses
+import os
+import pathlib
+import subprocess
+import sys
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import repro.core.engine as ref_eng
+import repro_torch
+
+# six xdist workers share eight cores
+torch.set_num_threads(2)
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+PORT = ROOT / "src" / "repro_torch"
+CPU = "cpu"
+
+
+# ---------------------------------------------------------------------------
+# jax -> numpy -> port
+# ---------------------------------------------------------------------------
+
+def np_tree(x):
+    """A reference pytree (NamedTuple, dataclass, dict, array) as the
+    same structure of numpy arrays; NamedTuples become dicts."""
+    if hasattr(x, "_asdict"):
+        return {k: np_tree(v) for k, v in x._asdict().items()}
+    if dataclasses.is_dataclass(x) and not isinstance(x, type):
+        return {f.name: np_tree(getattr(x, f.name))
+                for f in dataclasses.fields(x)}
+    if isinstance(x, dict):
+        return {k: np_tree(v) for k, v in x.items()}
+    return np.asarray(x)
+
+
+def t(x, dtype=torch.float32):
+    """numpy / jax array -> CPU tensor (copied, writable)."""
+    return torch.as_tensor(np.array(x), dtype=dtype)
+
+
+def n(x):
+    """Port tensor (or tree of them) -> numpy."""
+    if hasattr(x, "_asdict"):
+        return {k: n(v) for k, v in x._asdict().items()}
+    if isinstance(x, dict):
+        return {k: n(v) for k, v in x.items()}
+    if isinstance(x, torch.Tensor):
+        return x.detach().cpu().numpy()
+    return np.asarray(x)
+
+
+def port_config(ref_cfg, **over):
+    """The port's EngineConfig with the reference config's field values."""
+    import repro_torch.core.engine as eng
+    names = {f.name for f in dataclasses.fields(eng.EngineConfig)}
+    kw = {k: getattr(ref_cfg, k) for k in names}
+    kw.update(over)
+    return eng.EngineConfig(**kw)
+
+
+def port_specs(ref_specs):
+    from repro_torch.grid.scenarios import ScenarioSpec
+    return [ScenarioSpec(**dataclasses.asdict(s)) for s in ref_specs]
+
+
+def ref_plant_noise(batch, n_hosts, chips_per_host):
+    """(N, T, H, C) plant normals the reference tick draws: its per-tick
+    ``split`` chain replayed from ``engine.scenario_keys``."""
+    T = int(batch.h_max) * 3600
+    _, scan_keys = ref_eng.scenario_keys(batch)
+
+    def one(key):
+        def body(k, _):
+            k, k1 = jax.random.split(k)
+            return k, jax.random.normal(k1, (n_hosts, chips_per_host))
+        return jax.lax.scan(body, key, None, length=T)[1]
+
+    return np.asarray(jax.jit(jax.vmap(one))(scan_keys))
+
+
+def ref_inputs(cfg, batch):
+    """The reference's own draws for a batch: freq (N, T), loads (N, T, H)
+    and plant noise (N, T, H, C), as numpy."""
+    from repro.grid import frequency
+    from repro.grid.scenarios import frequency_seeds
+    T = int(batch.h_max) * 3600
+    freq, _ = frequency.synthesize_frequency_batch(
+        frequency_seeds(batch), batch.product_idx, n_seconds=T,
+        events_per_day=cfg.events_per_day, max_events=cfg.max_freq_events)
+    loads = ref_eng.base_loads(cfg, batch)
+    noise = ref_plant_noise(batch, cfg.n_hosts, cfg.chips_per_host)
+    return np.asarray(freq), np.asarray(loads), noise
+
+
+def assert_close(got, want, rtol, atol=0.0, msg=""):
+    np.testing.assert_allclose(np.asarray(got, np.float64),
+                               np.asarray(want, np.float64), rtol=rtol,
+                               atol=atol, err_msg=msg)
+
+
+# ---------------------------------------------------------------------------
+# The port's package-level checks
+# ---------------------------------------------------------------------------
+
+def _port_sources():
+    files = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    assert len(files) > 10
+    return files
+
+
+def _imported_modules(path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module or ""
+
+
+@pytest.mark.parametrize("forbidden", ["jax", "repro"])
+def test_port_sources_import_neither_jax_nor_repro(forbidden):
+    bad = [(p.relative_to(ROOT), m) for p in _port_sources()
+           for m in _imported_modules(p)
+           if m == forbidden or m.startswith(forbidden + ".")]
+    assert not bad, bad
+
+
+def test_importing_the_engine_loads_neither_jax_nor_repro():
+    code = ("import sys; import repro_torch.core.engine, "
+            "repro_torch.core.pid; "
+            "bad = [m for m in sys.modules if m == 'jax' or "
+            "m.startswith('jax.') or m == 'repro' or "
+            "m.startswith('repro.')]; print(bad); sys.exit(1 if bad else 0)")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    res = subprocess.run([sys.executable, "-c", code], env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stdout + res.stderr
+
+
+def _constant_pairs():
+    import repro.core.ar4 as r_ar4
+    import repro.core.pid as r_pid
+    import repro.core.plant as r_plant
+    import repro.core.pue as r_pue
+    import repro.core.tier3 as r_tier3
+    import repro.grid.frequency as r_freq
+    import repro.grid.markets as r_markets
+    import repro.grid.signals as r_signals
+    import repro.obs.telemetry as r_tel
+    import repro.workload.model as r_wl
+    import repro_torch.core.ar4 as p_ar4
+    import repro_torch.core.pid as p_pid
+    import repro_torch.core.plant as p_plant
+    import repro_torch.core.pue as p_pue
+    import repro_torch.core.tier3 as p_tier3
+    import repro_torch.grid.frequency as p_freq
+    import repro_torch.grid.markets as p_markets
+    import repro_torch.grid.signals as p_signals
+    import repro_torch.obs.telemetry as p_tel
+    import repro_torch.workload.model as p_wl
+    names = {
+        (r_plant, p_plant): (
+            "P_IDLE ALPHA BETA GAMMA TDP CAP_MIN CAP_MAX F_MAX F_MIN F_VMIN "
+            "F_NOMINAL GOV_SLEW ACTUATE_DELAY_MS TAU_THERMAL T_AMBIENT_INT "
+            "R_TH T_FALLBACK CAP_FALLBACK CONTROL_HZ _ARCHETYPES "
+            "BURSTY_PERIOD_S BURSTY_DUTY BURSTY_LOW BURSTY_EDGE_JITTER_S "
+            "SLOW_FREQS_HZ BURSTY_JITTER_FREQ_HZ"),
+        (r_pue, p_pue): (
+            "PUE_DESIGN T_FREECOOL_HI T_FREECOOL_LO PUMP_FLOOR AIR_FLOOR "
+            "T_REF CHILLER_SHARE PUMP_SHARE AIR_SHARE MISC_SHARE"),
+        (r_pid, p_pid): (
+            "KP KI KD DT_S WINDUP_CLAMP U_MIN U_MAX T_PREDICT_LIMIT "
+            "FALLBACK_CAP THERMAL_TAU"),
+        (r_ar4, p_ar4): "ORDER FORGET WINDOW_S TICK_HZ",
+        (r_tier3, p_tier3): (
+            "MU_GRID RHO_GRID W_FFR W_CFE W_REV_DEFAULT MIN_RESIDUAL_LOAD "
+            "RHO_MAX DELIVERY_TOL PENALTY_WINDOW_H EVENTS_PER_DAY_DEFAULT"),
+        (r_markets, p_markets): (
+            "NOMINAL_HZ FR_PRODUCTS PRODUCT_ORDER TRIGGER_HZ BUDGET_MS "
+            "MIN_DURATION_S CAPACITY_PRICE_EUR_MW_H"),
+        (r_signals, p_signals): "COUNTRIES COUNTRY_ORDER",
+        (r_freq, p_freq): (
+            "MAX_EVENTS DEFAULT_ROCOF_HZ_S DEFAULT_EVENTS_PER_DAY "
+            "RECOVERY_RANGE_S"),
+        (r_wl, p_wl): (
+            "MIX_ORDER CLOCK_W TOKENS_PER_MW_S STEP_PERIOD_S_DEFAULT "
+            "STEP_COMPUTE_FRAC DEFAULT_GRID_CKPT_S P_FLOOR_FRAC P_IDLE_FRAC "
+            "F_AT_TDP"),
+        (r_tel, p_tel): (
+            "TRACK_ERR_EDGES N_TRACK_BUCKETS RESP_FRAC_EDGES N_RESP_BUCKETS "
+            "CAP_SAT_TOL_W HOUR_S"),
+    }
+    for (ref, port), ns in names.items():
+        for name in ns.split():
+            yield ref, port, name
+
+
+def test_copied_constants_equal_the_reference():
+    checked = 0
+    for ref, port, name in _constant_pairs():
+        a, b = getattr(ref, name), getattr(port, name)
+        if isinstance(a, np.ndarray):
+            np.testing.assert_array_equal(a, b, err_msg=name)
+            assert a.dtype == b.dtype, name
+        elif name == "FR_PRODUCTS":
+            assert {k: dataclasses.asdict(v) for k, v in a.items()} == {
+                k: dataclasses.asdict(v) for k, v in b.items()}
+        else:
+            assert a == b, (ref.__name__, name, a, b)
+        checked += 1
+    assert checked > 60
+    # the derived nadir window of the frequency synthesiser
+    import repro.grid.frequency as r_freq
+    import repro_torch.grid.frequency as p_freq
+    np.testing.assert_array_equal(np.asarray(r_freq._NADIR_LO, np.float32),
+                                  p_freq._NADIR_LO)
+    np.testing.assert_array_equal(np.asarray(r_freq._NADIR_HI, np.float32),
+                                  p_freq._NADIR_HI)
+
+
+def test_pid_gains_come_from_the_constants():
+    import repro_torch.core.pid as p_pid
+    import repro_torch.core.plant as p_plant
+    g = p_pid.GAINS
+    assert (g.kp, g.ki, g.kd) == (p_pid.KP, p_pid.KI, p_pid.KD)
+    assert (g.windup, g.u_min, g.u_max) == (
+        p_pid.WINDUP_CLAMP, p_pid.U_MIN, p_pid.U_MAX)
+    assert (g.t_amb_int, g.r_th, g.thermal_tau) == (
+        p_plant.T_AMBIENT_INT, p_plant.R_TH, p_pid.THERMAL_TAU)
+    assert (g.t_limit, g.fallback_cap) == (
+        p_pid.T_PREDICT_LIMIT, p_pid.FALLBACK_CAP)
+
+
+@pytest.mark.parametrize("device", [None, "cuda"])
+def test_default_device_is_cuda_and_raises_without_a_card(device):
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the CUDA default runs there")
+    import repro_torch.core.engine as eng
+    from repro_torch.grid.scenarios import build_scenario_batch, \
+        product_specs
+    batch = build_scenario_batch(product_specs(countries=("SE",),
+                                               horizon_h=1), device=CPU)
+    kw = {} if device is None else {"device": device}
+    with pytest.raises(RuntimeError, match="cuda"):
+        eng.engine_rollout(eng.EngineConfig(), batch, **kw)
+    with pytest.raises(RuntimeError, match="cuda"):
+        build_scenario_batch(product_specs(countries=("SE",), horizon_h=1),
+                             **kw)
+    with pytest.raises(RuntimeError, match="cuda"):
+        repro_torch.resolve_device(device)
+
+
+def test_convert_round_trips_reference_state():
+    """convert.py turns the reference's state, as numpy dicts, into the
+    port's tensors."""
+    import repro.core.ar4 as r_ar4
+    import repro.core.pid as r_pid
+    import repro.core.plant as r_plant
+    import repro.grid.frequency as r_freq
+    from repro.grid.scenarios import build_scenario_batch, product_specs
+    from repro_torch import convert
+    batch = build_scenario_batch(product_specs(countries=("SE", "DE"),
+                                               horizon_h=3))
+    pb = convert.scenario_batch(np_tree(batch), device=CPU)
+    for f in dataclasses.fields(batch):
+        np.testing.assert_array_equal(n(getattr(pb, f.name)),
+                                      np.asarray(getattr(batch, f.name)))
+    assert pb.n == batch.n and pb.h_max == batch.h_max
+    pid_s = convert.pid_state(np_tree(r_pid.init_pid(5, 250.0)), CPU)
+    assert n(pid_s.u).tolist() == [250.0] * 5
+    pl = convert.plant_state(np_tree(r_plant.init_plant(5)), CPU)
+    assert n(pl.temp).tolist() == [r_plant.T_AMBIENT_INT] * 5
+    rls = convert.rls_state(np_tree(r_ar4.init_rls(3)), CPU)
+    np.testing.assert_array_equal(n(rls.P), np.asarray(r_ar4.init_rls(3).P))
+    ev = r_freq.sample_events(jax.random.PRNGKey(0), 86_400, 0, 8.0, 16)
+    pev = convert.event_batch(np_tree(ev), CPU)
+    assert pev.t0_s.dtype == torch.int32 and pev.valid.dtype == torch.bool
+    np.testing.assert_array_equal(n(pev.nadir_hz), np.asarray(ev.nadir_hz))
+    ref_state = ref_eng.engine_init(ref_eng.EngineConfig(n_hosts=2),
+                                    jax.random.PRNGKey(0))
+    st = convert.engine_state(
+        jax.tree.map(lambda x: np.asarray(x)[None], np_tree(ref_state)),
+        seed=np.array([7]), device=CPU)
+    assert tuple(st.chip_power.shape) == (1, 2, 2)
+    assert tuple(st.rls.P.shape) == (1, 2, 4, 4)
+    assert int(st.seed[0]) == 7 and float(st.acc.n_s[0]) == 0.0
+    assert jnp.asarray(ref_state.last_load).item() == pytest.approx(
+        float(st.last_load[0]))
