@@ -7,18 +7,30 @@ Phases, each printing one JSON line; any failure ends the run with a
 nonzero exit and no result line:
 
   build       compile every CUDA kernel of the port with nvcc (sm_90a)
-              into build/kernels/
+              into build/kernels/, one nvcc per source, all at once
   kernel      each kernel against its plain torch version on the card at
               the main path's shapes, with its device time and the plain
               version's taken with a cold L2 (inputs cycled through more
               than the L2 holds), and the least time the card could take
-              moving those bytes through HBM (the bound); the L2-warm
-              time beside them
+              for the work (the bound); pid_update's L2-warm time; for
+              flash_attention the time of one PyTorch call computing the
+              same function (scaled_dot_product_attention, a yardstick
+              the port never calls)
   tier1       the Tier-1 closed loop: pid_rollout_grid over the (4 targets
               x 3 loads) product, 32768 chips per cell (a ~10 MW site of
               300 W chips), 200 ticks = 1 s of the 200 Hz loop; counts the
               pid_update launches and checks that every cell settles to
               min(demand, target)
+  prefill     Model.forward of qwen2-1.5b at full width (random weights
+              from a seed, bf16 compute) on (2, 4096) tokens, last_only:
+              ms per forward, peak memory, exactly 28 flash_attention
+              launches, finite logits
+  decode_vs_forward
+              the same weights in f32 at B = 2, S = 64: teacher-forced
+              decode_step logits against the full forward's (2e-3)
+  serve       run_serve at full qwen2-1.5b width, 8 requests, 32 prompt
+              and 32 decode tokens, GridPilot on: the FFR shed at decode
+              step 16 with its trigger-to-thinning time under 700 ms
   engine      engine_rollout(reduce="summary") on the full E9 batch (288
               scenarios, 6 countries x 3 seeds x 2 products x 4 bands x 2
               event draws) over 24 h, or the longest whole number of hours
@@ -47,6 +59,15 @@ HBM_BYTES_PER_S = 3.35e12          # H100 SXM data sheet
 L2_BYTES = 50 * 2**20              # H100 SXM, where torch does not report it
 ENGINE_BUDGET_S = 240.0            # wall time the 24 h rollout may spend
 KERNEL_TOL = dict(atol=1e-4, rtol=1e-5)
+TENSOR_CORE_BF16_FLOP_S = 989e12   # H100 SXM data sheet, dense
+FP32_FLOP_S = 67e12                # H100 SXM data sheet, outside tensor cores
+# flash_attention against its plain version: the reference's kernel
+# tolerances (tests/test_kernels.py), f32 held to 1e-4 at S >= 1000
+FLASH_TOL = {"float32": dict(atol=2e-5, rtol=2e-5),
+             "bfloat16": dict(atol=2e-2, rtol=2e-2)}
+FLASH_TOL_LONG_F32 = dict(atol=1e-4, rtol=1e-4)
+PREFILL_SHAPE = (2, 4096, 12, 2, 128)    # qwen2-1.5b's heads at S = 4096
+DECODE_TOL = dict(atol=2e-3, rtol=2e-3)  # tests/test_models.py
 
 
 def emit(obj):
@@ -70,10 +91,11 @@ def cuda_time_ms(torch, fn, reps=100):
     return statistics.median(times)
 
 
-def profile_calls(torch, fn, reps):
+def profile_calls(torch, fn, reps, match=None):
     """Run ``fn`` ``reps`` times under torch.profiler (CUPTI): device time
-    and kernel launches per call, and the five ops with the most host
-    time (inflated by the profiler; for ranking only)."""
+    and kernel launches per call, the device time per call of the kernels
+    whose name holds ``match``, and the five ops with the most host time
+    (inflated by the profiler; for ranking only)."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
@@ -94,12 +116,30 @@ def profile_calls(torch, fn, reps):
                  key=lambda e: e.self_cpu_time_total, reverse=True)[:5]
     return {
         "device_us_per_call": sum(dev_us(e) for e in kernels) / reps,
+        "matched_us_per_call": sum(dev_us(e) for e in kernels
+                                   if match and match in e.key) / reps,
         "launches_per_call": sum(e.count for e in kernels) / reps,
         "kernels": {e.key[:60]: dev_us(e) / max(e.count, 1)
-                    for e in sorted(kernels, key=dev_us, reverse=True)[:3]},
+                    for e in sorted(kernels, key=dev_us, reverse=True)[:5]},
         "top_host_ops_us": {e.key: e.self_cpu_time_total / reps
                             for e in top},
     }
+
+
+def cycled(sets, f, kept):
+    """A call of ``f`` on the next of ``sets`` each time (the cold-L2
+    pattern), its output kept alive so the allocator cannot hand back
+    lines still in L2."""
+    turn = itertools.count()
+
+    def call(_i=0):
+        kept.append(f(*sets[next(turn) % len(sets)]))
+    return call
+
+
+def l2_bytes(torch) -> int:
+    return getattr(torch.cuda.get_device_properties(0), "L2_cache_size",
+                   L2_BYTES)
 
 
 def all_finite(torch, tree) -> bool:
@@ -113,6 +153,7 @@ def all_finite(torch, tree) -> bool:
 
 
 def phase_build():
+    import torch
     from repro_torch.kernels import _build
     t0 = time.perf_counter()
     names = sorted(p.stem for p in _build.CSRC.glob("*.cu"))
@@ -124,7 +165,8 @@ def phase_build():
           "seconds": time.perf_counter() - t0,
           "libraries": {k: os.path.relpath(str(v), ROOT)
                         for k, v in paths.items()},
-          "ptxas": ptxas})
+          "ptxas": ptxas, "torch": torch.__version__,
+          "torch_cuda": torch.version.cuda})
 
 
 def phase_kernel(torch):
@@ -153,23 +195,14 @@ def phase_kernel(torch):
     # next of enough input sets that four L2s of traffic pass between two
     # reads of one set, and writes fresh outputs (kept alive, so the
     # allocator cannot hand back lines still in L2).
-    l2 = getattr(torch.cuda.get_device_properties(0), "L2_cache_size",
-                 L2_BYTES)
-    k = math.ceil(4 * l2 / (32 * n))
+    k = math.ceil(4 * l2_bytes(torch) / (32 * n))
     sets = [tuple(torch.rand(n, device="cuda", generator=g) * 100 + 100
-                  for _ in range(5)) for _ in range(k)]
+                  for _ in range(5)) + (GAINS,) for _ in range(k)]
     kept = []
-
-    def cold(f):
-        turn = itertools.count()
-
-        def call(_i=0):
-            kept.append(f(*sets[next(turn) % k], GAINS))
-        return call
-
-    prof_k = profile_calls(torch, cold(pk.pid_update), 100)
+    prof_k = profile_calls(torch, cycled(sets, pk.pid_update, kept), 100)
     kept.clear()
-    prof_p = profile_calls(torch, cold(pk.pid_update_ref), 100)
+    prof_p = profile_calls(torch, cycled(sets, pk.pid_update_ref, kept),
+                           100)
     kept.clear()
     prof_w = profile_calls(torch, lambda i=0: pk.pid_update(*args, GAINS),
                            100)
@@ -240,6 +273,240 @@ def phase_tier1(torch):
           "expect_w": expect.tolist(), "ms_per_tick": wall / T * 1e3,
           "wall_s": wall})
     return launches
+
+
+def flash_cases():
+    """(shape (B, S, H, Hkv, D), dtype name, window) of the kernel check:
+    the reference's test shapes in both dtypes, its windows, the padded
+    head_dim-128 GQA case and the prefill shape."""
+    cases = [(shape, dt, 0) for shape in ((1, 128, 4, 4, 32),
+                                          (2, 256, 4, 2, 64),
+                                          (1, 256, 8, 1, 64),
+                                          (2, 192, 6, 3, 16))
+             for dt in ("float32", "bfloat16")]
+    cases += [((1, 256, 2, 2, 32), "float32", w) for w in (32, 64, 100)]
+    cases += [((1, 1000, 12, 2, 128), "float32", 0),
+              (PREFILL_SHAPE, "bfloat16", 0)]
+    return cases
+
+
+def flash_inputs(torch, g, shape, dtype):
+    b, s, h, hkv, d = shape
+    return tuple(torch.randn(b, s, n, d, device="cuda", generator=g)
+                 .to(dtype) for n in (h, hkv, hkv))
+
+
+def flash_bound_ms(shape, dtype, window=0):
+    """The least time of one causal call: 4 B H D flop per visible
+    (row, col) pair at the dtype's peak, against reading q, k, v once and
+    writing o once at the HBM rate; the larger of the two."""
+    b, s, h, hkv, d = shape
+    rows = range(s)
+    pairs = sum(min(i + 1, window) if window else i + 1 for i in rows)
+    flops = 4.0 * b * h * d * pairs
+    elem = 2 if dtype == "bfloat16" else 4
+    nbytes = elem * b * s * d * (2 * h + 2 * hkv)
+    peak = TENSOR_CORE_BF16_FLOP_S if dtype == "bfloat16" else FP32_FLOP_S
+    t_ops, t_bytes = flops / peak, nbytes / HBM_BYTES_PER_S
+    return max(t_ops, t_bytes) * 1e3, \
+        "operations" if t_ops >= t_bytes else "bytes", flops, nbytes
+
+
+def phase_flash_kernel(torch):
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as fa
+    g = torch.Generator(device="cuda").manual_seed(1)
+    checks, worst = [], 0.0
+    for shape, dt, window in flash_cases():
+        dtype = getattr(torch, dt)
+        q, k, v = flash_inputs(torch, g, shape, dtype)
+        got = fa.flash_attention(q, k, v, causal=True, window=window)
+        want = fa.flash_attention_ref(q, k, v, causal=True, window=window)
+        torch.cuda.synchronize()
+        tol = FLASH_TOL_LONG_F32 if dt == "float32" and shape[1] >= 1000 \
+            else FLASH_TOL[dt]
+        err = float((got.float() - want.float()).abs().max())
+        torch.testing.assert_close(got.float(), want.float(), **tol)
+        worst = max(worst, err)
+        checks.append({"shape": list(shape), "dtype": dt, "window": window,
+                       "max_abs_err": err, "tol": tol})
+        del q, k, v, got, want
+    # device time at the prefill shape with a cold L2: enough input sets
+    # that four L2s of traffic pass between two reads of one set
+    shape = PREFILL_SHAPE
+    q, k, v = flash_inputs(torch, g, shape, torch.bfloat16)
+    set_bytes = sum(x.numel() * x.element_size() for x in (q, k, v))
+    n_sets = math.ceil(4 * l2_bytes(torch) / set_bytes)
+    sets = [flash_inputs(torch, g, shape, torch.bfloat16)
+            for _ in range(n_sets)]
+    # scaled_dot_product_attention takes (B, H, S, D): its sets are laid
+    # out so before the clock starts
+    sdpa_sets = [tuple(x.transpose(1, 2).contiguous() for x in st)
+                 for st in sets]
+    kept = []
+    prof_k = profile_calls(torch, cycled(sets, fa.flash_attention, kept),
+                           20)
+    kept.clear()
+    prof_p = profile_calls(
+        torch, cycled(sets, fa.flash_attention_ref, kept), 3)
+    kept.clear()
+
+    def sdpa(q, k, v):
+        return F.scaled_dot_product_attention(q, k, v, is_causal=True,
+                                              enable_gqa=True)
+
+    prof_l = profile_calls(torch, cycled(sdpa_sets, sdpa, kept), 20)
+    kept.clear()
+    ms = prof_k["device_us_per_call"] / 1e3
+    bound_ms, bound_by, flops, nbytes = flash_bound_ms(shape, "bfloat16")
+    rec = {"name": "flash_attention", "route": "cuda",
+           "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+           "replaces": "src/repro/kernels/flash_attention.py:139",
+           "max_abs_err": worst, "ms": ms,
+           "plain_ms": prof_p["device_us_per_call"] / 1e3,
+           "bound_ms": bound_ms, "bound_by": bound_by,
+           "library_ms": prof_l["device_us_per_call"] / 1e3,
+           "shape": list(shape), "dtype": "bfloat16"}
+    emit({"phase": "kernel", "name": "flash_attention", "checks": checks,
+          "shape": list(shape), "dtype": "bfloat16", "ms": ms,
+          "plain_ms": rec["plain_ms"], "library_ms": rec["library_ms"],
+          "library": "torch.nn.functional.scaled_dot_product_attention("
+                     "is_causal=True, enable_gqa=True) on (B, H, S, D)",
+          "bound_ms": bound_ms, "bound_by": bound_by, "gflop": flops / 1e9,
+          "mbytes": nbytes / 1e6, "tflop_s": flops / (ms * 1e-3) / 1e12,
+          "cold_sets": n_sets,
+          "plain_launches_per_call": prof_p["launches_per_call"],
+          "library_kernels": prof_l["kernels"]})
+    return rec
+
+
+def qwen2_full():
+    from repro_torch.configs import get_arch
+    return get_arch("qwen2-1.5b")
+
+
+def phase_prefill(torch):
+    """Full-width qwen2-1.5b prefill in bf16; returns the flash_attention
+    launches of one forward and the (f32) parameters."""
+    from repro_torch.kernels.flash_attention import flash_attention as fa
+    from repro_torch.models import build_model
+    cfg = qwen2_full()
+    model = build_model(cfg, compute_dtype=torch.bfloat16, device="cuda")
+    t0 = time.perf_counter()
+    params = model.init(0)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in params["layers"].values()) + sum(
+        p.numel() for k, p in params.items() if k != "layers")
+    b, s = PREFILL_SHAPE[:2]
+    g = torch.Generator(device="cuda").manual_seed(2)
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (b, s), generator=g,
+                                     device="cuda")}
+    model.forward(params, batch, last_only=True)  # first launches
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    fa.launches = 0
+    t0 = time.perf_counter()
+    logits = model.forward(params, batch, last_only=True)
+    torch.cuda.synchronize()
+    first_ms = (time.perf_counter() - t0) * 1e3
+    launches = fa.launches
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    if launches != cfg.num_layers:
+        raise RuntimeError(f"flash_attention launched {launches} times in "
+                           f"one forward of {cfg.num_layers} layers")
+    if tuple(logits.shape) != (b, 1, cfg.padded_vocab) or \
+            not all_finite(torch, logits):
+        raise RuntimeError(f"prefill logits {tuple(logits.shape)} are not "
+                           "finite (B, 1, V)")
+    times = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        model.forward(params, batch, last_only=True)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    prof = profile_calls(
+        torch, lambda i=0: model.forward(params, batch, last_only=True), 1,
+        match="flash_fwd")
+    ms = statistics.median(times)
+    emit({"phase": "prefill", "arch": cfg.name, "params": n_params,
+          "param_gb_f32": n_params * 4 / 1e9, "init_s": init_s,
+          "batch": b, "seq": s, "compute_dtype": "bfloat16",
+          "flash_attention_launches": launches, "ms_per_forward": ms,
+          "first_ms": first_ms, "forwards_ms": times,
+          "tokens_per_s": b * s / (ms * 1e-3), "peak_gb": peak_gb,
+          "device_ms_per_forward": prof["device_us_per_call"] / 1e3,
+          "attention_device_ms": prof["matched_us_per_call"] / 1e3,
+          "launches_per_forward": prof["launches_per_call"],
+          "top_kernels_us": prof["kernels"],
+          "logits_absmax": float(logits[..., :cfg.vocab_size].abs().max())})
+    return launches, params
+
+
+def phase_decode_vs_forward(torch, params):
+    """Full width, f32: teacher-forced decode logits against the forward's
+    (the kernel against the decode path, on the card, without JAX)."""
+    from repro_torch.kernels.flash_attention import flash_attention as fa
+    from repro_torch.models import build_model
+    cfg = qwen2_full()
+    model = build_model(cfg, compute_dtype=torch.float32, device="cuda")
+    b, s = 2, 64
+    g = torch.Generator(device="cuda").manual_seed(3)
+    tokens = torch.randint(0, cfg.vocab_size, (b, s), generator=g,
+                           device="cuda")
+    fa.launches = 0
+    full = model.forward(params, {"tokens": tokens})
+    torch.cuda.synchronize()
+    launches = fa.launches
+    cache = model.init_cache(b, s)
+    dec = []
+    t0 = time.perf_counter()
+    for i in range(s):
+        logits, cache = model.decode_step(params, cache, tokens[:, i])
+        dec.append(logits)
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) / s * 1e3
+    dec = torch.stack(dec, 1)
+    # where a decode step's time goes: one step on a cache of its own
+    prof_cache = model.init_cache(b, 4)
+    prof = profile_calls(torch, lambda i=0: model.decode_step(
+        params, prof_cache, tokens[:, 0]), 2)
+    v = cfg.vocab_size
+    err = float((dec[..., :v] - full[..., :v]).abs().max())
+    torch.testing.assert_close(dec, full, **DECODE_TOL)
+    if launches != cfg.num_layers:
+        raise RuntimeError(f"flash_attention launched {launches} times in "
+                           "the f32 forward")
+    emit({"phase": "decode_vs_forward", "arch": cfg.name, "batch": b,
+          "seq": s, "dtype": "float32", "max_abs_err": err,
+          "tol": DECODE_TOL, "flash_attention_launches": launches,
+          "decode_ms_per_step": step_ms,
+          "decode_device_ms_per_step": prof["device_us_per_call"] / 1e3,
+          "decode_launches_per_step": prof["launches_per_call"],
+          "decode_top_host_ops_us": prof["top_host_ops_us"],
+          "logits_absmax": float(full[..., :v].abs().max())})
+
+
+def phase_serve(torch):
+    from repro_torch.launch.serve import build_parser, run_serve
+    from repro_torch.obs import trace
+    args = build_parser().parse_args(["--gridpilot"])
+    trace.get_tracer().clear()
+    out = run_serve(args, cfg=qwen2_full(), device="cuda")
+    budget_ms = 700.0  # FFR activation budget
+    if out["shed_at"] != args.decode_tokens // 2 or \
+            not out["active"] < out["batch"] or out["response_ms"] is None \
+            or not out["response_ms"] < budget_ms:
+        raise RuntimeError(f"serve: no FFR shed within budget: {out}")
+    emit({"phase": "serve", "arch": args.arch, "requests": args.requests,
+          "prompt_len": args.prompt_len,
+          "decode_tokens": args.decode_tokens,
+          "prefill_ms": out["t_prefill_s"] * 1e3,
+          "decode_ms_per_tok": out["t_decode_s"] / args.decode_tokens * 1e3,
+          "shed_at": out["shed_at"], "batch": out["batch"],
+          "active": out["active"], "response_ms": out["response_ms"],
+          "budget_ms": budget_ms,
+          "sheds": trace.metrics.counters.get("serve.sheds")})
 
 
 def e9_specs(hours):
@@ -413,12 +680,21 @@ def main() -> int:
     import repro_torch  # noqa: F401  (fails outside a checkout)
 
     phase_build()
-    kernel_rec = phase_kernel(torch)
-    kernel_rec["launches"] = phase_tier1(torch)
+    torch.backends.cuda.matmul.allow_tf32 = False  # f32 products in f32
+    torch.backends.cudnn.allow_tf32 = False
+    pid_rec = phase_kernel(torch)
+    flash_rec = phase_flash_kernel(torch)
+    pid_rec["launches"] = phase_tier1(torch)
+    flash_rec["launches"], params = phase_prefill(torch)
+    phase_decode_vs_forward(torch, params)
+    del params
+    torch.cuda.empty_cache()
+    phase_serve(torch)
+    torch.cuda.empty_cache()
     phase_engine(torch)
     phase_cpu_vs_gpu(torch)
     phase_sweep(torch)
-    emit({"kernels": [kernel_rec]})
+    emit({"kernels": [pid_rec, flash_rec]})
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,

@@ -1,11 +1,12 @@
 """Carry the reference's state into the port.
 
-The system has no model weights; what a user brings from the JAX
-package is state: a scenario batch, Tier-1/plant/Tier-2 state, an
-engine carry, an event set.  Each function takes that state as a plain
-dict of numpy arrays (field name -> array, nested for nested state) and
-returns the port's object with tensors on ``device``.  Nothing here
-imports JAX: the caller turns its arrays into numpy first.
+What a user brings from the JAX package is state -- a scenario batch,
+Tier-1/plant/Tier-2 state, an engine carry, an event set -- and, for the
+served workload, model parameters and a decode cache.  Each function
+takes that state as a plain dict of numpy arrays (field name -> array,
+nested for nested state) and returns the port's object with tensors on
+``device``.  Nothing here imports JAX: the caller turns its arrays into
+numpy first.
 """
 from __future__ import annotations
 
@@ -107,3 +108,23 @@ def host_load_params(d: dict, seed, device="cuda") -> HostLoadParams:
         jitter_ph=_t(d["jitter_ph"], torch.float32, dev),
         seed=_t(np.asarray(seed).astype(np.int64), torch.int64, dev)
         & MASK32)
+
+
+def model_params(params: dict, device="cuda") -> dict:
+    """A reference model's parameter pytree (nested dicts of numpy
+    arrays, layer-stacked as the reference stores them) as the same
+    nested dict of tensors, dtypes kept."""
+    dev = resolve_device(device)
+    return {k: model_params(v, dev) if isinstance(v, dict)
+            else torch.as_tensor(np.array(v), device=dev)
+            for k, v in params.items()}
+
+
+def decode_cache(cache: dict, device="cuda") -> dict:
+    """A reference decode cache (``k``, ``v``, ``pos_buf``, ``cur`` as
+    numpy) as the port's: tensors, with ``cur`` a Python int."""
+    dev = resolve_device(device)
+    out = {k: torch.as_tensor(np.array(v), device=dev)
+           for k, v in cache.items() if k != "cur"}
+    out["cur"] = int(np.asarray(cache["cur"]))
+    return out

@@ -24,6 +24,7 @@ import repro_torch.core.plant as plant_lib
 import repro_torch.core.pue as pue_lib
 import repro_torch.grid.markets as markets
 import repro_torch.workload.model as workload_lib
+from repro_torch import resolve_device
 from repro_torch._num import const, device_of, take, tensor
 
 MU_GRID = np.round(np.arange(0.4, 0.91, 0.1), 2)
@@ -243,7 +244,13 @@ def greenness_from_ci(ci, mask=None):
 
 @dataclasses.dataclass(frozen=True)
 class Tier3Selector:
-    """Hourly operating-point selection over a 24 h look-ahead window."""
+    """Hourly operating-point selection over a 24 h look-ahead window.
+
+    ``w_rev > 0`` turns on the settlement-revenue feedback for the FR
+    product named by ``product``.  Forecasts given as numbers or arrays
+    go to ``device`` (default CUDA, which raises without a card); a
+    tensor keeps the device it lies on.
+    """
 
     pue_aware: bool = True
     pue_design: float = pue_lib.PUE_DESIGN
@@ -255,20 +262,43 @@ class Tier3Selector:
     w_tok: float = 0.0
     workload_mix: str = "train"
     ckpt_cost_s: float = workload_lib.DEFAULT_GRID_CKPT_S
+    device: str | torch.device | None = "cuda"
+
+    def _on_device(self, x) -> torch.Tensor:
+        if isinstance(x, torch.Tensor):
+            return x.float()
+        return tensor(x, resolve_device(self.device))
+
+    def objective(self, mu, rho, greenness, t_amb) -> torch.Tensor:
+        """J(mu, rho) at broadcastable points, the terms the weights
+        switch on."""
+        return point_objective(
+            mu, rho, greenness, t_amb,
+            _pad_weights((self.w_ffr, self.w_cfe, self.w_rev, self.w_tok)),
+            markets.PRODUCT_ORDER.index(self.product), self.events_per_day,
+            workload_lib.clock_weight(self.workload_mix), self.ckpt_cost_s,
+            pue_aware=self.pue_aware, use_revenue=bool(self.w_rev),
+            use_workload=bool(self.w_tok), pue_design=self.pue_design)
 
     def select_hour(self, greenness, t_amb) -> OperatingPoint:
-        return select_operating_points(
-            greenness, t_amb, pue_aware=self.pue_aware,
-            pue_design=self.pue_design,
+        """Grid search; greenness/t_amb are scalars or batched.  Size-1
+        axes are squeezed, as the reference does."""
+        op = select_operating_points(
+            torch.atleast_1d(self._on_device(greenness)),
+            torch.atleast_1d(self._on_device(t_amb)),
+            pue_aware=self.pue_aware, pue_design=self.pue_design,
             weights=(self.w_ffr, self.w_cfe, self.w_rev, self.w_tok),
             product_idx=markets.PRODUCT_ORDER.index(self.product),
             events_per_day=self.events_per_day,
             clock_w=workload_lib.clock_weight(self.workload_mix),
             ckpt_cost_s=self.ckpt_cost_s,
             use_revenue=bool(self.w_rev), use_workload=bool(self.w_tok))
+        return OperatingPoint(mu=op.mu.squeeze(), rho=op.rho.squeeze())
 
     def select_day(self, ci_24h, t_amb_24h) -> OperatingPoint:
-        return self.select_hour(greenness_from_ci(ci_24h), t_amb_24h)
+        """Vectorised selection for a 24-entry forecast window."""
+        return self.select_hour(greenness_from_ci(self._on_device(ci_24h)),
+                                self._on_device(t_amb_24h))
 
 
 def cap_table(n_chips_per_host: int, host_design_w: float,

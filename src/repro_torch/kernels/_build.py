@@ -1,7 +1,7 @@
 """Build the port's CUDA kernels with ``nvcc`` and load them with ctypes.
 
 Each source ``csrc/<name>.cu`` compiles on its own into a shared library
-with a plain C interface:
+with a plain C interface, all sources at once, one ``nvcc`` each:
 
     nvcc -gencode arch=compute_90a,code=sm_90a -O3 -std=c++17 -shared
          -Xcompiler -fPIC -o build/kernels/<name>-<hash>.so csrc/<name>.cu
@@ -53,9 +53,10 @@ def library_path(name: str) -> Path:
 
 
 def build_all(names) -> dict[str, Path]:
-    """Compile every named source not built yet, one after another;
-    raises on the first failure with its output."""
+    """Compile every named source not built yet, one ``nvcc`` per source,
+    all started together; raises on a failure with its output."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    running = {}
     for name in names:
         out = library_path(name)
         if out.is_file():
@@ -63,13 +64,20 @@ def build_all(names) -> dict[str, Path]:
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
         cmd = [find_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
                str(CSRC / f"{name}.cu")]
-        res = subprocess.run(cmd, capture_output=True, text=True)
-        log = res.stdout + res.stderr
-        if res.returncode != 0:
-            raise RuntimeError(f"nvcc failed for {name}.cu "
-                               f"(exit {res.returncode}):\n{log}")
+        running[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                          stderr=subprocess.STDOUT,
+                                          text=True), tmp, out)
+    failed = []
+    for name, (proc, tmp, out) in running.items():
+        log, _ = proc.communicate()
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed for {name}.cu "
+                          f"(exit {proc.returncode}):\n{log}")
+            continue
         os.replace(tmp, out)
         PTXAS_REPORT[name] = log
+    if failed:
+        raise RuntimeError("\n".join(failed))
     return {name: library_path(name) for name in names}
 
 

@@ -143,3 +143,61 @@ def test_pad_weights_and_selector_and_cap_table():
     np.testing.assert_array_equal(n(got.rho), np.asarray(ref.rho))
     np.testing.assert_array_equal(tier3.cap_table(3, 900.0, 100.0, 300.0),
                                   r_tier3.cap_table(3, 900.0, 100.0, 300.0))
+
+
+def _forecast_24h(seed):
+    rng = np.random.default_rng(seed)
+    return (rng.uniform(50, 400, 24).astype(np.float32),
+            rng.uniform(-5, 30, 24).astype(np.float32))
+
+
+@pytest.mark.parametrize("price_aware", [False, True])
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_selector_and_hourly_plan_match_reference(price_aware, seed):
+    """Numpy forecasts of 24 h through the selector and through
+    ``GridPilot.hourly_plan``: the same (mu, rho) per hour, the same
+    objective, the same armed island row and plan."""
+    import repro.core.controller as r_ctl
+    import repro_torch.core.controller as p_ctl
+    ci, ta = _forecast_24h(seed)
+    w_rev = tier3.W_REV_DEFAULT if price_aware else 0.0
+    ref = r_tier3.Tier3Selector(w_rev=w_rev).select_day(ci, ta)
+    sel = tier3.Tier3Selector(w_rev=w_rev, device=CPU)
+    got = sel.select_day(ci, ta)
+    assert tuple(got.mu.shape) == tuple(np.shape(ref.mu)) == (24,)
+    np.testing.assert_array_equal(n(got.mu), np.asarray(ref.mu))
+    np.testing.assert_array_equal(n(got.rho), np.asarray(ref.rho))
+    g = r_tier3.greenness_from_ci(ci)
+    assert_close(n(sel.objective(got.mu, got.rho, torch.from_numpy(
+        np.array(g)), torch.from_numpy(ta))),
+        r_tier3.Tier3Selector(w_rev=w_rev).objective(ref.mu, ref.rho, g, ta),
+        **F32)
+    kw = dict(n_hosts=2, chips_per_host=2, start_island=False,
+              price_aware=price_aware)
+    gp_r, gp_p = r_ctl.GridPilot(**kw), p_ctl.GridPilot(**kw, device=CPU)
+    plan_r, plan_p = gp_r.hourly_plan(ci, ta), gp_p.hourly_plan(ci, ta)
+    assert gp_p.current_row == gp_r.current_row
+    assert gp_p.island.armed_row == gp_r.island.armed_row
+    assert plan_p == p_ctl.PowerPlan(**vars(plan_r))
+
+
+def test_select_hour_squeezes_like_the_reference():
+    sel, ref = tier3.Tier3Selector(device=CPU), r_tier3.Tier3Selector()
+    for g, ta in ((0.7, 12.0), (np.array([0.2]), np.array([25.0]))):
+        got, want = sel.select_hour(g, ta), ref.select_hour(g, ta)
+        assert tuple(got.mu.shape) == tuple(np.shape(want.mu)) == ()
+        assert float(got.mu) == pytest.approx(float(want.mu))
+        assert float(got.rho) == pytest.approx(float(want.rho))
+
+
+def test_selector_result_stays_on_the_device_it_was_given():
+    ci, ta = _forecast_24h(3)
+    op = tier3.Tier3Selector(device=CPU).select_day(ci, ta)
+    assert op.mu.device.type == op.rho.device.type == "cpu"
+    # tensors keep their own device, whatever the selector's default
+    op = tier3.Tier3Selector().select_day(torch.from_numpy(ci),
+                                          torch.from_numpy(ta))
+    assert op.mu.device.type == op.rho.device.type == "cpu"
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="cuda"):
+            tier3.Tier3Selector().select_day(ci, ta)
