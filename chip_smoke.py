@@ -15,7 +15,11 @@ nonzero exit and no result line:
               for the work (the bound); pid_update's L2-warm time; for
               flash_attention the time of one PyTorch call computing the
               same function (scaled_dot_product_attention, a yardstick
-              the port never calls)
+              the port never calls), also at zamba2-2.7b's head dim 80;
+              ssd_scan at the reference's test shapes and at both
+              full-width prefill calls (mamba2-1.3b, zamba2-2.7b) in f32
+              and bf16, against its plain version and the sequential
+              recurrence (no PyTorch call computes the SSD scan)
   tier1       the Tier-1 closed loop: pid_rollout_grid over the (4 targets
               x 3 loads) product, 32768 chips per cell (a ~10 MW site of
               300 W chips), 200 ticks = 1 s of the 200 Hz loop; counts the
@@ -31,6 +35,14 @@ nonzero exit and no result line:
   serve       run_serve at full qwen2-1.5b width, 8 requests, 32 prompt
               and 32 decode tokens, GridPilot on: the FFR shed at decode
               step 16 with its trigger-to-thinning time under 700 ms
+  prefill_ssm, decode_vs_forward_ssm, serve (mamba2-1.3b)
+              the same three at full mamba2-1.3b width and depth: exactly
+              48 ssd_scan launches per forward; decode against forward at
+              S = 256 (a multiple of the 256-token SSD chunk)
+  prefill_hybrid, decode_vs_forward_hybrid
+              zamba2-2.7b at full width and depth: exactly 54 ssd_scan and
+              9 flash_attention launches per forward; decode against
+              forward at S = 256
   engine      engine_rollout(reduce="summary") on the full E9 batch (288
               scenarios, 6 countries x 3 seeds x 2 products x 4 bands x 2
               event draws) over 24 h, or the longest whole number of hours
@@ -67,7 +79,15 @@ FLASH_TOL = {"float32": dict(atol=2e-5, rtol=2e-5),
              "bfloat16": dict(atol=2e-2, rtol=2e-2)}
 FLASH_TOL_LONG_F32 = dict(atol=1e-4, rtol=1e-4)
 PREFILL_SHAPE = (2, 4096, 12, 2, 128)    # qwen2-1.5b's heads at S = 4096
+ZAMBA2_ATTN_SHAPE = (2, 4096, 32, 32, 80)  # zamba2-2.7b's shared block
 DECODE_TOL = dict(atol=2e-3, rtol=2e-3)  # tests/test_models.py
+# ssd_scan: the reference's kernel tolerances (tests/test_kernels.py)
+SSD_TOL = {"chunked": dict(atol=1e-4, rtol=1e-4),
+           "oracle": dict(atol=5e-4, rtol=5e-3),
+           "bfloat16": dict(atol=0.15, rtol=0.1)}
+# (b, s, nh, hd, ds, chunk) of the prefill's calls at (2, 4096) tokens
+SSD_PREFILL = {"mamba2-1.3b": (2, 4096, 64, 64, 128, 256),
+               "zamba2-2.7b": (2, 4096, 80, 64, 64, 256)}
 
 
 def emit(obj):
@@ -91,11 +111,11 @@ def cuda_time_ms(torch, fn, reps=100):
     return statistics.median(times)
 
 
-def profile_calls(torch, fn, reps, match=None):
+def profile_calls(torch, fn, reps, match=()):
     """Run ``fn`` ``reps`` times under torch.profiler (CUPTI): device time
     and kernel launches per call, the device time per call of the kernels
-    whose name holds ``match``, and the five ops with the most host time
-    (inflated by the profiler; for ranking only)."""
+    whose name holds each string of ``match``, and the five ops with the
+    most host time (inflated by the profiler; for ranking only)."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
@@ -116,8 +136,9 @@ def profile_calls(torch, fn, reps, match=None):
                  key=lambda e: e.self_cpu_time_total, reverse=True)[:5]
     return {
         "device_us_per_call": sum(dev_us(e) for e in kernels) / reps,
-        "matched_us_per_call": sum(dev_us(e) for e in kernels
-                                   if match and match in e.key) / reps,
+        "matched_us_per_call": {m: sum(dev_us(e) for e in kernels
+                                       if m in e.key) / reps
+                                for m in match},
         "launches_per_call": sum(e.count for e in kernels) / reps,
         "kernels": {e.key[:60]: dev_us(e) / max(e.count, 1)
                     for e in sorted(kernels, key=dev_us, reverse=True)[:5]},
@@ -278,7 +299,8 @@ def phase_tier1(torch):
 def flash_cases():
     """(shape (B, S, H, Hkv, D), dtype name, window) of the kernel check:
     the reference's test shapes in both dtypes, its windows, the padded
-    head_dim-128 GQA case and the prefill shape."""
+    head_dim-128 GQA case, the prefill shape and zamba2-2.7b's shared
+    block (head dim 80, window 4096)."""
     cases = [(shape, dt, 0) for shape in ((1, 128, 4, 4, 32),
                                           (2, 256, 4, 2, 64),
                                           (1, 256, 8, 1, 64),
@@ -286,7 +308,8 @@ def flash_cases():
              for dt in ("float32", "bfloat16")]
     cases += [((1, 256, 2, 2, 32), "float32", w) for w in (32, 64, 100)]
     cases += [((1, 1000, 12, 2, 128), "float32", 0),
-              (PREFILL_SHAPE, "bfloat16", 0)]
+              (PREFILL_SHAPE, "bfloat16", 0),
+              (ZAMBA2_ATTN_SHAPE, "bfloat16", 4096)]
     return cases
 
 
@@ -312,8 +335,55 @@ def flash_bound_ms(shape, dtype, window=0):
         "operations" if t_ops >= t_bytes else "bytes", flops, nbytes
 
 
-def phase_flash_kernel(torch):
+def time_flash(torch, g, shape, window):
+    """Cold-L2 device times at one bf16 shape (enough input sets that four
+    L2s of traffic pass between two reads of one set): the kernel, its
+    plain version and scaled_dot_product_attention on (B, H, S, D) copies
+    laid out before the clock starts."""
     import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as fa
+    q, k, v = flash_inputs(torch, g, shape, torch.bfloat16)
+    set_bytes = sum(x.numel() * x.element_size() for x in (q, k, v))
+    n_sets = math.ceil(4 * l2_bytes(torch) / set_bytes)
+    sets = [flash_inputs(torch, g, shape, torch.bfloat16)
+            for _ in range(n_sets)]
+    sdpa_sets = [tuple(x.transpose(1, 2).contiguous() for x in st)
+                 for st in sets]
+    if 0 < window < shape[1]:
+        raise ValueError("the causal SDPA yardstick computes the same "
+                         "function only for a window of 0 or >= S")
+
+    def kernel(q, k, v):
+        return fa.flash_attention(q, k, v, causal=True, window=window)
+
+    def plain(q, k, v):
+        return fa.flash_attention_ref(q, k, v, causal=True, window=window)
+
+    def sdpa(q, k, v):
+        return F.scaled_dot_product_attention(q, k, v, is_causal=True,
+                                              enable_gqa=True)
+
+    kept = []
+    prof_k = profile_calls(torch, cycled(sets, kernel, kept), 20)
+    kept.clear()
+    prof_p = profile_calls(torch, cycled(sets, plain, kept), 3)
+    kept.clear()
+    prof_l = profile_calls(torch, cycled(sdpa_sets, sdpa, kept), 20)
+    kept.clear()
+    bound_ms, bound_by, flops, nbytes = flash_bound_ms(shape, "bfloat16",
+                                                       window)
+    ms = prof_k["device_us_per_call"] / 1e3
+    return {"shape": list(shape), "dtype": "bfloat16", "window": window,
+            "ms": ms, "plain_ms": prof_p["device_us_per_call"] / 1e3,
+            "library_ms": prof_l["device_us_per_call"] / 1e3,
+            "bound_ms": bound_ms, "bound_by": bound_by, "gflop": flops / 1e9,
+            "mbytes": nbytes / 1e6, "tflop_s": flops / (ms * 1e-3) / 1e12,
+            "cold_sets": n_sets,
+            "plain_launches_per_call": prof_p["launches_per_call"],
+            "library_kernels": prof_l["kernels"]}
+
+
+def phase_flash_kernel(torch):
     from repro_torch.kernels import flash_attention as fa
     g = torch.Generator(device="cuda").manual_seed(1)
     checks, worst = [], 0.0
@@ -331,73 +401,185 @@ def phase_flash_kernel(torch):
         checks.append({"shape": list(shape), "dtype": dt, "window": window,
                        "max_abs_err": err, "tol": tol})
         del q, k, v, got, want
-    # device time at the prefill shape with a cold L2: enough input sets
-    # that four L2s of traffic pass between two reads of one set
-    shape = PREFILL_SHAPE
-    q, k, v = flash_inputs(torch, g, shape, torch.bfloat16)
-    set_bytes = sum(x.numel() * x.element_size() for x in (q, k, v))
-    n_sets = math.ceil(4 * l2_bytes(torch) / set_bytes)
-    sets = [flash_inputs(torch, g, shape, torch.bfloat16)
-            for _ in range(n_sets)]
-    # scaled_dot_product_attention takes (B, H, S, D): its sets are laid
-    # out so before the clock starts
-    sdpa_sets = [tuple(x.transpose(1, 2).contiguous() for x in st)
-                 for st in sets]
-    kept = []
-    prof_k = profile_calls(torch, cycled(sets, fa.flash_attention, kept),
-                           20)
-    kept.clear()
-    prof_p = profile_calls(
-        torch, cycled(sets, fa.flash_attention_ref, kept), 3)
-    kept.clear()
-
-    def sdpa(q, k, v):
-        return F.scaled_dot_product_attention(q, k, v, is_causal=True,
-                                              enable_gqa=True)
-
-    prof_l = profile_calls(torch, cycled(sdpa_sets, sdpa, kept), 20)
-    kept.clear()
-    ms = prof_k["device_us_per_call"] / 1e3
-    bound_ms, bound_by, flops, nbytes = flash_bound_ms(shape, "bfloat16")
+    torch.cuda.empty_cache()
+    t = time_flash(torch, g, PREFILL_SHAPE, 0)
+    d80 = time_flash(torch, g, ZAMBA2_ATTN_SHAPE, ZAMBA2_ATTN_SHAPE[1])
     rec = {"name": "flash_attention", "route": "cuda",
            "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
            "replaces": "src/repro/kernels/flash_attention.py:139",
-           "max_abs_err": worst, "ms": ms,
-           "plain_ms": prof_p["device_us_per_call"] / 1e3,
-           "bound_ms": bound_ms, "bound_by": bound_by,
-           "library_ms": prof_l["device_us_per_call"] / 1e3,
-           "shape": list(shape), "dtype": "bfloat16"}
+           "max_abs_err": worst, "ms": t["ms"], "plain_ms": t["plain_ms"],
+           "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+           "library_ms": t["library_ms"], "shape": list(PREFILL_SHAPE),
+           "dtype": "bfloat16"}
     emit({"phase": "kernel", "name": "flash_attention", "checks": checks,
-          "shape": list(shape), "dtype": "bfloat16", "ms": ms,
-          "plain_ms": rec["plain_ms"], "library_ms": rec["library_ms"],
-          "library": "torch.nn.functional.scaled_dot_product_attention("
-                     "is_causal=True, enable_gqa=True) on (B, H, S, D)",
-          "bound_ms": bound_ms, "bound_by": bound_by, "gflop": flops / 1e9,
-          "mbytes": nbytes / 1e6, "tflop_s": flops / (ms * 1e-3) / 1e12,
-          "cold_sets": n_sets,
-          "plain_launches_per_call": prof_p["launches_per_call"],
-          "library_kernels": prof_l["kernels"]})
+          **t, "library": "torch.nn.functional.scaled_dot_product_attention("
+                          "is_causal=True, enable_gqa=True) on (B, H, S, D)",
+          "head_dim_80": d80})
     return rec
 
 
-def qwen2_full():
+def ssd_inputs(torch, g, b, s, nh, hd, ds, dtype):
+    """x, dt = softplus(N), A = -exp(0.5 N), B, C as the reference's kernel
+    tests draw them; x, B and C in ``dtype`` (B and C as the model passes
+    them: halves of one (b, s, 2 ds) projection), dt and A float32."""
+    def n(*shape):
+        return torch.randn(*shape, device="cuda", generator=g)
+    x = n(b, s, nh, hd).to(dtype)
+    dt = torch.nn.functional.softplus(n(b, s, nh))
+    A = -torch.exp(0.5 * n(nh))
+    B, C = n(b, s, 2 * ds).to(dtype).chunk(2, dim=-1)
+    return x, dt, A, B, C
+
+
+def ssd_bound_ms(shape, dtype):
+    """The least work of one call: C B^T once per (b, chunk) and, per
+    head, (L * S) dt x, B^T (w x) and C . state, causal halves counted
+    once; against reading x, dt, B, C once and writing y once.  Returns
+    the bound at the dtype's peak (bf16: tensor cores, f32: the CUDA
+    cores), which of the two sets it, the f32 CUDA-core time of the same
+    operations, flop and bytes."""
+    b, s, nh, hd, ds, q = shape
+    nc = s // q
+    tri = q * (q + 1) // 2
+    macs = b * nc * (tri * ds + nh * (tri * hd + 2 * q * hd * ds))
+    flops = 2.0 * macs
+    elem = 2 if dtype == "bfloat16" else 4
+    nbytes = elem * (2 * b * s * nh * hd + 2 * b * s * ds) + 4 * (b * s * nh
+                                                                  + nh)
+    peak = TENSOR_CORE_BF16_FLOP_S if dtype == "bfloat16" else FP32_FLOP_S
+    t_ops, t_bytes = flops / peak, nbytes / HBM_BYTES_PER_S
+    return (max(t_ops, t_bytes) * 1e3,
+            "operations" if t_ops >= t_bytes else "bytes",
+            flops / FP32_FLOP_S * 1e3, flops, nbytes)
+
+
+def phase_ssd_kernel(torch):
+    """ssd_scan against its plain version (chunked, 1e-4 in f32) and the
+    sequential recurrence (5e-4/5e-3 in f32, 0.15/0.1 in bf16), then its
+    cold-L2 device time at both prefill calls in bf16."""
+    from repro_torch.kernels import ssd_scan as sk
+    g = torch.Generator(device="cuda").manual_seed(4)
+    cases = [((1, 64, 4, 16, 16, 16), "float32"),
+             ((2, 128, 8, 16, 32, 32), "float32"),
+             ((1, 256, 16, 32, 64, 64), "float32"),
+             ((2, 96, 4, 16, 16, 32), "float32"),
+             ((1, 128, 4, 16, 32, 32), "bfloat16")]
+    cases += [(shape, dt) for shape in SSD_PREFILL.values()
+              for dt in ("float32", "bfloat16")]
+    checks, worst = [], 0.0
+    for shape, dt in cases:
+        *dims, chunk = shape
+        args = ssd_inputs(torch, g, *dims, getattr(torch, dt))
+        got = sk.ssd_scan(*args, chunk=chunk)
+        torch.cuda.synchronize()
+        oracle = sk.ssd_ref(args[0].float(), *args[1:])
+        row = {"shape": list(shape), "dtype": dt}
+        if dt == "float32":
+            want = sk.ssd_scan_ref(*args, chunk)[0]
+            torch.testing.assert_close(got, want, **SSD_TOL["chunked"])
+            torch.testing.assert_close(got, oracle, **SSD_TOL["oracle"])
+            row["max_abs_err"] = float((got - want).abs().max())
+            row["max_abs_err_oracle"] = float((got - oracle).abs().max())
+            worst = max(worst, row["max_abs_err"])
+        else:
+            torch.testing.assert_close(got.float(), oracle,
+                                       **SSD_TOL["bfloat16"])
+            want = sk.ssd_scan_ref(*args, chunk)[0]
+            row["max_abs_err"] = float((got.float() - want.float())
+                                       .abs().max())
+            row["max_abs_err_oracle"] = float((got.float() - oracle)
+                                              .abs().max())
+        row["y_absmax"] = float(oracle.abs().max())
+        checks.append(row)
+        del args, got, oracle, want
+    torch.cuda.empty_cache()
+    timed = {}
+    for arch, shape in SSD_PREFILL.items():
+        *dims, chunk = shape
+        one = ssd_inputs(torch, g, *dims, torch.bfloat16)
+        set_bytes = sum(x.numel() * x.element_size() for x in one)
+        n_sets = math.ceil(4 * l2_bytes(torch) / set_bytes)
+        sets = [ssd_inputs(torch, g, *dims, torch.bfloat16)
+                for _ in range(n_sets)]
+        kept = []
+        prof_k = profile_calls(torch, cycled(
+            sets, lambda *a: sk.ssd_scan(*a, chunk=chunk), kept), 10)
+        kept.clear()
+        prof_p = profile_calls(torch, cycled(
+            sets, lambda *a: sk.ssd_scan_ref(*a, chunk)[0], kept), 3)
+        kept.clear()
+        bound_ms, bound_by, f32_ms, flops, nbytes = ssd_bound_ms(
+            shape, "bfloat16")
+        ms = prof_k["device_us_per_call"] / 1e3
+        timed[arch] = {"shape": list(shape), "dtype": "bfloat16", "ms": ms,
+                       "plain_ms": prof_p["device_us_per_call"] / 1e3,
+                       "bound_ms": bound_ms, "bound_by": bound_by,
+                       "f32_cuda_core_bound_ms": f32_ms,
+                       "bytes_bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
+                       "gflop": flops / 1e9, "mbytes": nbytes / 1e6,
+                       "tflop_s": flops / (ms * 1e-3) / 1e12,
+                       "cold_sets": n_sets,
+                       "plain_launches_per_call":
+                           prof_p["launches_per_call"]}
+        del one, sets
+        torch.cuda.empty_cache()
+    m = timed["mamba2-1.3b"]
+    rec = {"name": "ssd_scan", "route": "cuda",
+           "source": "src/repro_torch/kernels/csrc/ssd_scan.cu",
+           "replaces": "src/repro/kernels/ssd_scan.py:105",
+           "max_abs_err": worst, "ms": m["ms"], "plain_ms": m["plain_ms"],
+           "bound_ms": m["bound_ms"], "bound_by": m["bound_by"],
+           "library_ms": None, "shape": m["shape"], "dtype": "bfloat16"}
+    emit({"phase": "kernel", "name": "ssd_scan", "checks": checks,
+          "tol": SSD_TOL, "timed": timed,
+          "library": "none: no PyTorch call computes the SSD scan"})
+    return rec
+
+
+def launch_counters():
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.ssd_scan import ssd_scan
+    return {"flash_attention": flash_attention, "ssd_scan": ssd_scan}
+
+
+def count_launches(torch, fn):
+    """Run ``fn`` with every kernel's launch count set to 0 just before;
+    returns its result and the counts just after."""
+    counters = launch_counters()
+    for c in counters.values():
+        c.launches = 0
+    out = fn()
+    torch.cuda.synchronize()
+    return out, {k: c.launches for k, c in counters.items()}
+
+
+def check_launches(phase, got, want):
+    for name, n in want.items():
+        if got[name] != n:
+            raise RuntimeError(f"{phase}: {name} launched {got[name]} times, "
+                               f"expected {n}")
+    for name, n in got.items():
+        if name not in want and n:
+            raise RuntimeError(f"{phase}: {name} launched {n} times, "
+                               "expected none")
+
+
+def get_cfg(name):
     from repro_torch.configs import get_arch
-    return get_arch("qwen2-1.5b")
+    return get_arch(name)
 
 
-def phase_prefill(torch):
-    """Full-width qwen2-1.5b prefill in bf16; returns the flash_attention
-    launches of one forward and the (f32) parameters."""
-    from repro_torch.kernels.flash_attention import flash_attention as fa
+def phase_prefill(torch, phase, cfg, expect):
+    """Model.forward at full width and depth (random weights from a seed,
+    bf16 compute) on (2, 4096) tokens, last_only; returns the launches of
+    one forward and the (f32) parameters."""
     from repro_torch.models import build_model
-    cfg = qwen2_full()
     model = build_model(cfg, compute_dtype=torch.bfloat16, device="cuda")
     t0 = time.perf_counter()
     params = model.init(0)
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
-    n_params = sum(p.numel() for p in params["layers"].values()) + sum(
-        p.numel() for k, p in params.items() if k != "layers")
+    n_params = sum(p.numel() for p in all_tensors(params))
     b, s = PREFILL_SHAPE[:2]
     g = torch.Generator(device="cuda").manual_seed(2)
     batch = {"tokens": torch.randint(0, cfg.vocab_size, (b, s), generator=g,
@@ -405,19 +587,15 @@ def phase_prefill(torch):
     model.forward(params, batch, last_only=True)  # first launches
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    fa.launches = 0
     t0 = time.perf_counter()
-    logits = model.forward(params, batch, last_only=True)
-    torch.cuda.synchronize()
+    logits, launches = count_launches(
+        torch, lambda: model.forward(params, batch, last_only=True))
     first_ms = (time.perf_counter() - t0) * 1e3
-    launches = fa.launches
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    if launches != cfg.num_layers:
-        raise RuntimeError(f"flash_attention launched {launches} times in "
-                           f"one forward of {cfg.num_layers} layers")
+    check_launches(phase, launches, expect)
     if tuple(logits.shape) != (b, 1, cfg.padded_vocab) or \
             not all_finite(torch, logits):
-        raise RuntimeError(f"prefill logits {tuple(logits.shape)} are not "
+        raise RuntimeError(f"{phase}: logits {tuple(logits.shape)} are not "
                            "finite (B, 1, V)")
     times = []
     for _ in range(3):
@@ -427,45 +605,51 @@ def phase_prefill(torch):
         times.append((time.perf_counter() - t0) * 1e3)
     prof = profile_calls(
         torch, lambda i=0: model.forward(params, batch, last_only=True), 1,
-        match="flash_fwd")
+        match=("flash_fwd", "ssd_scan_kernel"))
     ms = statistics.median(times)
-    emit({"phase": "prefill", "arch": cfg.name, "params": n_params,
+    emit({"phase": phase, "arch": cfg.name, "params": n_params,
           "param_gb_f32": n_params * 4 / 1e9, "init_s": init_s,
           "batch": b, "seq": s, "compute_dtype": "bfloat16",
-          "flash_attention_launches": launches, "ms_per_forward": ms,
+          "launches": launches, "ms_per_forward": ms,
           "first_ms": first_ms, "forwards_ms": times,
           "tokens_per_s": b * s / (ms * 1e-3), "peak_gb": peak_gb,
           "device_ms_per_forward": prof["device_us_per_call"] / 1e3,
-          "attention_device_ms": prof["matched_us_per_call"] / 1e3,
+          "kernel_device_ms": {k: v / 1e3 for k, v in
+                               prof["matched_us_per_call"].items()},
           "launches_per_forward": prof["launches_per_call"],
           "top_kernels_us": prof["kernels"],
           "logits_absmax": float(logits[..., :cfg.vocab_size].abs().max())})
     return launches, params
 
 
-def phase_decode_vs_forward(torch, params):
+def all_tensors(tree):
+    for v in tree.values():
+        if isinstance(v, dict):
+            yield from all_tensors(v)
+        else:
+            yield v
+
+
+def phase_decode_vs_forward(torch, phase, cfg, params, seq, expect):
     """Full width, f32: teacher-forced decode logits against the forward's
-    (the kernel against the decode path, on the card, without JAX)."""
-    from repro_torch.kernels.flash_attention import flash_attention as fa
+    (the kernels against the decode path, on the card, without JAX)."""
     from repro_torch.models import build_model
-    cfg = qwen2_full()
     model = build_model(cfg, compute_dtype=torch.float32, device="cuda")
-    b, s = 2, 64
+    b = 2
     g = torch.Generator(device="cuda").manual_seed(3)
-    tokens = torch.randint(0, cfg.vocab_size, (b, s), generator=g,
+    tokens = torch.randint(0, cfg.vocab_size, (b, seq), generator=g,
                            device="cuda")
-    fa.launches = 0
-    full = model.forward(params, {"tokens": tokens})
-    torch.cuda.synchronize()
-    launches = fa.launches
-    cache = model.init_cache(b, s)
+    full, launches = count_launches(
+        torch, lambda: model.forward(params, {"tokens": tokens}))
+    check_launches(phase, launches, expect)
+    cache = model.init_cache(b, seq)
     dec = []
     t0 = time.perf_counter()
-    for i in range(s):
+    for i in range(seq):
         logits, cache = model.decode_step(params, cache, tokens[:, i])
         dec.append(logits)
     torch.cuda.synchronize()
-    step_ms = (time.perf_counter() - t0) / s * 1e3
+    step_ms = (time.perf_counter() - t0) / seq * 1e3
     dec = torch.stack(dec, 1)
     # where a decode step's time goes: one step on a cache of its own
     prof_cache = model.init_cache(b, 4)
@@ -474,12 +658,9 @@ def phase_decode_vs_forward(torch, params):
     v = cfg.vocab_size
     err = float((dec[..., :v] - full[..., :v]).abs().max())
     torch.testing.assert_close(dec, full, **DECODE_TOL)
-    if launches != cfg.num_layers:
-        raise RuntimeError(f"flash_attention launched {launches} times in "
-                           "the f32 forward")
-    emit({"phase": "decode_vs_forward", "arch": cfg.name, "batch": b,
-          "seq": s, "dtype": "float32", "max_abs_err": err,
-          "tol": DECODE_TOL, "flash_attention_launches": launches,
+    emit({"phase": phase, "arch": cfg.name, "batch": b, "seq": seq,
+          "dtype": "float32", "depth": cfg.num_layers, "cut": None,
+          "max_abs_err": err, "tol": DECODE_TOL, "launches": launches,
           "decode_ms_per_step": step_ms,
           "decode_device_ms_per_step": prof["device_us_per_call"] / 1e3,
           "decode_launches_per_step": prof["launches_per_call"],
@@ -487,12 +668,14 @@ def phase_decode_vs_forward(torch, params):
           "logits_absmax": float(full[..., :v].abs().max())})
 
 
-def phase_serve(torch):
+def phase_serve(torch, arch):
+    """run_serve at full width with GridPilot on; returns nothing, fails
+    unless the FFR shed lands at the middle decode step under budget."""
     from repro_torch.launch.serve import build_parser, run_serve
     from repro_torch.obs import trace
-    args = build_parser().parse_args(["--gridpilot"])
+    args = build_parser().parse_args(["--gridpilot", "--arch", arch])
     trace.get_tracer().clear()
-    out = run_serve(args, cfg=qwen2_full(), device="cuda")
+    out = run_serve(args, cfg=get_cfg(arch), device="cuda")
     budget_ms = 700.0  # FFR activation budget
     if out["shed_at"] != args.decode_tokens // 2 or \
             not out["active"] < out["batch"] or out["response_ms"] is None \
@@ -684,17 +867,45 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     pid_rec = phase_kernel(torch)
     flash_rec = phase_flash_kernel(torch)
+    ssd_rec = phase_ssd_kernel(torch)
     pid_rec["launches"] = phase_tier1(torch)
-    flash_rec["launches"], params = phase_prefill(torch)
-    phase_decode_vs_forward(torch, params)
+
+    def free():
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+
+    qwen2 = get_cfg("qwen2-1.5b")
+    launches, params = phase_prefill(
+        torch, "prefill", qwen2, {"flash_attention": qwen2.num_layers})
+    flash_rec["launches"] = launches["flash_attention"]
+    phase_decode_vs_forward(torch, "decode_vs_forward", qwen2, params, 64,
+                            {"flash_attention": qwen2.num_layers})
     del params
-    torch.cuda.empty_cache()
-    phase_serve(torch)
-    torch.cuda.empty_cache()
+    free()
+    phase_serve(torch, "qwen2-1.5b")
+    free()
+    mamba2 = get_cfg("mamba2-1.3b")
+    launches, params = phase_prefill(
+        torch, "prefill_ssm", mamba2, {"ssd_scan": mamba2.num_layers})
+    ssd_rec["launches"] = launches["ssd_scan"]
+    phase_decode_vs_forward(torch, "decode_vs_forward_ssm", mamba2, params,
+                            256, {"ssd_scan": mamba2.num_layers})
+    del params
+    free()
+    phase_serve(torch, "mamba2-1.3b")
+    free()
+    zamba2 = get_cfg("zamba2-2.7b")
+    hybrid = {"ssd_scan": zamba2.num_layers,
+              "flash_attention": zamba2.num_layers // zamba2.hybrid_period}
+    _, params = phase_prefill(torch, "prefill_hybrid", zamba2, hybrid)
+    phase_decode_vs_forward(torch, "decode_vs_forward_hybrid", zamba2,
+                            params, 256, hybrid)
+    del params
+    free()
     phase_engine(torch)
     phase_cpu_vs_gpu(torch)
     phase_sweep(torch)
-    emit({"kernels": [pid_rec, flash_rec]})
+    emit({"kernels": [pid_rec, flash_rec, ssd_rec]})
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,

@@ -121,8 +121,9 @@ def model_params(params: dict, device="cuda") -> dict:
 
 
 def decode_cache(cache: dict, device="cuda") -> dict:
-    """A reference decode cache (``k``, ``v``, ``pos_buf``, ``cur`` as
-    numpy) as the port's: tensors, with ``cur`` a Python int."""
+    """A reference decode cache (``k``/``v``/``pos_buf``, ``ssm``/``conv``
+    or both, and ``cur``, as numpy) as the port's: tensors with their
+    dtypes kept, ``cur`` a Python int."""
     dev = resolve_device(device)
     out = {k: torch.as_tensor(np.array(v), device=dev)
            for k, v in cache.items() if k != "cur"}

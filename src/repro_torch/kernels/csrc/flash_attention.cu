@@ -440,6 +440,7 @@ extern "C" int flash_attention_launch(
     case 16: err = launch<16>(dtype, q, k, v, o, B, H, st, p, s); break;
     case 32: err = launch<32>(dtype, q, k, v, o, B, H, st, p, s); break;
     case 64: err = launch<64>(dtype, q, k, v, o, B, H, st, p, s); break;
+    case 80: err = launch<80>(dtype, q, k, v, o, B, H, st, p, s); break;
     case 128: err = launch<128>(dtype, q, k, v, o, B, H, st, p, s); break;
     default: err = cudaErrorInvalidValue;
   }

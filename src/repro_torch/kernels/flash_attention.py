@@ -28,7 +28,7 @@ import torch
 from repro_torch.kernels import _build
 
 NEG_INF = -1e30
-HEAD_DIMS = (16, 32, 64, 128)
+HEAD_DIMS = (16, 32, 64, 80, 128)
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 BLOCK_K = 128  # the TPU kernel's kv block, which sets its padding contract
 
@@ -108,7 +108,7 @@ def _check_cuda_layout(x, name: str, dev) -> None:
 
 def flash_attention(q, k, v, *, causal: bool = True, window: int = 0):
     """Launch the CUDA kernel: q (B, Sq, H, D), k and v (B, Sk, Hkv, D),
-    float32 or bfloat16 on one CUDA device, D in 16/32/64/128, the head
+    float32 or bfloat16 on one CUDA device, D in 16/32/64/80/128, the head
     dim contiguous.  Returns (B, Sq, H, D) in q's dtype.
 
     Adds one to ``flash_attention.launches`` for each launch.  Raises on

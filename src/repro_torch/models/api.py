@@ -1,9 +1,11 @@
-"""Model facade: the port of ``repro.models.api`` for the dense family.
+"""Model facade: the port of ``repro.models.api`` for the dense, SSM and
+hybrid families.
 
 `Model` exposes what the serving launcher needs:
   specs()                        -> ParamSpec tree (no allocation)
   init(seed)                     -> params on the model's device
-  forward(params, batch)         (prefill: runs the flash_attention kernel)
+  forward(params, batch)         (prefill: runs the flash_attention and
+                                  ssd_scan kernels)
   decode_step(params, cache, tokens)
   cache_specs(batch, seq) / init_cache(batch, seq)
 

@@ -9,6 +9,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
+from typing import NamedTuple
 
 import torch
 
@@ -42,6 +43,12 @@ class ParamSpec:
         x = torch.randn(self.shape, generator=generator, device=device,
                         dtype=torch.float32)
         return (x.mul_(scale)).to(self.dtype)
+
+
+class TensorSpec(NamedTuple):
+    """Shape and dtype of a cache tensor, without allocating it."""
+    shape: tuple
+    dtype: torch.dtype
 
 
 def init_tree(specs, generator: torch.Generator, device):

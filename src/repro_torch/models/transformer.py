@@ -1,43 +1,45 @@
-"""Decoder-only LM, dense family: the port of ``repro.models.transformer``.
+"""Decoder-only LM, dense, SSM and hybrid families: the port of
+``repro.models.transformer``.
 
-Parameters are stacked over layers, as the reference stores them, and the
-trunk is a Python loop over the layer axis.  Full-sequence attention (the
-prefill) runs ``kernels.ops.flash_attention``: the hand-written CUDA
-kernel on the card, its plain version on the CPU.  Decoding keeps the KV
-cache in a dict of tensors that ``lm_decode_step`` updates in place, and
+Parameters are stacked over layers, as the reference stores them (the
+hybrid family over (n_chunks, period) with one ``shared`` attention+MLP
+block), and the trunk is a Python loop over the layer axis.  The prefill
+runs the port's kernels through ``kernels.ops``: ``flash_attention`` for
+full-sequence attention and, in ``models/ssd.py``, ``ssd_scan`` for every
+Mamba-2 layer -- the hand-written CUDA kernels on the card, their plain
+versions on the CPU.  Decoding keeps the cache (K/V, or the SSM and conv
+state) in a dict of tensors that ``lm_decode_step`` updates in place, and
 the decode position ``cache["cur"]`` is a Python int, so no index waits
 on the device.
 
-The MoE, SSM, hybrid, enc-dec and VLM families are later slices of the
-port: their configs raise ``NotImplementedError`` naming the ROADMAP item.
-With them go the reference's MoE aux loss and VLM frontend embeddings,
-which the dense family does not have: here ``lm_forward`` returns the
-logits alone.
+The MoE, enc-dec and VLM families are a later slice of the port: their
+configs raise ``NotImplementedError`` naming the ROADMAP item.  With them
+go the reference's MoE aux loss and VLM frontend embeddings, which the
+ported families do not have: here ``lm_forward`` returns the logits
+alone.
 """
 from __future__ import annotations
 
 import math
-from typing import NamedTuple
 
 import torch
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.kernels import ops
-from repro_torch.models.layers import ParamSpec, apply_rope, gated_mlp, \
-    rmsnorm
+from repro_torch.models import ssd as ssd_lib
+from repro_torch.models.layers import ParamSpec, TensorSpec, apply_rope, \
+    gated_mlp, rmsnorm
 
-_LATER = {"moe": "ROADMAP A13c", "vlm": "ROADMAP A13c",
-          "encdec": "ROADMAP A13c", "ssm": "ROADMAP A13b",
-          "hybrid": "ROADMAP A13b"}
+PORTED = ("dense", "ssm", "hybrid")
 
 
 def check_family(cfg: ArchConfig) -> None:
     """Raise ``NotImplementedError`` for a family the port has not yet."""
-    if cfg.family != "dense":
+    if cfg.family not in PORTED:
         raise NotImplementedError(
             f"{cfg.name}: the {cfg.family!r} family is not ported yet "
-            f"({_LATER.get(cfg.family, 'ROADMAP A13')}); the port runs the "
-            "dense family")
+            f"(ROADMAP A13c); the port runs the {', '.join(PORTED)} "
+            "families")
 
 
 # ---------------------------------------------------------------------------
@@ -86,6 +88,30 @@ def lm_specs(cfg: ArchConfig, dtype=torch.float32) -> dict:
         specs["unembed"] = ParamSpec((d, cfg.padded_vocab),
                                      ("embed", "vocab"), dtype)
     L = (cfg.num_layers,)
+    if cfg.family == "ssm":
+        specs["layers"] = {
+            "ln1": ParamSpec(L + (d,), ("layers", None), dtype, "ones"),
+            **ssd_lib.ssd_specs(cfg, cfg.num_layers, dtype),
+        }
+        return specs
+    if cfg.family == "hybrid":
+        lead = (cfg.num_layers // cfg.hybrid_period, cfg.hybrid_period)
+        specs["layers"] = {
+            "ln1": ParamSpec(lead + (d,), ("layers", "layers", None), dtype,
+                             "ones"),
+            **{k: ParamSpec(lead + s.shape[1:], ("layers",) + s.axes,
+                            s.dtype, s.init)
+               for k, s in ssd_lib.ssd_specs(cfg, cfg.hybrid_period,
+                                             dtype).items()},
+        }
+        # one attention+MLP block, shared by every chunk
+        specs["shared"] = {
+            "ln1": ParamSpec((d,), (None,), dtype, "ones"),
+            "ln2": ParamSpec((d,), (None,), dtype, "ones"),
+            **attn_specs(cfg, (), dtype),
+            **dense_ffn_specs(cfg, (), dtype),
+        }
+        return specs
     specs["layers"] = {
         "ln1": ParamSpec(L + (d,), ("layers", None), dtype, "ones"),
         "ln2": ParamSpec(L + (d,), ("layers", None), dtype, "ones"),
@@ -135,13 +161,26 @@ def _layer(cfg, x, lp, positions):
     # mixed precision: params stored f32, computed in x.dtype (bf16)
     lp = _cast(lp, x.dtype)
     h = rmsnorm(x, lp["ln1"], cfg.norm_eps)
+    if cfg.family in ("ssm", "hybrid"):  # hybrid inner layers are Mamba-2
+        return x + ssd_lib.ssd_block(cfg, lp, h, cfg.norm_eps)
     a, _, _ = attn_block(cfg, lp, h, positions, window=cfg.sliding_window)
     x = x + a
     return x + mlp_block(cfg, lp, rmsnorm(x, lp["ln2"], cfg.norm_eps))
 
 
-def _layer_params(params, i: int) -> dict:
-    return {k: p[i] for k, p in params["layers"].items()}
+def shared_block(cfg, sp, x, positions, window):
+    """The hybrid family's shared attention+MLP block."""
+    sp = _cast(sp, x.dtype)
+    h = rmsnorm(x, sp["ln1"], cfg.norm_eps)
+    a, _, _ = attn_block(cfg, sp, h, positions, window=window)
+    x = x + a
+    return x + mlp_block(cfg, sp, rmsnorm(x, sp["ln2"], cfg.norm_eps))
+
+
+def _layer_params(params, *idx) -> dict:
+    """One layer's parameters: index ``(i,)``, or ``(chunk, j)`` of the
+    hybrid family's (n_chunks, period) stack."""
+    return {k: p[idx] for k, p in params["layers"].items()}
 
 
 # ---------------------------------------------------------------------------
@@ -157,8 +196,15 @@ def embed_tokens(params, tokens, dtype):
 
 def lm_trunk(cfg: ArchConfig, params, x, positions):
     """Embeddings -> final norm. x: (B,S,D)."""
-    for i in range(cfg.num_layers):
-        x = _layer(cfg, x, _layer_params(params, i), positions)
+    if cfg.family == "hybrid":
+        for c in range(cfg.num_layers // cfg.hybrid_period):
+            x = shared_block(cfg, params["shared"], x, positions,
+                             cfg.sliding_window)
+            for j in range(cfg.hybrid_period):
+                x = _layer(cfg, x, _layer_params(params, c, j), positions)
+    else:
+        for i in range(cfg.num_layers):
+            x = _layer(cfg, x, _layer_params(params, i), positions)
     return rmsnorm(x, params["final_norm"], cfg.norm_eps)
 
 
@@ -191,11 +237,6 @@ def lm_forward(cfg, params, tokens, *, dtype=torch.bfloat16,
 # ---------------------------------------------------------------------------
 
 
-class TensorSpec(NamedTuple):
-    shape: tuple
-    dtype: torch.dtype
-
-
 def cache_len_for(cfg: ArchConfig, seq_len: int) -> int:
     if cfg.sliding_window and seq_len > cfg.sliding_window:
         return cfg.sliding_window  # ring buffer
@@ -203,14 +244,25 @@ def cache_len_for(cfg: ArchConfig, seq_len: int) -> int:
 
 
 def init_cache_specs(cfg: ArchConfig, batch: int, seq_len: int, dtype):
-    """Tensor shapes of the KV cache for decoding at total context
-    ``seq_len``.  The decode position ``cur`` is a Python int beside them,
-    not a tensor."""
+    """Tensor shapes of the decode cache at total context ``seq_len``: the
+    KV cache, the SSM and conv state, or both (hybrid: K/V per chunk).
+    The decode position ``cur`` is a Python int beside them, not a
+    tensor."""
     check_family(cfg)
+    if cfg.family == "ssm":
+        return ssd_lib.ssd_decode_state_specs(cfg, cfg.num_layers, batch,
+                                              dtype)
     h = cfg.resolved_head_dim
     sc = cache_len_for(cfg, seq_len)
-    kv = TensorSpec((cfg.num_layers, batch, sc, cfg.n_kv_heads, h), dtype)
-    return {"k": kv, "v": kv, "pos_buf": TensorSpec((sc,), torch.int32)}
+    specs = {}
+    n_kv = cfg.num_layers
+    if cfg.family == "hybrid":
+        specs.update(ssd_lib.ssd_decode_state_specs(cfg, cfg.num_layers,
+                                                    batch, dtype))
+        n_kv = cfg.num_layers // cfg.hybrid_period
+    kv = TensorSpec((n_kv, batch, sc, cfg.n_kv_heads, h), dtype)
+    specs.update(k=kv, v=kv, pos_buf=TensorSpec((sc,), torch.int32))
+    return specs
 
 
 def init_cache(cfg, batch, seq_len, dtype, device):
@@ -259,22 +311,63 @@ def lm_decode_step(cfg: ArchConfig, params, cache, tokens, *,
                    dtype=torch.bfloat16):
     """One decode step. tokens: (B,) int. Returns (logits (B,V), cache).
 
-    The cache is updated in place (K/V slots, ``pos_buf``) and returned;
+    The cache is updated in place (K/V slots and ``pos_buf`` where the
+    family has them, the SSM and conv state) and returned;
     ``cache["cur"]`` advances by one.
     """
     cur = cache["cur"]
     x = embed_tokens(params, tokens, dtype)               # (B,D)
-    pos_buf = cache["pos_buf"]
-    pos_buf[cur % pos_buf.shape[0]] = cur                 # ring buffer slot
-    for i in range(cfg.num_layers):
-        lp = _cast(_layer_params(params, i), dtype)
-        h = rmsnorm(x, lp["ln1"], cfg.norm_eps)
-        a, _, _ = _decode_attn(cfg, lp, h, cache["k"][i], cache["v"][i],
-                               pos_buf, cur, dtype)
-        x = x + a
-        h2 = rmsnorm(x, lp["ln2"], cfg.norm_eps)
-        x = x + gated_mlp(h2, lp["wi"], lp["wg"], lp["wo_mlp"])
+    pos_buf = cache.get("pos_buf")
+    if pos_buf is not None:
+        pos_buf[cur % pos_buf.shape[0]] = cur             # ring buffer slot
+    if cfg.family == "ssm":
+        for i in range(cfg.num_layers):
+            x = _ssd_decode(cfg, params, cache["ssm"][i], cache["conv"][i],
+                            x, dtype, i)
+    elif cfg.family == "hybrid":
+        n_chunks, period = cfg.num_layers // cfg.hybrid_period, \
+            cfg.hybrid_period
+        # (num_layers, ...) state seen as (n_chunks, period, ...): views
+        ssm = cache["ssm"].view((n_chunks, period) + cache["ssm"].shape[1:])
+        conv = cache["conv"].view((n_chunks, period)
+                                  + cache["conv"].shape[1:])
+        for c in range(n_chunks):
+            x = _shared_decode(cfg, params["shared"], x, cache["k"][c],
+                               cache["v"][c], pos_buf, cur, dtype)
+            for j in range(period):
+                x = _ssd_decode(cfg, params, ssm[c, j], conv[c, j], x,
+                                dtype, c, j)
+    else:
+        for i in range(cfg.num_layers):
+            lp = _cast(_layer_params(params, i), dtype)
+            h = rmsnorm(x, lp["ln1"], cfg.norm_eps)
+            a, _, _ = _decode_attn(cfg, lp, h, cache["k"][i], cache["v"][i],
+                                   pos_buf, cur, dtype)
+            x = x + a
+            h2 = rmsnorm(x, lp["ln2"], cfg.norm_eps)
+            x = x + gated_mlp(h2, lp["wi"], lp["wg"], lp["wo_mlp"])
     x = rmsnorm(x, params["final_norm"], cfg.norm_eps)
     logits = lm_logits(cfg, params, x[:, None, :])[:, 0]
     cache["cur"] = cur + 1
     return logits, cache
+
+
+def _ssd_decode(cfg, params, ssm, conv, x, dtype, *idx):
+    """One Mamba-2 layer's decode step; its ``ssm``/``conv`` state views
+    are updated in place."""
+    lp = _cast(_layer_params(params, *idx), dtype)
+    h = rmsnorm(x, lp["ln1"], cfg.norm_eps)
+    out, _ = ssd_lib.ssd_block_decode(cfg, lp, h, {"ssm": ssm, "conv": conv},
+                                      cfg.norm_eps)
+    return x + out
+
+
+def _shared_decode(cfg, sp, x, k_cache, v_cache, pos_buf, cur: int, dtype):
+    """The hybrid family's shared block for one token; writes this step's
+    K/V into the chunk's cache slices in place."""
+    sp = _cast(sp, dtype)
+    h = rmsnorm(x, sp["ln1"], cfg.norm_eps)
+    a, _, _ = _decode_attn(cfg, sp, h, k_cache, v_cache, pos_buf, cur, dtype)
+    x = x + a
+    return x + gated_mlp(rmsnorm(x, sp["ln2"], cfg.norm_eps), sp["wi"],
+                         sp["wg"], sp["wo_mlp"])

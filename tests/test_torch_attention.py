@@ -79,6 +79,17 @@ def test_plain_version_matches_pallas_head_dim_128_gqa_padded():
                                **TOL[torch.float32])
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_plain_version_matches_pallas_head_dim_80(dtype):
+    """zamba2-2.7b's shared block: 32 heads of 2560 / 32 = 80, at a length
+    the kernel pads (200 % 128 != 0) and with a window."""
+    arrs = _qkv(1, 200, 4, 4, 80, seed=7)
+    for window in (0, 64):
+        np.testing.assert_allclose(
+            _port_ref(arrs, dtype, causal=True, window=window),
+            _pallas(arrs, dtype, causal=True, window=window), **TOL[dtype])
+
+
 @pytest.mark.parametrize("s,window", [(512, 0), (512, 64), (192, 0)])
 def test_blocked_attention_matches_reference(s, window):
     """block_q 128: S 512 runs the blocked loop (with the window's KV
@@ -161,6 +172,8 @@ CARD_CASES = ([(s, dt, 0, None) for s in CAUSAL_SHAPES
               + [((1, 256, 2, 2, 32), torch.float32, w, None)
                  for w in (32, 64, 100)]
               + [((1, 130, 12, 2, 128), torch.bfloat16, 0, None),
+                 ((1, 200, 4, 4, 80), torch.float32, 64, None),
+                 ((2, 320, 4, 4, 80), torch.bfloat16, 0, None),
                  ((1, 100, 4, 2, 64), torch.float32, 0, 60),    # Sq > Sk
                  ((1, 100, 4, 2, 64), torch.bfloat16, 16, 160)])
 

@@ -1,9 +1,10 @@
-"""The port's dense LM against ``repro.models``: the same parameters (made
-with numpy from a seed, carried into the port by ``convert.model_params``)
+"""The port's LM against ``repro.models``: the same parameters (made with
+numpy from a seed, carried into the port by ``convert.model_params``)
 through both packages' forward and decode steps, at the reduced widths of
-qwen2-1.5b (GQA + QKV bias + tied embeddings), smollm-135m and yi-9b;
-and every full-size arch's parameter shapes and count, without
-allocating them."""
+qwen2-1.5b (GQA + QKV bias + tied embeddings), smollm-135m, yi-9b,
+mamba2-1.3b (SSM) and zamba2-2.7b (hybrid: Mamba-2 layers and a shared
+attention block); and every full-size arch's parameter shapes and count,
+without allocating them."""
 import dataclasses
 
 import jax
@@ -21,9 +22,18 @@ import repro_torch.models.transformer as p_tr
 from repro_torch import convert
 from repro_torch.models import build_model as p_build
 
-ARCHS = ["qwen2-1.5b", "smollm-135m", "yi-9b"]
+ARCHS = ["qwen2-1.5b", "smollm-135m", "yi-9b", "mamba2-1.3b", "zamba2-2.7b"]
+SSM_ARCHS = ["mamba2-1.3b", "zamba2-2.7b"]
 F32 = dict(atol=1e-4, rtol=1e-4)
 BF16 = dict(atol=2e-2, rtol=2e-2)
+# The SSM families' bf16 rounding noise exceeds BF16 element by element:
+# on these inputs the reference's own bf16 logits miss its f32 logits by
+# up to 0.045 (mamba2) and 0.054 (zamba2).  Their bf16 forwards are held
+# to BF16's 2e-2 as a norm-relative error against the reference's bf16,
+# and element by element to no more than 1.25x the reference's own
+# distance from its f32 forward.
+SSM_BF16_REL = 2e-2
+SSM_BF16_VS_REF_NOISE = 1.25
 DEC = dict(atol=2e-3, rtol=2e-3)   # decode vs forward (tests/test_models.py)
 
 
@@ -71,6 +81,7 @@ def test_forward_matches_reference(arch, dtype):
     pm = p_build(pc, compute_dtype=getattr(torch, dtype), device=CPU)
     tok = _tokens(rc)
     tol = F32 if dtype == "float32" else BF16
+    noise_floor = dtype == "bfloat16" and arch in SSM_ARCHS
     for last_only in (False, True):
         want = rm.forward(rp, {"tokens": jnp.asarray(tok)},
                           last_only=last_only)
@@ -79,9 +90,17 @@ def test_forward_matches_reference(arch, dtype):
         assert tuple(got.shape) == tuple(want.shape)
         assert got.dtype == getattr(torch, dtype)
         v = rc.vocab_size  # the padded columns are -1e30 in both
-        np.testing.assert_allclose(got.float().numpy()[..., :v],
-                                   np.asarray(want, np.float32)[..., :v],
-                                   **tol)
+        g = got.float().numpy()[..., :v]
+        w = np.asarray(want, np.float32)[..., :v]
+        if noise_floor:
+            f32 = np.asarray(r_build(rc, compute_dtype=jnp.float32).forward(
+                rp, {"tokens": jnp.asarray(tok)}, last_only=last_only))[
+                ..., :v]
+            assert np.linalg.norm(g - w) / np.linalg.norm(w) < SSM_BF16_REL
+            assert np.abs(g - f32).max() <= \
+                SSM_BF16_VS_REF_NOISE * np.abs(w - f32).max()
+        else:
+            np.testing.assert_allclose(g, w, **tol)
         assert (got.float().numpy()[..., v:] == -1e30).all()
 
 
@@ -105,11 +124,14 @@ def test_decode_steps_and_cache_match_reference(arch):
     tok = _tokens(rc, s=8)
     rcache, pcache = _decode_both(rc, pc, rp, pp, tok, total=12)
     assert pcache["cur"] == int(rcache["cur"]) == 8
-    for k in ("k", "v"):
+    assert set(pcache) == set(rcache)
+    for k in set(pcache) - {"cur", "pos_buf"}:  # k/v, or ssm/conv
+        assert pcache[k].dtype == getattr(torch, str(rcache[k].dtype))
         np.testing.assert_allclose(pcache[k].numpy(), np.asarray(rcache[k]),
-                                   **F32)
-    np.testing.assert_array_equal(pcache["pos_buf"].numpy(),
-                                  np.asarray(rcache["pos_buf"]))
+                                   **F32, err_msg=k)
+    if "pos_buf" in rcache:
+        np.testing.assert_array_equal(pcache["pos_buf"].numpy(),
+                                      np.asarray(rcache["pos_buf"]))
 
 
 def test_ring_buffer_matches_reference():
@@ -167,6 +189,46 @@ def test_decode_continues_from_a_converted_reference_cache():
     assert pcache["cur"] == 6
 
 
+@pytest.mark.parametrize("arch", SSM_ARCHS)
+def test_decode_continues_from_a_converted_reference_ssm_cache(arch):
+    """An SSM cache (``ssm`` f32, ``conv``) and a hybrid one (with per-chunk
+    ``k``/``v`` and ``pos_buf``) carried across after five reference
+    steps: the next step's logits and the whole cache agree."""
+    rc, pc, rp, pp = _both(arch)
+    rm = r_build(rc, compute_dtype=jnp.float32)
+    pm = p_build(pc, compute_dtype=torch.float32, device=CPU)
+    tok = _tokens(rc, s=6)
+    cache = rm.init_cache(2, 8)
+    for i in range(5):
+        _, cache = rm.decode_step(rp, cache, jnp.asarray(tok[:, i]))
+    pcache = convert.decode_cache(jax.tree.map(np.asarray, cache), CPU)
+    assert pcache["cur"] == 5 and isinstance(pcache["cur"], int)
+    assert pcache["ssm"].dtype == torch.float32
+    want, cache = rm.decode_step(rp, cache, jnp.asarray(tok[:, 5]))
+    got, pcache = pm.decode_step(pp, pcache, torch.from_numpy(tok[:, 5]))
+    np.testing.assert_allclose(got.numpy()[:, :rc.vocab_size],
+                               np.asarray(want)[:, :rc.vocab_size], **F32)
+    assert pcache["cur"] == 6 and set(pcache) == set(cache)
+    for k in set(pcache) - {"cur"}:
+        np.testing.assert_allclose(pcache[k].numpy(), np.asarray(cache[k]),
+                                   **F32, err_msg=k)
+
+
+def test_hybrid_decode_updates_the_cache_in_place():
+    """The hybrid family's (num_layers, ...) SSM state is read as
+    (n_chunks, period, ...) views: a decode step writes the cache's own
+    storage and makes no copy of it."""
+    _, pc, _, pp = _both("zamba2-2.7b")
+    pm = p_build(pc, compute_dtype=torch.float32, device=CPU)
+    cache = pm.init_cache(2, 8)
+    ptrs = {k: v.data_ptr() for k, v in cache.items() if k != "cur"}
+    _, out = pm.decode_step(pp, cache, torch.tensor([1, 2]))
+    assert out is cache
+    assert {k: v.data_ptr() for k, v in cache.items() if k != "cur"} == ptrs
+    for k in ("ssm", "conv", "k", "v"):
+        assert cache[k].abs().sum() > 0, k
+
+
 def _spec_shapes(tree, prefix=""):
     """path -> shape of a nested dict of ParamSpecs or tensors."""
     out = {}
@@ -185,10 +247,10 @@ def test_full_size_specs_and_param_count_match_reference(arch):
     assert pc.param_count() == rc.param_count()
     assert pc.active_param_count() == rc.active_param_count()
     assert pc.padded_vocab == rc.padded_vocab
-    if pc.family != "dense":
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
+    if pc.family not in p_tr.PORTED:
+        with pytest.raises(NotImplementedError, match="ROADMAP A13c"):
             p_tr.lm_specs(pc)
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
+        with pytest.raises(NotImplementedError, match="ROADMAP A13c"):
             p_build(pc, device=CPU)
         return
     want = {"/".join(k.key for k in path): s.shape for path, s in
@@ -196,7 +258,12 @@ def test_full_size_specs_and_param_count_match_reference(arch):
                 r_tr.lm_specs(rc), is_leaf=lambda x: hasattr(x, "init"))[0]}
     got = _spec_shapes(p_tr.lm_specs(pc))
     assert got == want
-    assert sum(int(np.prod(s)) for s in got.values()) == pc.param_count()
+    total = sum(int(np.prod(s)) for s in got.values())
+    if pc.family == "dense":
+        assert total == pc.param_count()
+    else:  # the analytic count leaves out dt_bias and gate_norm
+        assert total == pc.param_count() + pc.num_layers * (
+            pc.ssm_n_heads + pc.ssm_d_inner)
 
 
 def test_entry_points_default_to_cuda():

@@ -76,6 +76,19 @@ def test_ffr_shed_thins_batch_and_is_traced():
     assert trace.metrics.summary("serve.decode_ms_per_tok")["count"] == 1
 
 
+def test_ffr_shed_on_the_ssm_family():
+    """mamba2 serves through decode_step and its SSM state: the FFR shed
+    thins the batch at the same step, under the budget."""
+    trace.get_tracer().clear()
+    out = run_serve(_args(arch="mamba2-1.3b"), device=CPU)
+    assert out["shed_at"] == 8 // 2
+    assert 1 <= out["active"] < out["batch"]
+    assert out["response_ms"] < float(
+        markets.BUDGET_MS[markets.PRODUCT_ORDER.index("FFR")])
+    assert len(trace.get_tracer().events("serve.shed")) == 1
+    assert trace.metrics.counters.get("serve.sheds") == 1
+
+
 def test_no_gridpilot_no_shed():
     trace.get_tracer().clear()
     out = run_serve(_args(gridpilot=False, decode_tokens=4), device=CPU)
