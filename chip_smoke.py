@@ -2,6 +2,7 @@
 """Drive the PyTorch port (``src/repro_torch``) on one NVIDIA GPU.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --flash-only   # build and flash_attention only
 
 Phases, each printing one JSON line; any failure ends the run with a
 nonzero exit and no result line:
@@ -15,7 +16,12 @@ nonzero exit and no result line:
               for the work (the bound); pid_update's L2-warm time; for
               flash_attention the time of one PyTorch call computing the
               same function (scaled_dot_product_attention, a yardstick
-              the port never calls), also at zamba2-2.7b's head dim 80;
+              the port never calls), also at zamba2-2.7b's head dim 80,
+              with the ratio to it, TFLOP/s, the share of the bound, the
+              kernel's name, registers, shared memory and spills, and
+              its earlier time; flash_attention also checked at the bf16
+              kernel's edges at prefill length (ragged Sq, Sq > Sk,
+              narrow windows, GQA group 6);
               ssd_scan at the reference's test shapes and at both
               full-width prefill calls (mamba2-1.3b, zamba2-2.7b) in f32
               and bf16, against its plain version and the sequential
@@ -61,6 +67,7 @@ import itertools
 import json
 import math
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -80,6 +87,11 @@ FLASH_TOL = {"float32": dict(atol=2e-5, rtol=2e-5),
 FLASH_TOL_LONG_F32 = dict(atol=1e-4, rtol=1e-4)
 PREFILL_SHAPE = (2, 4096, 12, 2, 128)    # qwen2-1.5b's heads at S = 4096
 ZAMBA2_ATTN_SHAPE = (2, 4096, 32, 32, 80)  # zamba2-2.7b's shared block
+# flash_attention's bf16 time at those two calls by head dim, from an
+# earlier call of this script on another card (the earlier mma.sync kernel,
+# NVIDIA H100 80GB HBM3, 700 W): only the ratio to the library call
+# timed in the same run compares across cards
+FLASH_PREV_MS = {128: 0.924, 80: 1.372}
 DECODE_TOL = dict(atol=2e-3, rtol=2e-3)  # tests/test_models.py
 # ssd_scan: the reference's kernel tolerances (tests/test_kernels.py)
 SSD_TOL = {"chunked": dict(atol=1e-4, rtol=1e-4),
@@ -173,15 +185,39 @@ def all_finite(torch, tree) -> bool:
     return True
 
 
+def demangle(raw):
+    """flash_fwd_tma<128> for the mangled name of that instantiation (through
+    c++filt; the mangled name where c++filt is missing)."""
+    try:
+        out = subprocess.run(["c++filt"], input=raw, capture_output=True,
+                             text=True, timeout=30).stdout.strip()
+    except (OSError, subprocess.SubprocessError):
+        return raw
+    name = out.replace("(anonymous namespace)::", "").split("(")[0]
+    return name.removeprefix("void ") or raw
+
+
+def ptxas_by_kernel(log):
+    """ptxas -v's report of one library, per entry function: its lines on
+    registers, shared memory and spills."""
+    out, name = {}, None
+    for ln in log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", ln)
+        if m:
+            name = demangle(m.group(1))
+            out[name] = []
+        elif name and ("registers" in ln or "spill" in ln):
+            out[name].append(ln.replace("ptxas info    :", "").strip())
+    return out
+
+
 def phase_build():
     import torch
     from repro_torch.kernels import _build
     t0 = time.perf_counter()
     names = sorted(p.stem for p in _build.CSRC.glob("*.cu"))
     paths = _build.build_all(names)
-    ptxas = {k: [ln.strip() for ln in v.splitlines()
-                 if "registers" in ln or "spill" in ln]
-             for k, v in _build.PTXAS_REPORT.items()}
+    ptxas = {k: ptxas_by_kernel(v) for k, v in _build.PTXAS_REPORT.items()}
     emit({"phase": "build", "kernels": names,
           "seconds": time.perf_counter() - t0,
           "libraries": {k: os.path.relpath(str(v), ROOT)
@@ -297,26 +333,36 @@ def phase_tier1(torch):
 
 
 def flash_cases():
-    """(shape (B, S, H, Hkv, D), dtype name, window) of the kernel check:
-    the reference's test shapes in both dtypes, its windows, the padded
-    head_dim-128 GQA case, the prefill shape and zamba2-2.7b's shared
-    block (head dim 80, window 4096)."""
-    cases = [(shape, dt, 0) for shape in ((1, 128, 4, 4, 32),
-                                          (2, 256, 4, 2, 64),
-                                          (1, 256, 8, 1, 64),
-                                          (2, 192, 6, 3, 16))
+    """(shape (B, S, H, Hkv, D), dtype name, window, Sk or None for Sk = S)
+    of the kernel check: the reference's test shapes in both dtypes, its
+    windows, the padded head_dim-128 GQA case, the prefill shape and
+    zamba2-2.7b's shared block (head dim 80, window 4096); then the bf16
+    TMA kernel's edges at prefill length: Sq not a multiple of its 128-row
+    q-tile, Sq > Sk, windows narrower than a kv tile, GQA group 6."""
+    cases = [(shape, dt, 0, None) for shape in ((1, 128, 4, 4, 32),
+                                                (2, 256, 4, 2, 64),
+                                                (1, 256, 8, 1, 64),
+                                                (2, 192, 6, 3, 16))
              for dt in ("float32", "bfloat16")]
-    cases += [((1, 256, 2, 2, 32), "float32", w) for w in (32, 64, 100)]
-    cases += [((1, 1000, 12, 2, 128), "float32", 0),
-              (PREFILL_SHAPE, "bfloat16", 0),
-              (ZAMBA2_ATTN_SHAPE, "bfloat16", 4096)]
+    cases += [((1, 256, 2, 2, 32), "float32", w, None) for w in (32, 64, 100)]
+    cases += [((1, 1000, 12, 2, 128), "float32", 0, None),
+              (PREFILL_SHAPE, "bfloat16", 0, None),
+              (ZAMBA2_ATTN_SHAPE, "bfloat16", 4096, None)]
+    cases += [((2, 4160, 12, 2, 128), "bfloat16", 0, None),
+              ((1, 4160, 32, 32, 80), "bfloat16", 0, None),
+              ((1, 4096, 12, 2, 128), "bfloat16", 0, 2000),
+              ((1, 4096, 32, 32, 80), "bfloat16", 0, 2000),
+              ((1, 4096, 12, 2, 128), "bfloat16", 100, None),
+              ((1, 4096, 32, 32, 80), "bfloat16", 16, None),
+              ((1, 4096, 12, 12, 128), "bfloat16", 0, None)]
     return cases
 
 
-def flash_inputs(torch, g, shape, dtype):
+def flash_inputs(torch, g, shape, dtype, sk=None):
     b, s, h, hkv, d = shape
-    return tuple(torch.randn(b, s, n, d, device="cuda", generator=g)
-                 .to(dtype) for n in (h, hkv, hkv))
+    return tuple(torch.randn(b, n_s, n, d, device="cuda", generator=g)
+                 .to(dtype) for n_s, n in ((s, h), (sk or s, hkv),
+                                           (sk or s, hkv)))
 
 
 def flash_bound_ms(shape, dtype, window=0):
@@ -341,6 +387,7 @@ def time_flash(torch, g, shape, window):
     plain version and scaled_dot_product_attention on (B, H, S, D) copies
     laid out before the clock starts."""
     import torch.nn.functional as F
+    from repro_torch.kernels import _build
     from repro_torch.kernels import flash_attention as fa
     q, k, v = flash_inputs(torch, g, shape, torch.bfloat16)
     set_bytes = sum(x.numel() * x.element_size() for x in (q, k, v))
@@ -373,11 +420,21 @@ def time_flash(torch, g, shape, window):
     bound_ms, bound_by, flops, nbytes = flash_bound_ms(shape, "bfloat16",
                                                        window)
     ms = prof_k["device_us_per_call"] / 1e3
+    library_ms = prof_l["device_us_per_call"] / 1e3
     return {"shape": list(shape), "dtype": "bfloat16", "window": window,
             "ms": ms, "plain_ms": prof_p["device_us_per_call"] / 1e3,
-            "library_ms": prof_l["device_us_per_call"] / 1e3,
-            "bound_ms": bound_ms, "bound_by": bound_by, "gflop": flops / 1e9,
+            "library_ms": library_ms, "ms_over_library": ms / library_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "bound_share": bound_ms / ms, "gflop": flops / 1e9,
             "mbytes": nbytes / 1e6, "tflop_s": flops / (ms * 1e-3) / 1e12,
+            "kernel": [k for k in prof_k["kernels"] if "flash_fwd" in k],
+            "build": fa.kernel_info(torch.bfloat16, shape[4]),
+            "ptxas": ptxas_by_kernel(_build.PTXAS_REPORT.get(
+                "flash_attention", "")).get(
+                    f"{fa.KERNELS[torch.bfloat16]}<{shape[4]}>"),
+            "prev_ms": FLASH_PREV_MS[shape[4]],
+            "prev_ms_from": "an earlier call on another card (the mma.sync "
+                            "kernel before the TMA + wgmma redesign)",
             "cold_sets": n_sets,
             "plain_launches_per_call": prof_p["launches_per_call"],
             "library_kernels": prof_l["kernels"]}
@@ -387,9 +444,9 @@ def phase_flash_kernel(torch):
     from repro_torch.kernels import flash_attention as fa
     g = torch.Generator(device="cuda").manual_seed(1)
     checks, worst = [], 0.0
-    for shape, dt, window in flash_cases():
+    for shape, dt, window, sk in flash_cases():
         dtype = getattr(torch, dt)
-        q, k, v = flash_inputs(torch, g, shape, dtype)
+        q, k, v = flash_inputs(torch, g, shape, dtype, sk)
         got = fa.flash_attention(q, k, v, causal=True, window=window)
         want = fa.flash_attention_ref(q, k, v, causal=True, window=window)
         torch.cuda.synchronize()
@@ -399,7 +456,7 @@ def phase_flash_kernel(torch):
         torch.testing.assert_close(got.float(), want.float(), **tol)
         worst = max(worst, err)
         checks.append({"shape": list(shape), "dtype": dt, "window": window,
-                       "max_abs_err": err, "tol": tol})
+                       "sk": sk or shape[1], "max_abs_err": err, "tol": tol})
         del q, k, v, got, want
     torch.cuda.empty_cache()
     t = time_flash(torch, g, PREFILL_SHAPE, 0)
@@ -865,6 +922,11 @@ def main() -> int:
     phase_build()
     torch.backends.cuda.matmul.allow_tf32 = False  # f32 products in f32
     torch.backends.cudnn.allow_tf32 = False
+    if "--flash-only" in sys.argv[1:]:
+        # the build and flash_attention's kernel phase alone, for work on
+        # that kernel; prints no result line
+        phase_flash_kernel(torch)
+        return 0
     pid_rec = phase_kernel(torch)
     flash_rec = phase_flash_kernel(torch)
     ssd_rec = phase_ssd_kernel(torch)

@@ -14,15 +14,26 @@
 // (2, 4096, 12, 2, 128) in bf16 a causal call does 4*B*H*D*(S(S+1)/2)
 // = 103 GFLOP against 59 MB of traffic, about 1,750 flop per byte, far
 // above the ~295 flop/B where an H100's bf16 tensor cores, not HBM, set
-// the pace: the least time is 103 GFLOP / 989 TFLOP/s = 104 us.  So the
-// bf16 path runs its two products on the tensor cores (mma.sync
-// m16n8k16, bf16 in, f32 accumulate) and keeps the score tile in
-// registers, never in memory; K and V tiles are read once per q-tile into
-// shared memory.  Simple before fast: the tiles are loaded synchronously
-// (no cp.async/TMA pipeline), V's fragments are read element by element
-// (no ldmatrix), and the tensor cores are driven by mma.sync, not wgmma.
-// The float32 path is scalar FMAs from shared memory (a float32 product
-// on the tensor cores would be TF32 and miss the float32 tolerance).
+// the pace: the least time is 103 GFLOP / 989 TFLOP/s = 104 us.
+//
+// Two kernels, a fixed function of the dtype at every head dim:
+//  - bf16: flash_fwd_tma, after FlashAttention-3.  Tiles come in by TMA
+//    (cp.async.bulk.tensor through one tensor map per q, k, v, read
+//    through the caller's strides) into a ring of shared-memory stages
+//    completed on mbarriers, so the next kv tiles are in flight while one
+//    is computed; one thread issues the loads.  Two warpgroups of 64 q
+//    rows run both products on wgmma: S = Q K^T from shared memory (both
+//    K-major), O += P V with P in registers (the m64nN accumulator layout
+//    is the register-A layout) and V read transposed from its (kv, d)
+//    tile.  The score tile never leaves registers.  P V of one tile and
+//    Q K^T of the next are issued together, and the two warpgroups take
+//    turns at the tensor cores so that one's softmax overlaps the other's
+//    products.  TMA's zero fill stands in for rows >= Sq and >= Sk; only
+//    tiles that cross the diagonal, the window's edge or Sk are masked.
+//    Causal q-tiles run heaviest first.
+//  - float32: flash_fwd_f32, scalar FMAs from shared memory (a float32
+//    product on the tensor cores would be TF32 and miss the float32
+//    tolerance).
 //
 // How the TPU kernel maps here.  Its grid (B, H, q-blocks, kv-blocks)
 // runs the kv axis in order with (acc, m, l) in VMEM scratch; here one
@@ -30,15 +41,18 @@
 // nothing is carried between blocks.  A kv tile wholly above the
 // diagonal or wholly older than the window is never loaded.  The layout
 // is read through strides (no transposes), the kv head is h / (H / Hkv)
-// (no repeated K/V), and ragged Sq and Sk are masked in the kernel (no
+// (no repeated K/V), and ragged Sq and Sk are handled in the kernel (no
 // padded copies): rows >= Sq are not stored, columns >= Sk are masked
 // explicitly -- the TPU kernel leaves them to the causal mask, which
-// does not hide them when Sq > Sk.
+// does not hide them when Sq > Sk.  A row that sees no key at all
+// (Sq > Sk + window) gets zeros from the bf16 kernel.
 //
 // Plain C interface, loaded with ctypes: flash_attention_launch returns
 // the cudaError_t of the launch (0 on success); a shape, type or head
 // size it does not take returns cudaErrorInvalidValue before launching.
 
+#include <cuda.h>          // CUtensorMap (types only: no link to libcuda)
+#include <cudaTypedefs.h>  // PFN_cuTensorMapEncodeTiled
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -196,24 +210,306 @@ __global__ void __launch_bounds__(kF32Threads)
 }
 
 // ---------------------------------------------------------------------------
-// bf16: tensor cores through mma.sync.m16n8k16 (bf16 in, f32 accumulate).
-// 128 threads = 4 warps, a 64-row q-tile (16 rows per warp), 64-column kv
-// tiles.  Q's fragments stay in registers for the whole kv loop; the
-// score tile S = Q K^T lives in the accumulator registers and is reused,
-// rounded to bf16, as the A operand of P V (the accumulator layout of
-// m16n8 tiles j and j+1 is the A layout of one k16 step).
+// bf16: TMA ring + wgmma.  One block of two warpgroups (256 threads) owns
+// a 128-row q-tile of one (b, h); warpgroup wg holds rows 64 wg .. 64 wg
+// + 63, its warp w rows 16 w + g and 16 w + g + 8 (g = lane / 4), as the
+// m64nN accumulator lays them out.  Thread 0 loads the q-tile and the
+// first STAGES kv tiles with TMA (cp.async.bulk.tensor); each stage of
+// the ring completes on its full mbarrier (expect_tx with the K and V
+// tiles' bytes).  A stage is refilled as soon as all eight warps are done
+// with it: each warp counts itself out on the stage's counter, and the
+// eighth issues the load of the tile STAGES on.  No __syncthreads() sits
+// in the kv loop.
+//
+// Tiles land in shared memory as TMA writes them: NB column blocks of
+// W = SW / 2 columns, each `rows` rows of SW bytes swizzled with the
+// SW-byte pattern (16-byte chunk c of row r sits at chunk c ^ ((r * SW /
+// 128) % (SW / 16))), which is the layout the wgmma descriptors name.
+// D = 128 and 64 use 64-column blocks and the 128-byte swizzle, D = 32
+// one 32-column block and the 64-byte swizzle, D = 80 five 16-column
+// blocks and the 32-byte swizzle (a 160-byte row fits no wider atom;
+// zero-filling to 128 columns would cost 1.6x the tensor work), D = 16
+// one 16-column block.  One 5-D tensor map (W, S, NB, H, B) per tensor
+// loads all NB blocks of a tile in one instruction.
+//
+// Why no producer warp: with a producer warpgroup beside the two (384
+// threads), ptxas (CUDA 12.9) held every thread to 168 registers with or
+// without setmaxnreg, which forced 64-row kv tiles at D = 128 and was
+// slower there (PERF.md); 256 threads may use 255.
 // ---------------------------------------------------------------------------
 
-constexpr int kBfBq = 64, kBfBk = 64, kBfThreads = 128;
+constexpr int kSmemMax = 232448;  // shared memory a block may use (227 KB)
 
-__device__ __forceinline__ void mma_bf16(float* c, const uint32_t* a,
-                                         uint32_t b0, uint32_t b1) {
+template <int D>
+struct Geo {
+  static constexpr int SW = D % 64 == 0 ? 128 : D % 32 == 0 ? 64 : 32;
+  static constexpr int W = SW / 2;     // columns per block
+  static constexpr int NB = D / W;     // column blocks per tile
+  static constexpr int BQ = 128, BK = 128;
+  static constexpr int Q_BYTES = BQ * D * 2;
+  static constexpr int KV_BYTES = BK * D * 2;  // one of K, V
+  // as many stages as fit (3 at D = 128, 5 at D = 80), at most 4; each
+  // stage has a full barrier and a counter, then the q-tile's barrier,
+  // and 1024 bytes of slack align the base to the 128-byte swizzle's
+  // period, which TMA and the descriptors assume
+  static constexpr int STAGES_FIT =
+      (kSmemMax - 1024 - 8 - Q_BYTES) / (2 * KV_BYTES + 16);
+  static constexpr int STAGES = STAGES_FIT < 4 ? STAGES_FIT : 4;
+  static constexpr int BAR_OFF = Q_BYTES + STAGES * 2 * KV_BYTES;
+  static constexpr int SMEM = BAR_OFF + 8 * (2 * STAGES + 1) + 1024;
+  static_assert(STAGES >= 2 && SMEM <= kSmemMax, "tiles do not fit");
+};
+
+constexpr int kTmaThreads = 256;  // two warpgroups of 64 q rows
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
+               "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, int bytes) {
   asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
-      "{%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
+      "r"(bytes)
+      : "memory");
+}
+
+// Returns once the phase of parity `parity` of the barrier has completed.
+// A wait that outlasts 2^26 polls (each try_wait suspends the thread for
+// a while) is a broken pipeline: trap, so the launch fails instead of
+// hanging the card.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, int parity) {
+  uint32_t done;
+  for (uint32_t n = 0;; ++n) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+    if (done) return;
+    if (n == (1u << 26)) __trap();
+  }
+}
+
+// One tile of one (h, b) from row `row`, through a 5-D map (W, S, NB, H,
+// B) whose box (W, rows, NB) lands as NB column blocks of `rows` rows.
+__device__ __forceinline__ void tma_tile(uint32_t dst, const CUtensorMap* map,
+                                         int h, int row, int b,
+                                         uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.5d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%2, %3, %2, %4, %5}], [%6];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(0), "r"(row), "r"(h),
+      "r"(b), "r"(bar)
+      : "memory");
+}
+
+// wgmma: a warpgroup MMA (bf16 in, f32 accumulate) on a 64-row tile,
+// issued asynchronously by all 128 threads of a warpgroup; fence before
+// the first of a batch, commit the batch, wait for it.
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_wait_all() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+
+// Keeps the compiler from moving reads or writes of an operand of an
+// asynchronous wgmma across the wait that ends it.
+template <int N>
+__device__ __forceinline__ void fence_regs(float* d) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+template <int N>
+__device__ __forceinline__ void fence_regs(uint32_t* d) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(d[i])::"memory");
+}
+
+__device__ __forceinline__ float ex2(float x) {  // 2^x, flushing denormals
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// Named barriers 1 and 2 over the block's 256 threads: a warpgroup waits
+// for its turn (sync) and hands the turn to the other (arrive).
+__device__ __forceinline__ void named_sync(int id) {
+  asm volatile("bar.sync %0, 256;\n" ::"r"(id) : "memory");
+}
+
+__device__ __forceinline__ void named_arrive(int id) {
+  asm volatile("bar.arrive %0, 256;\n" ::"r"(id) : "memory");
+}
+
+// Shared-memory matrix descriptor: start address, leading and stride
+// byte offsets (16-byte units) and the swizzle of the layout TMA wrote
+// (1: 128 B, 2: 64 B, 3: 32 B).
+template <int SW>
+__device__ __forceinline__ uint64_t make_desc(uint32_t addr, uint32_t lbo,
+                                              uint32_t sbo) {
+  constexpr uint64_t layout = SW == 128 ? 1 : SW == 64 ? 2 : 3;
+  return static_cast<uint64_t>((addr >> 4) & 0x3FFF) |
+         (static_cast<uint64_t>((lbo >> 4) & 0x3FFF) << 16) |
+         (static_cast<uint64_t>((sbo >> 4) & 0x3FFF) << 32) | (layout << 62);
+}
+
+// d (m64nN, f32) += A (desc) B (desc), both K-major; acc = 0 overwrites d.
+template <int N>
+__device__ __forceinline__ void wgmma_ss(float* d, uint64_t a, uint64_t b,
+                                         int acc);
+// d (m64nN, f32) += A (registers, bf16) B (desc, N-major: transposed).
+template <int N>
+__device__ __forceinline__ void wgmma_rs(float* d, const uint32_t* a,
+                                         uint64_t b);
+
+template <>
+__device__ __forceinline__ void wgmma_ss<128>(float* d, uint64_t a, uint64_t b,
+                                             int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63"
+      "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+      "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+      "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+      "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+      "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+      "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+      "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+      "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+      "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+      "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+      "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+      "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+      "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(a), "l"(b), "r"(acc));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_rs<16>(float* d, const uint32_t* a,
+                                             uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7"
+      "}, {%8, %9, %10, %11}, %12, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+      "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_rs<32>(float* d, const uint32_t* a,
+                                             uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15"
+      "}, {%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+      "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+      "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+      "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_rs<64>(float* d, const uint32_t* a,
+                                             uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+      "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+      "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+      "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+      "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+      "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+      "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_rs<80>(float* d, const uint32_t* a,
+                                             uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %45, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n80k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39"
+      "}, {%40, %41, %42, %43}, %44, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+      "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+      "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+      "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+      "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+      "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+      "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+      "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_rs<128>(float* d, const uint32_t* a,
+                                             uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63"
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+      "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+      "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+      "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+      "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+      "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+      "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+      "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+      "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+      "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+      "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+      "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+      "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
 }
 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
@@ -221,118 +517,189 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
-__device__ __forceinline__ uint32_t pack_raw(__nv_bfloat16 lo,
-                                             __nv_bfloat16 hi) {
-  return static_cast<uint32_t>(__bfloat16_as_ushort(lo)) |
-         (static_cast<uint32_t>(__bfloat16_as_ushort(hi)) << 16);
+struct OutArgs {  // o (B, Sq, H, D): pointer and element strides
+  __nv_bfloat16* o;
+  long long ob, os, oh;
+};
+
+// K and V of kv tile t into stage s, completing on its full barrier.
+template <int D>
+__device__ __forceinline__ void load_kv(const CUtensorMap* tk,
+                                        const CUtensorMap* tv, uint32_t sQ,
+                                        uint32_t bar, int hk, int b, int t,
+                                        int s) {
+  using G = Geo<D>;
+  const uint32_t full = bar + 8 * s;
+  const uint32_t sK = sQ + G::Q_BYTES + 2 * s * G::KV_BYTES;
+  mbar_expect_tx(full, 2 * G::KV_BYTES);
+  tma_tile(sK, tk, hk, t * G::BK, b, full);
+  tma_tile(sK + G::KV_BYTES, tv, hk, t * G::BK, b, full);
+}
+
+// Lane 0 of a warp whose reads of a stage are complete counts the warp out
+// on the stage's counter (acquire-release, so the last sees the others'
+// reads done); returns true to the eighth warp of the round.
+__device__ __forceinline__ bool last_to_leave(uint32_t counter) {
+  uint32_t before;
+  asm volatile("atom.acq_rel.cta.shared::cta.add.u32 %0, [%1], 1;\n"
+               : "=r"(before)
+               : "r"(counter)
+               : "memory");
+  return (before & 7) == 7;
 }
 
 template <int D>
-__global__ void __launch_bounds__(kBfThreads)
-    flash_fwd_bf16(const __nv_bfloat16* __restrict__ q,
-                   const __nv_bfloat16* __restrict__ k,
-                   const __nv_bfloat16* __restrict__ v,
-                   __nv_bfloat16* __restrict__ o, Strides st, Problem p) {
-  constexpr int BQ = kBfBq, BK = kBfBk, NT = kBfThreads;
-  constexpr int KS = D + 8;    // padded rows: fragment reads hit 32 banks
-  constexpr int NK = D / 16;   // k16 steps of Q K^T
-  constexpr int NS = BK / 8;   // n8 tiles of the score tile
-  constexpr int NO = D / 8;    // n8 tiles of the output
-  constexpr int VEC = 8;       // bf16 per 16-byte load
-  __shared__ __align__(16) __nv_bfloat16 sK[BK * KS];
-  __shared__ __align__(16) __nv_bfloat16 sV[BK * KS];
+__global__ void __launch_bounds__(kTmaThreads, 1)
+    flash_fwd_tma(const __grid_constant__ CUtensorMap tq,
+                  const __grid_constant__ CUtensorMap tk,
+                  const __grid_constant__ CUtensorMap tv, OutArgs out,
+                  Problem p, int H, int B, int n_qt) {
+  using G = Geo<D>;
+  constexpr int BQ = G::BQ, BK = G::BK, ST = G::STAGES, SW = G::SW;
+  constexpr int NK = D / 16;      // k16 steps of Q K^T
+  constexpr int KPB = SW / 32;    // of them in one swizzle row
+  constexpr int NS = BK / 8;      // n8 tiles of the score tile
+  constexpr int NO = D / 8;       // n8 tiles of the output
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t sQ = (smem_u32(smem_raw) + 1023) & ~1023u;
+  const uint32_t sKV = sQ + G::Q_BYTES;  // stage s: K, then V
+  const uint32_t bar = sQ + G::BAR_OFF;  // full[ST], counter[ST], q
+  const uint32_t qbar = bar + 16 * ST;
 
-  const int q0 = blockIdx.x * BQ, h = blockIdx.y, b = blockIdx.z;
-  const int hk = h / p.group;
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int g = lane >> 2, tg = lane & 3;
-  const int r0 = q0 + warp * 16 + g, r1 = r0 + 8;
-  const __nv_bfloat16* qb = q + b * st.qb + h * st.qh;
-  const __nv_bfloat16* kb = k + b * st.kb + hk * st.kh;
-  const __nv_bfloat16* vb = v + b * st.vb + hk * st.vh;
+  // Heavy q-tiles first: the q-tile index is the slowest of the grid and,
+  // for causal calls, runs from the last tile (the longest kv loop) down.
+  const int bh = blockIdx.x % (B * H), it = blockIdx.x / (B * H);
+  const int qt = p.causal ? n_qt - 1 - it : it;
+  const int h = bh % H, b = bh / H, hk = h / p.group;
+  const int q0 = qt * BQ;
+  int t_lo, t_hi;
+  kv_tile_range(p, q0, BQ, BK, &t_lo, &t_hi);
+  const int n_t = t_hi - t_lo;
 
-  uint32_t qf[NK][4];
-#pragma unroll
-  for (int kk = 0; kk < NK; ++kk) {
-    const int c = kk * 16 + tg * 2;
-    const uint32_t* q0p = reinterpret_cast<const uint32_t*>(qb + r0 * st.qs);
-    const uint32_t* q1p = reinterpret_cast<const uint32_t*>(qb + r1 * st.qs);
-    qf[kk][0] = r0 < p.Sq ? q0p[c / 2] : 0u;
-    qf[kk][1] = r1 < p.Sq ? q1p[c / 2] : 0u;
-    qf[kk][2] = r0 < p.Sq ? q0p[c / 2 + 4] : 0u;
-    qf[kk][3] = r1 < p.Sq ? q1p[c / 2 + 4] : 0u;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int wg = warp >> 2;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < ST; ++s) {
+      mbar_init(bar + 8 * s, 1);
+      asm volatile("st.shared.u32 [%0], 0;\n" ::"r"(bar + 8 * (ST + s))
+                   : "memory");
+    }
+    mbar_init(qbar, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  if (threadIdx.x == 0 && n_t > 0) {
+    mbar_expect_tx(qbar, G::Q_BYTES);
+    tma_tile(sQ, &tq, h, q0, b, qbar);
+    for (int i = 0; i < ST && i < n_t; ++i)
+      load_kv<D>(&tk, &tv, sQ, bar, hk, b, t_lo + i, i);
   }
 
-  float acc[NO][4];
+  const int g = lane >> 2, tg = lane & 3;
+  const int wr = q0 + 16 * warp;  // the warp's first row
+  const int r0 = wr + g, r1 = r0 + 8;
+  float acc[NO * 4];
 #pragma unroll
-  for (int n = 0; n < NO; ++n)
-    acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
+  for (int i = 0; i < NO * 4; ++i) acc[i] = 0.f;
   float m0 = kNegInf, m1 = kNegInf, l0 = 0.f, l1 = 0.f;
   const float scale2 = p.scale * kLog2e;  // exp(x) = exp2(x log2 e)
 
-  int t_lo, t_hi;
-  kv_tile_range(p, q0, BQ, BK, &t_lo, &t_hi);
-  for (int t = t_lo; t < t_hi; ++t) {
-    const int k0 = t * BK;
-    __syncthreads();
-    for (int idx = tid; idx < BK * (D / VEC); idx += NT) {
-      const int r = idx / (D / VEC), c = (idx % (D / VEC)) * VEC;
-      uint4 xk = make_uint4(0u, 0u, 0u, 0u), xv = xk;
-      if (k0 + r < p.Sk) {
-        xk = *reinterpret_cast<const uint4*>(kb + (k0 + r) * st.ks + c);
-        xv = *reinterpret_cast<const uint4*>(vb + (k0 + r) * st.vs + c);
-      }
-      *reinterpret_cast<uint4*>(sK + r * KS + c) = xk;
-      *reinterpret_cast<uint4*>(sV + r * KS + c) = xv;
-    }
-    __syncthreads();
+  // Iteration i issues Q K^T of tile i and P V of tile i - 1 together, in
+  // this warpgroup's turn (the two warpgroups take turns, so one's softmax
+  // runs while the other's products do), then waits for both and leaves
+  // the stage of tile i - 1.
+  uint32_t pa[BK / 16][4];  // P of the previous tile
+  const int turn = 1 + wg, other = 2 - wg;  // named barriers 1 and 2
+  if (n_t > 0) {
+    mbar_wait(qbar, 0);
+    if (wg == 1) named_arrive(other);  // warpgroup 0 goes first
+  }
+  for (int i = 0; i < n_t; ++i) {
+    const int s = i % ST, sp = (i + ST - 1) % ST;
+    const int k0 = (t_lo + i) * BK;
+    const uint32_t sK = sKV + 2 * s * G::KV_BYTES;
+    const uint32_t sVp = sKV + (2 * sp + 1) * G::KV_BYTES;
+    mbar_wait(bar + 8 * s, (i / ST) & 1);
+    __syncwarp();  // converged for the .aligned wgmma instructions
 
-    float s[NS][4];
+    // S = Q K^T: A is the warpgroup's 64 rows of the q-tile, B the kv
+    // tile, both K-major (d contiguous) in NB swizzled column blocks; a
+    // k16 step is 32 bytes into a swizzle row, or the next block.
+    // O += P V (tile i - 1): A is P in registers, B the V tile, N-major
+    // (d contiguous), read transposed: a k16 step is 16 rows on, the
+    // next swizzle atom along d the next column block.
+    float sc[NS * 4];
+    named_sync(turn);
+    wgmma_fence();
 #pragma unroll
-    for (int j = 0; j < NS; ++j) {
-      s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
-      const uint32_t* kr =
-          reinterpret_cast<const uint32_t*>(sK + (j * 8 + g) * KS);
+    for (int kk = 0; kk < NK; ++kk) {
+      const uint32_t koff = (kk % KPB) * 32;
+      const uint64_t da = make_desc<SW>(
+          sQ + (kk / KPB) * BQ * SW + 64 * wg * SW + koff, 16, 8 * SW);
+      const uint64_t db =
+          make_desc<SW>(sK + (kk / KPB) * BK * SW + koff, 16, 8 * SW);
+      wgmma_ss<BK>(sc, da, db, kk > 0);
+    }
+    if (i > 0) {
 #pragma unroll
-      for (int kk = 0; kk < NK; ++kk)
-        mma_bf16(s[j], qf[kk], kr[kk * 8 + tg], kr[kk * 8 + 4 + tg]);
+      for (int kk = 0; kk < BK / 16; ++kk)
+        wgmma_rs<D>(acc, pa[kk],
+                    make_desc<SW>(sVp + kk * 16 * SW, BK * SW, 8 * SW));
+    }
+    wgmma_commit();
+    named_arrive(other);
+    wgmma_wait_all();
+    fence_regs<NS * 4>(sc);
+    fence_regs<NO * 4>(acc);
+    fence_regs<BK / 4>(&pa[0][0]);
+    if (i > 0) {
+      __syncwarp();
+      if (lane == 0 && last_to_leave(bar + 8 * (ST + sp)) &&
+          i - 1 + ST < n_t)
+        load_kv<D>(&tk, &tv, sQ, bar, hk, b, t_lo + i - 1 + ST, sp);
     }
 
-    // a tile that every row of the block sees whole needs no mask
+    // a tile that every row of the warp sees whole needs no mask
     const bool whole = k0 + BK <= p.Sk &&
-                       (!p.causal || k0 + BK - 1 <= q0) &&
-                       (p.window <= 0 || q0 + BQ - 1 - k0 < p.window);
+                       (!p.causal || k0 + BK - 1 <= wr) &&
+                       (p.window <= 0 || wr + 15 - k0 < p.window);
     float mx0 = kNegInf, mx1 = kNegInf;
 #pragma unroll
     for (int j = 0; j < NS; ++j) {
       const int c = k0 + j * 8 + tg * 2;
+      if (!whole) {
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int row = e < 2 ? r0 : r1, col = c + (e & 1);
-        s[j][e] = (whole || visible(p, row, col)) ? s[j][e] * scale2
-                                                  : kNegInf;
+        for (int e = 0; e < 4; ++e)
+          if (!visible(p, e < 2 ? r0 : r1, c + (e & 1)))
+            sc[4 * j + e] = kNegInf;
       }
-      mx0 = fmaxf(mx0, fmaxf(s[j][0], s[j][1]));
-      mx1 = fmaxf(mx1, fmaxf(s[j][2], s[j][3]));
+      mx0 = fmaxf(mx0, fmaxf(sc[4 * j], sc[4 * j + 1]));
+      mx1 = fmaxf(mx1, fmaxf(sc[4 * j + 2], sc[4 * j + 3]));
     }
 #pragma unroll
-    for (int w = 1; w <= 2; w <<= 1) {
-      mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, w));
-      mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, w));
+    for (int x = 1; x <= 2; x <<= 1) {
+      mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, x));
+      mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, x));
     }
+    // m is the running max of the unscaled scores; a row that has seen no
+    // key yet keeps it at kNegInf and takes 0 as its reference, so its
+    // masked columns weigh exp2(kNegInf scale2) = 0
     const float mn0 = fmaxf(m0, mx0), mn1 = fmaxf(m1, mx1);
-    const float a0 = exp2f(m0 - mn0), a1 = exp2f(m1 - mn1);
+    const float mu0 = (mn0 == kNegInf ? 0.f : mn0) * scale2;
+    const float mu1 = (mn1 == kNegInf ? 0.f : mn1) * scale2;
+    const float a0 = ex2(fmaf(m0, scale2, -mu0));
+    const float a1 = ex2(fmaf(m1, scale2, -mu1));
     m0 = mn0;
     m1 = mn1;
     float ps0 = 0.f, ps1 = 0.f;
 #pragma unroll
     for (int j = 0; j < NS; ++j) {
-      s[j][0] = exp2f(s[j][0] - mn0);
-      s[j][1] = exp2f(s[j][1] - mn0);
-      s[j][2] = exp2f(s[j][2] - mn1);
-      s[j][3] = exp2f(s[j][3] - mn1);
-      ps0 += s[j][0] + s[j][1];
-      ps1 += s[j][2] + s[j][3];
+      sc[4 * j] = ex2(fmaf(sc[4 * j], scale2, -mu0));
+      sc[4 * j + 1] = ex2(fmaf(sc[4 * j + 1], scale2, -mu0));
+      sc[4 * j + 2] = ex2(fmaf(sc[4 * j + 2], scale2, -mu1));
+      sc[4 * j + 3] = ex2(fmaf(sc[4 * j + 3], scale2, -mu1));
+      ps0 += sc[4 * j] + sc[4 * j + 1];
+      ps1 += sc[4 * j + 2] + sc[4 * j + 3];
     }
     // l is kept per thread (its own columns) and summed over the row's
     // four threads once, at the end
@@ -340,44 +707,49 @@ __global__ void __launch_bounds__(kBfThreads)
     l1 = l1 * a1 + ps1;
 #pragma unroll
     for (int n = 0; n < NO; ++n) {
-      acc[n][0] *= a0; acc[n][1] *= a0;
-      acc[n][2] *= a1; acc[n][3] *= a1;
+      acc[4 * n] *= a0; acc[4 * n + 1] *= a0;
+      acc[4 * n + 2] *= a1; acc[4 * n + 3] *= a1;
     }
-
+    // P leaves the accumulator as bf16 in the register-A layout: n8 tiles
+    // 2 kk and 2 kk + 1 are k16 step kk
 #pragma unroll
     for (int kk = 0; kk < BK / 16; ++kk) {
-      uint32_t pa[4];
-      pa[0] = pack_bf16(s[2 * kk][0], s[2 * kk][1]);
-      pa[1] = pack_bf16(s[2 * kk][2], s[2 * kk][3]);
-      pa[2] = pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]);
-      pa[3] = pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3]);
-      const __nv_bfloat16* v0 = sV + (kk * 16 + tg * 2) * KS;
-#pragma unroll
-      for (int n = 0; n < NO; ++n) {
-        const int c = n * 8 + g;
-        const uint32_t b0 = pack_raw(v0[c], v0[KS + c]);
-        const uint32_t b1 = pack_raw(v0[8 * KS + c], v0[9 * KS + c]);
-        mma_bf16(acc[n], pa, b0, b1);
-      }
+      pa[kk][0] = pack_bf16(sc[8 * kk], sc[8 * kk + 1]);
+      pa[kk][1] = pack_bf16(sc[8 * kk + 2], sc[8 * kk + 3]);
+      pa[kk][2] = pack_bf16(sc[8 * kk + 4], sc[8 * kk + 5]);
+      pa[kk][3] = pack_bf16(sc[8 * kk + 6], sc[8 * kk + 7]);
     }
+  }
+  if (n_t > 0) {  // the last tile's P V
+    const uint32_t sVp = sKV + (2 * ((n_t - 1) % ST) + 1) * G::KV_BYTES;
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < BK / 16; ++kk)
+      wgmma_rs<D>(acc, pa[kk],
+                  make_desc<SW>(sVp + kk * 16 * SW, BK * SW, 8 * SW));
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_regs<NO * 4>(acc);
+    fence_regs<BK / 4>(&pa[0][0]);
+    if (wg == 0) named_sync(turn);  // the arrival warpgroup 1 made last
   }
 
 #pragma unroll
-  for (int w = 1; w <= 2; w <<= 1) {
-    l0 += __shfl_xor_sync(0xffffffffu, l0, w);
-    l1 += __shfl_xor_sync(0xffffffffu, l1, w);
+  for (int x = 1; x <= 2; x <<= 1) {
+    l0 += __shfl_xor_sync(0xffffffffu, l0, x);
+    l1 += __shfl_xor_sync(0xffffffffu, l1, x);
   }
   const float inv0 = 1.f / fmaxf(l0, 1e-20f), inv1 = 1.f / fmaxf(l1, 1e-20f);
-  __nv_bfloat16* ob = o + b * st.ob + h * st.oh;
+  __nv_bfloat16* ob = out.o + b * out.ob + h * out.oh;
 #pragma unroll
   for (int n = 0; n < NO; ++n) {
     const int c = n * 8 + tg * 2;
     if (r0 < p.Sq)
-      *reinterpret_cast<uint32_t*>(ob + r0 * st.os + c) =
-          pack_bf16(acc[n][0] * inv0, acc[n][1] * inv0);
+      *reinterpret_cast<uint32_t*>(ob + r0 * out.os + c) =
+          pack_bf16(acc[4 * n] * inv0, acc[4 * n + 1] * inv0);
     if (r1 < p.Sq)
-      *reinterpret_cast<uint32_t*>(ob + r1 * st.os + c) =
-          pack_bf16(acc[n][2] * inv1, acc[n][3] * inv1);
+      *reinterpret_cast<uint32_t*>(ob + r1 * out.os + c) =
+          pack_bf16(acc[4 * n + 2] * inv1, acc[4 * n + 3] * inv1);
   }
 }
 
@@ -397,16 +769,82 @@ cudaError_t launch_f32(const void* q, const void* k, const void* v, void* o,
   return cudaGetLastError();
 }
 
+// cuTensorMapEncodeTiled of libcuda, looked up through the CUDA runtime's
+// entry-point query, so the library is built without linking libcuda.
+PFN_cuTensorMapEncodeTiled encode_fn() {
+  static PFN_cuTensorMapEncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* f = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &f, 12000, cudaEnableDefault, &found);
+#else
+    cudaError_t err = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &f, cudaEnableDefault, &found);
+#endif
+    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<PFN_cuTensorMapEncodeTiled>(f);
+  }
+  return fn;
+}
+
+// A 5-D map (W, S, NB, H, B), innermost first, over a bf16 tensor with
+// element strides (sh, ss, sb) and a contiguous last dim: the head dim
+// split into NB column blocks of W, so that one box (W, rows, NB) lands
+// as NB column blocks of `rows` rows each, swizzled SW bytes; rows >= S
+// read as zeros.  A dim of size 1 gets the stride a packed tensor would have
+// (only coordinate 0 is read, and a view may carry any stride there).
+template <int D>
+bool encode_map(CUtensorMap* map, const void* ptr, int H, int S, int B,
+                long long sh, long long ss, long long sb, int rows) {
+  using G = Geo<D>;
+  PFN_cuTensorMapEncodeTiled fn = encode_fn();
+  if (fn == nullptr) return false;
+  const long long n[4] = {S, G::NB, H, B}, st[4] = {ss, G::W, sh, sb};
+  cuuint64_t dims[5] = {static_cast<cuuint64_t>(G::W), 0, 0, 0, 0};
+  cuuint64_t strides[4];
+  cuuint64_t packed = 2ull * G::W;
+  for (int i = 0; i < 4; ++i) {
+    dims[i + 1] = static_cast<cuuint64_t>(n[i]);
+    strides[i] = n[i] == 1 ? packed : static_cast<cuuint64_t>(2 * st[i]);
+    packed = strides[i] * n[i];
+  }
+  cuuint32_t box[5] = {static_cast<cuuint32_t>(G::W),
+                       static_cast<cuuint32_t>(rows),
+                       static_cast<cuuint32_t>(G::NB), 1u, 1u};
+  cuuint32_t unit[5] = {1u, 1u, 1u, 1u, 1u};
+  const CUtensorMapSwizzle swizzle =
+      G::SW == 128 ? CU_TENSOR_MAP_SWIZZLE_128B
+      : G::SW == 64 ? CU_TENSOR_MAP_SWIZZLE_64B
+                    : CU_TENSOR_MAP_SWIZZLE_32B;
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 5, const_cast<void*>(ptr),
+            dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
+            CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
 template <int D>
 cudaError_t launch_bf16(const void* q, const void* k, const void* v,
                         void* o, int B, int H, const Strides& st,
                         const Problem& p, cudaStream_t stream) {
-  const dim3 grid((p.Sq + kBfBq - 1) / kBfBq, H, B);
-  flash_fwd_bf16<D><<<grid, kBfThreads, 0, stream>>>(
-      static_cast<const __nv_bfloat16*>(q),
-      static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o),
-      st, p);
+  using G = Geo<D>;
+  const int Hkv = H / p.group;
+  CUtensorMap tq, tk, tv;
+  if (!encode_map<D>(&tq, q, H, p.Sq, B, st.qh, st.qs, st.qb, G::BQ) ||
+      !encode_map<D>(&tk, k, Hkv, p.Sk, B, st.kh, st.ks, st.kb, G::BK) ||
+      !encode_map<D>(&tv, v, Hkv, p.Sk, B, st.vh, st.vs, st.vb, G::BK))
+    return cudaErrorInvalidValue;
+  cudaError_t err = cudaFuncSetAttribute(
+      flash_fwd_tma<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      G::SMEM);
+  if (err != cudaSuccess) return err;
+  const int n_qt = (p.Sq + G::BQ - 1) / G::BQ;
+  const long long blocks = static_cast<long long>(n_qt) * H * B;
+  if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
+  const OutArgs out{static_cast<__nv_bfloat16*>(o), st.ob, st.os, st.oh};
+  flash_fwd_tma<D><<<static_cast<unsigned>(blocks), kTmaThreads, G::SMEM,
+                     stream>>>(tq, tk, tv, out, p, H, B, n_qt);
   return cudaGetLastError();
 }
 
@@ -418,11 +856,30 @@ cudaError_t launch(int dtype, const void* q, const void* k, const void* v,
                     : launch_bf16<D>(q, k, v, o, B, H, st, p, stream);
 }
 
+template <typename K>
+int kernel_info(K kernel, int dyn_smem, int* info) {
+  cudaFuncAttributes a;
+  cudaError_t err = cudaFuncGetAttributes(&a, kernel);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  info[0] = a.numRegs;
+  info[1] = static_cast<int>(a.sharedSizeBytes) + dyn_smem;
+  info[2] = static_cast<int>(a.localSizeBytes);
+  return 0;
+}
+
+template <int D>
+int info_of(int dtype, int* out) {
+  return dtype == 0
+             ? kernel_info(flash_fwd_f32<D>, f32_smem_bytes<D>(), out)
+             : kernel_info(flash_fwd_tma<D>, Geo<D>::SMEM, out);
+}
+
 }  // namespace
 
 // dtype: 0 float32, 1 bfloat16.  Strides are in elements; the last
 // dimension of every tensor is contiguous, and the caller has checked
-// 16-byte alignment of the pointers and of the (B, S, H) strides.
+// 16-byte alignment of the pointers and of the (B, S, H) strides (the
+// bf16 kernel's tensor maps need exactly that).
 extern "C" int flash_attention_launch(
     const void* q, const void* k, const void* v, void* o, int dtype, int B,
     int Sq, int Sk, int H, int Hkv, int D, long long qb, long long qs,
@@ -445,4 +902,18 @@ extern "C" int flash_attention_launch(
     default: err = cudaErrorInvalidValue;
   }
   return static_cast<int>(err);
+}
+
+// Registers per thread, shared memory per block (static + dynamic) and
+// local memory per thread (spills, stack) of the kernel that a call of
+// (dtype, D) launches, into info[0..2].  Returns a cudaError_t.
+extern "C" int flash_attention_kernel_info(int dtype, int D, int* info) {
+  switch (D) {
+    case 16: return info_of<16>(dtype, info);
+    case 32: return info_of<32>(dtype, info);
+    case 64: return info_of<64>(dtype, info);
+    case 80: return info_of<80>(dtype, info);
+    case 128: return info_of<128>(dtype, info);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
 }

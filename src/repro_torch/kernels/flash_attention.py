@@ -4,13 +4,16 @@ version.
 Port of the Pallas TPU kernel ``repro/kernels/flash_attention.py`` (route:
 CUDA C++ for sm_90a, ``csrc/flash_attention.cu``, bound with ctypes).  At
 the prefill shape the kernel is bound by operations: the source's head
-note says so and what its design does about it.
+note says so and what its design does about it.  The kernel a call
+launches is a fixed function of its dtype (``KERNELS``): bf16 at every
+head dim goes to ``flash_fwd_tma`` (TMA ring, wgmma), float32 to
+``flash_fwd_f32`` (scalar FMAs).
 
 q is (B, Sq, H, D), k and v are (B, Sk, Hkv, D) with H % Hkv == 0 (GQA:
 query head h reads kv head h // (H // Hkv)).  Masks: causal (row >= col)
 and, for ``window > 0``, row - col < window.  The output is (B, Sq, H, D)
 in q's dtype.  A query row that sees no key at all (possible only when
-Sq > Sk + window) gets zeros from the kernel, where the plain version
+Sq > Sk + window) gets zeros from the bf16 kernel, where the plain version
 averages every value row; the model never makes such a call (Sq == Sk).
 
 :func:`flash_attention` launches the kernel on CUDA tensors and raises on
@@ -30,6 +33,8 @@ from repro_torch.kernels import _build
 NEG_INF = -1e30
 HEAD_DIMS = (16, 32, 64, 80, 128)
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+# the kernel each dtype launches, at every head dim (csrc/flash_attention.cu)
+KERNELS = {torch.float32: "flash_fwd_f32", torch.bfloat16: "flash_fwd_tma"}
 BLOCK_K = 128  # the TPU kernel's kv block, which sets its padding contract
 
 
@@ -94,6 +99,21 @@ def _launcher():
     return fn
 
 
+def kernel_info(dtype, d: int) -> dict:
+    """Registers per thread, shared memory per block and local memory per
+    thread (spills and stack) of the kernel a (dtype, head dim) call
+    launches, as the CUDA runtime reports them (builds the library)."""
+    fn = _build.load("flash_attention").flash_attention_kernel_info
+    fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
+    fn.restype = ctypes.c_int
+    out = (ctypes.c_int * 3)()
+    rc = fn(DTYPES[dtype], d, out)
+    if rc != 0:
+        raise RuntimeError(f"flash_attention_kernel_info: cudaError {rc}")
+    return {"kernel": KERNELS[dtype], "registers": out[0],
+            "smem_bytes": out[1], "local_bytes": out[2]}
+
+
 def _check_cuda_layout(x, name: str, dev) -> None:
     align = 16 // x.element_size()
     if x.device != dev:
@@ -101,9 +121,10 @@ def _check_cuda_layout(x, name: str, dev) -> None:
     if x.stride(3) != 1 or any(s % align for s in x.stride()[:3]) \
             or x.data_ptr() % 16:
         raise ValueError(
-            f"flash_attention reads {name} through its strides with 16-byte "
-            f"loads: the head dim must be contiguous and the other strides "
-            f"multiples of {align} elements, got strides {x.stride()}")
+            f"flash_attention reads {name} through its strides (16-byte "
+            f"loads, TMA tensor maps): the head dim must be contiguous and "
+            f"the other strides multiples of {align} elements, got strides "
+            f"{x.stride()}")
 
 
 def flash_attention(q, k, v, *, causal: bool = True, window: int = 0):

@@ -142,6 +142,17 @@ def test_cuda_wrapper_refuses_cpu_tensors():
     assert fa.flash_attention.launches == before
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_each_dtype_names_a_kernel_of_the_source(dtype):
+    """The kernel a dtype launches at every head dim is defined in the CUDA
+    source, and its name starts with flash_fwd, the name chip_smoke.py
+    sums the prefill's attention time by."""
+    src = (fa._build.CSRC / "flash_attention.cu").read_text()
+    name = fa.KERNELS[dtype]
+    assert dtype in fa.DTYPES and name.startswith("flash_fwd")
+    assert f"{name}(" in src and f"{name}<D>" in src
+
+
 def test_non_causal_padded_kv_raises():
     q, k, v = map(torch.from_numpy, _qkv(1, 192, 2, 2, 32))
     with pytest.raises(NotImplementedError):
@@ -175,7 +186,31 @@ CARD_CASES = ([(s, dt, 0, None) for s in CAUSAL_SHAPES
                  ((1, 200, 4, 4, 80), torch.float32, 64, None),
                  ((2, 320, 4, 4, 80), torch.bfloat16, 0, None),
                  ((1, 100, 4, 2, 64), torch.float32, 0, 60),    # Sq > Sk
-                 ((1, 100, 4, 2, 64), torch.bfloat16, 16, 160)])
+                 ((1, 100, 4, 2, 64), torch.bfloat16, 16, 160)]
+              # the bf16 TMA kernel's edges: Sq not a multiple of its
+              # 128-row q-tile (small and at prefill length)
+              + [((1, 200, 4, 2, 128), torch.bfloat16, 0, None),
+                 ((1, 200, 4, 4, 80), torch.bfloat16, 0, None),
+                 ((1, 4160, 2, 1, 128), torch.bfloat16, 0, None),
+                 ((1, 4160, 2, 2, 80), torch.bfloat16, 0, None)]
+              # Sq > Sk, and Sk shorter than one 128-row kv tile: TMA's
+              # zero fill stands in for the rows >= Sk
+              + [((1, 200, 4, 2, 128), torch.bfloat16, 0, 100),
+                 ((1, 200, 4, 4, 80), torch.bfloat16, 0, 100),
+                 ((1, 200, 4, 2, 128), torch.bfloat16, 0, 60),
+                 ((1, 50, 4, 4, 80), torch.bfloat16, 0, 60)]
+              # windows narrower than a kv tile
+              + [((1, 300, 4, 2, d), torch.bfloat16, w, None)
+                 for d in (80, 128) for w in (16, 100)]
+              # GQA groups 1, 6 and 16
+              + [((1, 256, 4, 4, 128), torch.bfloat16, 0, None),
+                 ((1, 256, 6, 1, 128), torch.bfloat16, 0, None),
+                 ((1, 256, 16, 1, 64), torch.bfloat16, 0, None),
+                 ((1, 256, 16, 1, 64), torch.float32, 0, None)]
+              # the small head dims, with windows and Sk > Sq
+              + [((1, 300, 2, 1, 16), torch.bfloat16, 100, None),
+                 ((1, 300, 2, 2, 32), torch.bfloat16, 16, None),
+                 ((1, 300, 4, 2, 64), torch.bfloat16, 100, 340)])
 
 
 @pytest.mark.cuda
@@ -189,6 +224,39 @@ def test_cuda_kernel_matches_plain_version(cuda, shape, dtype, window, sk):
     assert fa.flash_attention.launches == before + 1
     want = fa.flash_attention_ref(q, k, v, causal=True, window=window)
     torch.testing.assert_close(got.float(), want.float(), **TOL[dtype])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [80, 128])
+@pytest.mark.parametrize("layout", ["fused_qkv", "bhsd"])
+def test_cuda_kernel_reads_strided_views(cuda, layout, d):
+    """q, k, v as views the kernel's tensor maps read through their
+    strides: the three slices of one fused (B, S, 3, H, D) projection, and
+    (B, H, S, D) tensors transposed to (B, S, H, D)."""
+    b, s, h = 2, 300, 4
+    g = torch.Generator(device="cuda").manual_seed(8)
+    if layout == "fused_qkv":
+        qkv = torch.randn(b, s, 3, h, d, device=cuda, generator=g)
+        q, k, v = qkv.to(torch.bfloat16).unbind(2)
+    else:
+        q, k, v = (torch.randn(b, h, s, d, device=cuda, generator=g)
+                   .to(torch.bfloat16).transpose(1, 2) for _ in range(3))
+    assert not q.is_contiguous()
+    got = ops.flash_attention(q, k, v, causal=True, window=100)
+    want = fa.flash_attention_ref(q.contiguous(), k.contiguous(),
+                                  v.contiguous(), causal=True, window=100)
+    torch.testing.assert_close(got.float(), want.float(),
+                               **TOL[torch.bfloat16])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_kernel_info_has_no_spills(cuda, dtype):
+    for d in fa.HEAD_DIMS:
+        info = fa.kernel_info(dtype, d)
+        assert info["kernel"] == fa.KERNELS[dtype]
+        assert 0 < info["registers"] <= 255 and info["local_bytes"] == 0, \
+            (d, info)
 
 
 @pytest.mark.cuda
