@@ -12,11 +12,19 @@ import numpy as np
 import torch
 
 
+def float_dtype(t: torch.Tensor) -> torch.dtype:
+    """The dtype a tensor computes in: its own if it is float32 or wider
+    (float64 stays float64), else float32 -- ``jnp.result_type(dtype,
+    float32)`` as the reference takes it."""
+    return torch.promote_types(t.dtype, torch.float32)
+
+
 def f32(x, device=None):
-    """Tensors -> float32 tensors (moved to ``device`` when given);
-    numbers -> Python floats holding a float32 value; arrays -> tensors."""
+    """Tensors -> tensors of :func:`float_dtype` (moved to ``device`` when
+    given); numbers -> Python floats holding a float32 value; arrays ->
+    float32 tensors."""
     if isinstance(x, torch.Tensor):
-        return x.to(device=device or x.device, dtype=torch.float32)
+        return x.to(device=device or x.device, dtype=float_dtype(x))
     a = np.asarray(x, np.float32)
     if a.ndim == 0:
         return float(a)
@@ -50,12 +58,13 @@ def device_of(*xs, default=None):
 
 
 def tensor(x, device=None) -> torch.Tensor:
-    """``x`` as a float32 tensor on ``device`` (a tensor keeps its device
-    when ``device`` is None).  A number becomes a filled 0-d tensor,
-    which needs no copy from the host; an array is copied (set-up code
-    only: the copy waits for the device)."""
+    """``x`` as a tensor on ``device`` (a tensor keeps its device when
+    ``device`` is None, and computes in :func:`float_dtype`).  A number
+    becomes a filled 0-d float32 tensor, which needs no copy from the
+    host; an array is copied in float32 (set-up code only: the copy waits
+    for the device)."""
     if isinstance(x, torch.Tensor):
-        return x.to(device=device or x.device, dtype=torch.float32)
+        return x.to(device=device or x.device, dtype=float_dtype(x))
     a = np.array(x, np.float32)
     if a.ndim == 0:
         return torch.full((), float(a), dtype=torch.float32, device=device)

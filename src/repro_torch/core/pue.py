@@ -10,6 +10,7 @@ Every function broadcasts over any leading axes: ``load``, ``t_amb`` and
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 from repro_torch._num import clip, device_of, f32
 
@@ -33,9 +34,11 @@ def free_cooling_fraction(t_amb, device=None):
                 0.0, 1.0)
 
 
-# the calibration ambient's chiller factor, folded once in float32
+# the calibration ambient's chiller factor, folded once in float32, and
+# in float64 for float64 inputs (as the reference computes it there)
 _F_REF = np.float32(free_cooling_fraction(T_REF))
 _CHILL_REF = float(np.float32(1.0) - np.float32(0.85) * _F_REF)
+_CHILL_REF_F64 = 1.0 - 0.85 * free_cooling_fraction(T_REF)
 
 
 def pue(load, t_amb, *, pue_design=PUE_DESIGN):
@@ -44,8 +47,11 @@ def pue(load, t_amb, *, pue_design=PUE_DESIGN):
     L = clip(f32(load, dev), 1e-3, 1.0)
     oh = f32(pue_design, dev) - 1.0
     f_fc = free_cooling_fraction(t_amb, dev)
+    wide = any(isinstance(v, torch.Tensor) and v.dtype == torch.float64
+               for v in (L, oh, f_fc))
     cop_penalty = 1.0 + 0.45 * (1.0 - L)
-    chiller_scale = oh * CHILLER_SHARE / _CHILL_REF
+    chiller_scale = oh * CHILLER_SHARE / (_CHILL_REF_F64 if wide
+                                          else _CHILL_REF)
     p_chiller = chiller_scale * L * cop_penalty * (1.0 - 0.85 * f_fc)
     p_pumps = oh * PUMP_SHARE * clip(L * L, PUMP_FLOOR)
     p_air = oh * AIR_SHARE * clip(L * L * L, AIR_FLOOR)

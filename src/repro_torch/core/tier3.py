@@ -111,7 +111,7 @@ def revenue_score(mu, rho, t_amb, product_idx, *, pue_aware: bool,
     v = event_verdict(mu, t_amb, rho, product_idx, pue_design,
                       pue_aware=pue_aware)
     shortfall = torch.clamp(1.0 - v["delivered_frac"], 0.0, 1.0)
-    hard_miss = 1.0 - v["budget_ok"].float()
+    hard_miss = 1.0 - v["budget_ok"].to(rho.dtype)
     ev_per_h = tensor(events_per_day, rho.device) / 24.0
     at_risk = ev_per_h * PENALTY_WINDOW_H * (shortfall + hard_miss)
     net = (rho / RHO_MAX) * (1.0 - at_risk)
@@ -129,7 +129,7 @@ def throughput_score(mu, rho, clock_w, product_idx, *,
     g_shed = workload_lib.throughput_frac(clock_w, resid)
     ev_per_h = tensor(events_per_day, dev) / 24.0
     dur_s = take(markets.MIN_DURATION_S, product_idx)
-    has_band = (rho > 0.0).float()
+    has_band = (rho > 0.0).to(rho.dtype)
     shed_frac = torch.clamp(ev_per_h * dur_s / 3600.0, 0.0, 1.0) * has_band
     dead_frac = torch.clamp(
         ev_per_h * tensor(ckpt_cost_s, dev) / 3600.0, 0.0, 1.0) * has_band
@@ -266,7 +266,7 @@ class Tier3Selector:
 
     def _on_device(self, x) -> torch.Tensor:
         if isinstance(x, torch.Tensor):
-            return x.float()
+            return tensor(x)
         return tensor(x, resolve_device(self.device))
 
     def objective(self, mu, rho, greenness, t_amb) -> torch.Tensor:

@@ -2,9 +2,12 @@
 sequential oracle.
 
 Port of the Pallas TPU kernel ``repro/kernels/ssd_scan.py`` (route: CUDA
-C++ for sm_90a, ``csrc/ssd_scan.cu``, bound with ctypes).  The source's
-head note says what bounds it on the card and what its design does about
-that.
+C++ for sm_90a, ``csrc/ssd_scan.cu``, bound with ctypes).  The inputs'
+types pick the path: x, B and C all bfloat16 (the model's prefill) run
+three chunk-parallel kernels on the tensor cores (the chunk states, the
+pass over chunks, the outputs); any float32 among them runs one kernel of
+f32 FMAs.  The source's head note says what bounds each on the card and
+what its design does about that.
 
 x is (b, s, nh, hd), dt (b, s, nh), A (nh,), B and C (b, s, ds): one
 group (``ngroups=1``), so B and C are shared by every head.  Within a
@@ -134,29 +137,49 @@ def ssd_ref(x, dt, A, B, C):
     return torch.stack(ys, 1).to(x.dtype)
 
 
-_ARGTYPES = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 8
-             + [ctypes.c_longlong] * 10 + [ctypes.c_void_p])
+_F32_ARGTYPES = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 8
+                 + [ctypes.c_longlong] * 10 + [ctypes.c_void_p])
+_BF16_ARGTYPES = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 6
+                  + [ctypes.c_longlong] * 10 + [ctypes.c_void_p] * 2)
+# the tensor-core path's device kernels, in launch order
+KERNELS = ("ssd_scan_chunk_state", "ssd_scan_state_pass",
+           "ssd_scan_chunk_out")
 
 
-def _launcher():
+def _launchers():
     lib = _build.load("ssd_scan")
-    fn = lib.ssd_scan_launch
-    fn.argtypes = _ARGTYPES
-    fn.restype = ctypes.c_int
-    return fn
+    f32, bf16 = lib.ssd_scan_launch, lib.ssd_scan_bf16_launch
+    f32.argtypes, bf16.argtypes = _F32_ARGTYPES, _BF16_ARGTYPES
+    f32.restype = bf16.restype = ctypes.c_int
+    return f32, bf16
+
+
+def check_bf16_layout(x, B, C) -> None:
+    """The tensor-core path reads x, B and C in 16-byte pieces: each must
+    start on 16 bytes, with strides over (b, s[, h]) that are multiples of
+    8 elements.  Raises ``ValueError`` otherwise (no copy, no fallback)."""
+    for t, name in ((x, "x"), (B, "B"), (C, "C")):
+        if t.data_ptr() % 16 or any(st % 8 for st in t.stride()[:-1]):
+            raise ValueError(
+                f"ssd_scan in bf16 reads {name} in 16-byte pieces: it must "
+                f"start on 16 bytes with strides over its leading dims that "
+                f"are multiples of 8 elements, got address "
+                f"{t.data_ptr()} and strides {t.stride()}")
 
 
 def ssd_scan(x, dt, A, B, C, *, chunk: int = 256):
-    """Launch the CUDA kernel; returns y (b, s, nh, hd) in x's dtype.
+    """Launch the CUDA kernels; returns y (b, s, nh, hd) in x's dtype.
 
     x float32 or bfloat16 with hd in 16/32/64; B and C of one dtype,
     float32 or bfloat16, with ds in 16/32/64/128; dt and A float32; all
     on one CUDA device, the last dim of x, B and C contiguous (the rest
-    is read through strides).  ``chunk`` in 8/16/32/64/128/256 and
+    is read through strides; with x, B and C all bfloat16 see
+    :func:`check_bf16_layout`).  ``chunk`` in 8/16/32/64/128/256 and
     ``s % chunk == 0``.  The TPU kernel's ``block_heads`` (its head
     tiling) and ``interpret`` (its emulator) have no counterpart here.
 
-    Adds one to ``ssd_scan.launches`` for each launch.  Raises on a CPU
+    Adds one to ``ssd_scan.launches`` for each call (the tensor-core
+    path's three device kernels count as one call).  Raises on a CPU
     tensor, another dtype, size or layout, or a launch the runtime
     refuses.
     """
@@ -183,19 +206,45 @@ def ssd_scan(x, dt, A, B, C, *, chunk: int = 256):
     if x.stride(3) != 1 or B.stride(2) != 1 or C.stride(2) != 1:
         raise ValueError("ssd_scan reads the last dim of x, B and C "
                          "contiguously")
+    bf16 = x.dtype == B.dtype == torch.bfloat16
+    if bf16:
+        check_bf16_layout(x, B, C)
     y = torch.empty(x.shape, dtype=x.dtype, device=dev)
     if b == 0 or s == 0 or nh == 0:
         return y
     A = A.contiguous()
-    fn = _launcher()
+    f32_fn, bf16_fn = _launchers()
+    strides = (*x.stride()[:3], *dt.stride(), *B.stride()[:2],
+               *C.stride()[:2])
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = fn(x.data_ptr(), dt.data_ptr(), A.data_ptr(), B.data_ptr(),
-                C.data_ptr(), y.data_ptr(), DTYPES[x.dtype], DTYPES[B.dtype],
-                b, s, nh, hd, ds, chunk, *x.stride()[:3], *dt.stride(),
-                *B.stride()[:2], *C.stride()[:2], stream)
-    if rc != 0:
-        raise RuntimeError(f"ssd_scan launch failed: cudaError {rc}")
+        if bf16:
+            # scratch; once freed, the caching allocator hands it only to
+            # work queued after these kernels on this stream
+            nc = s // chunk
+            st = torch.empty(b, nc, nh, hd, ds, dtype=torch.float32,
+                             device=dev)
+            dec = torch.empty(b, nc, nh, dtype=torch.float32, device=dev)
+            prev = torch.empty(2, b, nc, nh, hd, ds, dtype=torch.bfloat16,
+                               device=dev)  # hi and lo planes
+            fac = torch.empty(b, nc, nh, 8, chunk, dtype=torch.float32,
+                              device=dev)  # 8 decay-factor rows a chunk
+            errs = (ctypes.c_int * 3)()
+            bf16_fn(x.data_ptr(), dt.data_ptr(), A.data_ptr(), B.data_ptr(),
+                    C.data_ptr(), y.data_ptr(), st.data_ptr(),
+                    dec.data_ptr(), prev.data_ptr(), fac.data_ptr(), b, s,
+                    nh, hd, ds, chunk, *strides, stream, errs)
+            failed = {k: e for k, e in zip(KERNELS, errs) if e}
+            if failed:
+                raise RuntimeError(f"ssd_scan launch failed: cudaError "
+                                   f"by kernel {failed}")
+        else:
+            rc = f32_fn(x.data_ptr(), dt.data_ptr(), A.data_ptr(),
+                        B.data_ptr(), C.data_ptr(), y.data_ptr(),
+                        DTYPES[x.dtype], DTYPES[B.dtype], b, s, nh, hd, ds,
+                        chunk, *strides, stream)
+            if rc != 0:
+                raise RuntimeError(f"ssd_scan launch failed: cudaError {rc}")
     ssd_scan.launches += 1
     return y
 

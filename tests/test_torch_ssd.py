@@ -22,6 +22,9 @@ from repro_torch.models import ssd as p_ssd
 ORACLE = dict(atol=5e-4, rtol=5e-3)    # chunked scan vs the recurrence
 CHUNKED = dict(atol=1e-4, rtol=1e-4)   # two chunked forms
 BF16 = dict(atol=0.15, rtol=0.1)       # bf16 x vs the f32 recurrence
+# the bf16 path (bf16 products) vs the f32 plain version on the same bf16
+# inputs, as ||y - y_plain|| / ||y_plain||
+BF16_REL = 1e-2
 F32 = dict(atol=1e-4, rtol=1e-4)       # the model's block, f32
 
 # (b, s, nh, hd, ds, chunk): tests/test_kernels.py's four shapes
@@ -228,34 +231,52 @@ def cuda():
 
 
 # test shapes in f32, the bf16 case, the reduced models' chunk of 8, and
-# both full-width prefill calls (mamba2-1.3b, zamba2-2.7b) in both dtypes
-CARD_CASES = ([(shape, torch.float32) for shape in SHAPES]
-              + [((1, 128, 4, 16, 32, 32), torch.bfloat16),
-                 ((2, 16, 8, 16, 16, 8), torch.float32),
-                 ((2, 512, 4, 64, 128, 128), torch.float32)]
-              + [((2, 4096, nh, 64, ds, 256), dt)
+# both full-width prefill calls (mamba2-1.3b, zamba2-2.7b) in both dtypes,
+# B and C in f32; then the bf16 kernels' edges (chunk 8, 16, 64, hd 16 and
+# 32, ds 16 and 128) and both prefill calls with B and C in bf16, strided
+# as the model passes them (halves of one (b, s, 2 ds) projection)
+CARD_CASES = ([(shape, torch.float32, "f32") for shape in SHAPES]
+              + [((1, 128, 4, 16, 32, 32), torch.bfloat16, "f32"),
+                 ((2, 16, 8, 16, 16, 8), torch.float32, "f32"),
+                 ((2, 512, 4, 64, 128, 128), torch.float32, "f32")]
+              + [((2, 4096, nh, 64, ds, 256), dt, "f32")
                  for nh, ds in ((64, 128), (80, 64))
-                 for dt in (torch.float32, torch.bfloat16)])
+                 for dt in (torch.float32, torch.bfloat16)]
+              + [(shape, torch.bfloat16, "bf16_strided")
+                 for shape in ((2, 64, 4, 16, 16, 8),
+                               (2, 128, 4, 32, 128, 16),
+                               (1, 256, 8, 16, 128, 64),
+                               (1, 256, 4, 32, 16, 64),
+                               (2, 4096, 64, 64, 128, 256),
+                               (2, 4096, 80, 64, 64, 256))])
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("shape,dtype", CARD_CASES)
-def test_cuda_kernel_matches_plain_version(cuda, shape, dtype):
+@pytest.mark.parametrize("shape,dtype,bc", CARD_CASES)
+def test_cuda_kernel_matches_plain_version(cuda, shape, dtype, bc):
     *dims, chunk = shape
     args = _t(_inputs(*dims, seed=12), dtype, cuda)
+    if bc == "bf16_strided":
+        x, dt, A, B, C = args
+        B, C = torch.cat([B, C], -1).bfloat16().chunk(2, dim=-1)
+        assert not B.is_contiguous()
+        args = (x, dt, A, B, C)
     before = sk.ssd_scan.launches
     got = ops.ssd_scan(*args, chunk=chunk)
     torch.cuda.synchronize()
     assert sk.ssd_scan.launches == before + 1
     assert got.dtype == dtype and got.shape == args[0].shape
-    want = sk.ssd_scan_ref(*args, chunk)[0]
     if dtype == torch.float32:
+        want = sk.ssd_scan_ref(*args, chunk)[0]
         torch.testing.assert_close(got, want, **CHUNKED)
         if dims[1] <= 512:  # the recurrence steps once per token
             torch.testing.assert_close(got, sk.ssd_ref(*args), **ORACLE)
     else:
         oracle = sk.ssd_ref(args[0].float(), *args[1:])
         torch.testing.assert_close(got.float(), oracle, **BF16)
+        want = sk.ssd_scan_ref(args[0].float(), *args[1:], chunk)[0]
+        rel = float((got.float() - want).norm() / want.norm())
+        assert rel <= BF16_REL, rel
 
 
 @pytest.mark.cuda
@@ -273,7 +294,8 @@ def test_cuda_kernel_reads_strided_bf16_b_and_c(cuda):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("bad", ["chunk_ragged", "chunk_size", "head_dim",
-                                 "float16", "dt_bf16", "mixed_bc"])
+                                 "float16", "dt_bf16", "mixed_bc",
+                                 "misaligned_bf16_b"])
 def test_cuda_kernel_rejects_what_it_does_not_take(cuda, bad):
     hd = 48 if bad == "head_dim" else 16
     x, dt, A, B, C = _t(_inputs(1, 96, 2, hd, 16, seed=14), device=cuda)
@@ -284,6 +306,10 @@ def test_cuda_kernel_rejects_what_it_does_not_take(cuda, bad):
         dt = dt.bfloat16()
     elif bad == "mixed_bc":
         B = B.bfloat16()
+    elif bad == "misaligned_bf16_b":  # a view one element (2 bytes) in
+        x, C = x.bfloat16(), C.bfloat16()
+        B = torch.cat([B, B[..., :1]], -1).bfloat16()[..., 1:]
+        assert B.data_ptr() % 16 == 2
     before = sk.ssd_scan.launches
     with pytest.raises(ValueError):
         sk.ssd_scan(x, dt, A, B, C, chunk=chunk)

@@ -201,3 +201,42 @@ def test_selector_result_stays_on_the_device_it_was_given():
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="cuda"):
             tier3.Tier3Selector().select_day(ci, ta)
+
+
+@pytest.mark.parametrize("fn", ["q_ffr", "revenue_score", "throughput_frac",
+                                "pue"])
+def test_float64_inputs_give_float64_results(fn):
+    """Float64 tensors in give float64 out, as the reference does under
+    ``jax.enable_x64``, to the rounding of float64 (1e-12)."""
+    import repro.core.pue as r_pue
+    import repro_torch.core.pue as pue
+    import repro_torch.workload.model as wl
+    rng = np.random.default_rng(12)
+    m = 400
+    mu, rho = rng.uniform(0.3, 1.0, m), rng.uniform(0.0, 0.3, m)
+    ta, pd = rng.uniform(-5, 32, m), rng.uniform(1.1, 1.5, m)
+    cw = rng.uniform(0.0, 1.0, m)
+    p = rng.uniform(0.05, 1.1, m)  # both sides of the DVFS floor
+    t = {k: torch.from_numpy(v) for k, v in
+         dict(mu=mu, rho=rho, ta=ta, pd=pd, cw=cw, p=p).items()}
+    calls = {
+        "q_ffr": (lambda m_, a: m_.q_ffr(a["mu"], a["rho"], a["ta"],
+                                          pue_aware=True,
+                                          pue_design=a["pd"]), tier3,
+                  r_tier3),
+        "revenue_score": (lambda m_, a: m_.revenue_score(
+            a["mu"], a["rho"], a["ta"], 1, pue_aware=True,
+            pue_design=a["pd"], events_per_day=6.0), tier3, r_tier3),
+        "throughput_frac": (lambda m_, a: m_.throughput_frac(a["cw"],
+                                                              a["p"]),
+                            wl, r_wl),
+        "pue": (lambda m_, a: m_.pue(a["mu"], a["ta"], pue_design=a["pd"]),
+                pue, r_pue),
+    }
+    call, port_mod, ref_mod = calls[fn]
+    got = call(port_mod, t)
+    with jax.enable_x64(True):
+        want = np.asarray(call(ref_mod, {k: jnp.asarray(v.numpy())
+                                         for k, v in t.items()}))
+    assert got.dtype == torch.float64 and want.dtype == np.float64
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-12, atol=0.0)
