@@ -68,6 +68,29 @@ nonzero exit and no result line:
               same frequency, demand and plant-noise inputs
   sweep       engine_sweep over the 6 E9-fast specs in chunks of 5 against
               the monolithic rollout
+  bidding     the reference bidding bench's three arms on its fast E9 slice
+              (SE/DE/PL, 6 h, FFR, bands 0/0.2, event draw 0): the
+              price-blind and price-aware Tier-3 grid searches and
+              bids_for_batch (n_ens 8, n_iter 48), all settled by one
+              engine_rollout(ops=...) on a stacked copy of the slice per
+              arm; fails unless every bid lies inside the floor and the
+              box, the incumbent never falls below the grid search on its
+              own ensemble and the settlement commits the bid; prints the
+              bid arm's net against the price-aware grid's (the reference
+              bench's gate, not enforced: see PERF.md); then
+              optimize_bids alone over the full E9 batch
+              (288 x 24 = 6,912 scenario-hours): ms, device time and
+              kernel launches per opt step, device busy share
+  service     the reference service bench: 1,024 sites (FFR and FCR-D)
+              admitted over a 24 h horizon, churn (32 out, 32 in, a
+              trigger storm, a quarantine pattern), then LoadGen's 600
+              timed ticks (bulk feed, Poisson FFR arrivals, storms of 64):
+              ticks/s, ms per tick, p50/p99 trigger-to-target, the device
+              time and kernels of one CUDA-graph replay beside an eager
+              tick's; fails unless p99 < 700 ms, the tick was captured
+              once, RSS grew < 64 MB and device memory not at all over the
+              window, and 10 captured ticks equal 10 eager ticks of the
+              same state bit for bit
 
 Then a {"kernels": [...]} line, the card's name and power limit as
 nvidia-smi reports them, and the last line
@@ -82,6 +105,8 @@ import statistics
 import subprocess
 import sys
 import time
+
+import numpy as np
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM data sheet
@@ -125,6 +150,11 @@ SSD_PREV_MS = {"mamba2-1.3b": 3.136, "zamba2-2.7b": 3.139}
 # held to 1.25x that distance, the tests' SSM_BF16_VS_REF_NOISE
 SSM_BF16_REL = 2e-2
 SSM_BF16_VS_PLAIN = 1.25
+# the reference's gates: benchmarks/bidding_bench.py, service_bench.py
+BIDDING_MIN_NET_EUR_GAIN = 0.0   # bid arm's net over the price-aware grid
+SERVICE_MAX_P99_MS = 700.0       # FFR activation budget
+SERVICE_MAX_RSS_GROWTH_MB = 64.0
+PROFILED_STEPS = 8               # opt steps in the bidder's profiled run
 
 
 def emit(obj):
@@ -1026,6 +1056,251 @@ def phase_sweep(torch):
           "n_events": swept["n_events"]})
 
 
+def bid_specs():
+    """The reference bidding bench's fast E9 slice: SE/DE/PL, seed 0, 6 h,
+    FFR, bands 0 and 0.2, event draw 0 (benchmarks/e9_reserve.py)."""
+    from repro_torch.grid.scenarios import product_specs
+    return product_specs(countries=("SE", "DE", "PL"), seeds=(0,),
+                         horizon_h=6, products=("FFR",),
+                         reserve_rhos=(0.0, 0.2), event_seeds=(0,))
+
+
+def stacked(batch, k):
+    """The batch ``k`` times over: a scenario draws the same frequency,
+    demand and plant noise in any batch, so each copy settles as the batch
+    alone would."""
+    import dataclasses
+    return type(batch)(**{f.name: getattr(batch, f.name).repeat(
+        (k,) + (1,) * (getattr(batch, f.name).dim() - 1))
+        for f in dataclasses.fields(batch)})
+
+
+def phase_bidding(torch):
+    """The three arms of the reference's bidding bench on the card, then
+    the optimiser alone over the full E9 batch."""
+    import dataclasses
+    import repro_torch.core.engine as eng
+    from repro_torch.grid.scenarios import build_scenario_batch
+    from repro_torch.optim import bidding
+    cfg = eng.EngineConfig(n_hosts=2, chips_per_host=2, e_max=24,
+                           events_per_day=24.0, rho_mode="tier3",
+                           price_aware=True)
+    blind = dataclasses.replace(cfg, price_aware=False)
+    t_phase = time.perf_counter()
+    batch = build_scenario_batch(bid_specs(), device="cuda")
+    bcfg = bidding.BidConfig()
+    arms = {"grid_blind": eng.engine_params(blind, batch)[1],
+            "grid": eng.engine_params(cfg, batch)[1]}
+    arms = {k: (v["mu_h"], v["rho_h"]) for k, v in arms.items()}
+    bidding.bids_for_batch(cfg, batch, config=dataclasses.replace(
+        bcfg, n_iter=2))                     # first-touch warm-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    arms["bid"], launches = count_launches(
+        torch, lambda: bidding.bids_for_batch(cfg, batch, config=bcfg))
+    bid_s = time.perf_counter() - t0
+    check_launches("bidding", launches, {})
+    check_bids(torch, cfg, batch, bcfg, arms["bid"])
+    # the three arms settled in one rollout, each on its own copy of the
+    # slice: the same realised traces, one tick loop
+    names = list(arms)
+    ops = tuple(torch.cat([arms[k][i] for k in names]) for i in (0, 1))
+    t0 = time.perf_counter()
+    out = eng.engine_rollout(cfg, stacked(batch, len(names)), ops=ops)
+    torch.cuda.synchronize()
+    settle_s = time.perf_counter() - t0
+    if not all_finite(torch, out):
+        raise RuntimeError("bidding: the settlement is not finite")
+    n = batch.n
+    nets = {k: float(out["net_eur"][i * n:(i + 1) * n].sum())
+            for i, k in enumerate(names)}
+    pens = {k: float(out["penalty_eur"][i * n:(i + 1) * n].sum())
+            for i, k in enumerate(names)}
+    sold = out["rho_h"][2 * n:]
+    if not torch.allclose(sold, arms["bid"][1] * batch.mask, atol=1e-7):
+        raise RuntimeError("bidding: the settlement did not commit the bid")
+    full = optimizer_alone(torch, cfg, bcfg)
+    gain = nets["bid"] - nets["grid"]
+    emit({"phase": "bidding", "scenarios": n, "hours": batch.h_max,
+          "n_ens": bcfg.n_ens, "n_iter": bcfg.n_iter, "net_eur": nets,
+          "penalty_eur": pens, "net_eur_gain": gain,
+          # the reference bench's revenue gate, printed and not enforced:
+          # it holds on one realised event day, and the port draws its own
+          "bid_net_ge_grid": gain >= BIDDING_MIN_NET_EUR_GAIN,
+          "n_events": int(out["n_events"].sum()),
+          "bid_s": bid_s, "ms_per_opt_step": bid_s / bcfg.n_iter * 1e3,
+          "settle_s": settle_s, "settled_lanes": len(names) * n,
+          "full_e9": full, "seconds": time.perf_counter() - t_phase})
+
+
+def check_bids(torch, cfg, batch, bcfg, ops):
+    """What the bidder guarantees, on the card: every bid inside the box
+    and under the residual-load floor, and (on the slice's forecasts) the
+    incumbent never below the grid search's cell on its own ensemble and
+    monotone over the iterations."""
+    from repro_torch.core import tier3
+    from repro_torch.optim import bidding
+    mu, bid = ops
+    eps = 1e-6
+    inside = [(mu >= bidding.MU_LO - eps).all(),
+              (mu <= bidding.MU_HI + eps).all(), (bid >= -eps).all(),
+              (mu - bid >= tier3.MIN_RESIDUAL_LOAD - eps).all()]
+    green = tier3.greenness_from_ci(batch.ci, batch.mask).reshape(-1)
+    res = bidding.optimize_bids(green, batch.t_amb.reshape(-1), key=1,
+                                config=bcfg, weights=(
+                                    tier3.W_FFR, tier3.W_CFE, cfg.w_rev))
+    inside += [(res.mu - res.rho >= tier3.MIN_RESIDUAL_LOAD - eps).all(),
+               (res.bid <= res.rho + eps).all(), (res.j >= res.j_grid).all()]
+    if not (all(bool(x) for x in inside)
+            and np.all(np.diff(res.history, axis=0) >= 0.0)):
+        raise RuntimeError("bidding: a bid left the floor or the box, or "
+                           "the incumbent fell below the grid search")
+
+
+def optimizer_alone(torch, cfg, bcfg):
+    """optimize_bids over the full E9 batch (288 scenarios x 24 h), not
+    settled: wall time per opt step (a run of n_iter steps less a run of
+    none), and the profiler's device time and kernel launches per step
+    from a run of PROFILED_STEPS steps less a run of none (a whole run's
+    ~80,000 kernel events would cost the profiler a minute)."""
+    import dataclasses
+    from repro_torch.grid.scenarios import build_scenario_batch
+    from repro_torch.optim import bidding
+    batch = build_scenario_batch(e9_specs(24), device="cuda")
+    none = dataclasses.replace(bcfg, n_iter=0)
+
+    def run(c):
+        def call(_i=0):
+            bidding.bids_for_batch(cfg, batch, config=c)
+        return call
+
+    walls = {}
+    for c in (none, bcfg, none, bcfg):
+        run(c)()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        run(c)()
+        torch.cuda.synchronize()
+        walls.setdefault(c.n_iter, []).append(time.perf_counter() - t0)
+    wall0, wall = min(walls[0]), min(walls[bcfg.n_iter])
+    k = PROFILED_STEPS
+    p0 = profile_calls(torch, run(none), 1)
+    p1 = profile_calls(torch, run(dataclasses.replace(bcfg, n_iter=k)), 1)
+    step_ms = (wall - wall0) / bcfg.n_iter * 1e3
+    dev_us = (p1["device_us_per_call"] - p0["device_us_per_call"]) / k
+    return {"hours": batch.n * batch.h_max, "wall_s": wall,
+            "init_wall_s": wall0, "ms_per_opt_step": step_ms,
+            "device_us_per_opt_step": dev_us,
+            "launches_per_opt_step": (p1["launches_per_call"]
+                                      - p0["launches_per_call"]) / k,
+            "device_busy_share": dev_us / 1e3 / step_ms,
+            "step_kernels": p1["kernels"]}
+
+
+def rss_mb() -> float:
+    with open("/proc/self/statm") as f:
+        return int(f.read().split()[1]) * os.sysconf("SC_PAGESIZE") / 2**20
+
+
+def phase_service(torch):
+    """The reference's service bench on the card: 1,024 sites over a 24 h
+    horizon, churn, then the load generator's timed window; then 10
+    captured ticks against 10 eager ticks of the same state."""
+    import asyncio
+    from torch.utils import _pytree as pytree
+    from repro_torch.obs import trace
+    from repro_torch.service import (LoadGen, LoadGenConfig, ServiceConfig,
+                                     ServiceServer, demo_batch)
+    n_sites, n_ticks = 1024, 600
+    t_phase = time.perf_counter()
+    server = ServiceServer(ServiceConfig(capacity=n_sites, horizon_h=24,
+                                         seed=0))
+    store = server.store
+    slots = server.admit_sites(demo_batch(n_sites, 24,
+                                          products=("FFR", "FCR-D")))
+    # capture and first touch outside the windows; churn: 32 sites out
+    # and 32 in, a trigger storm, a quarantined lane
+    for _ in range(2):
+        server.step_once()
+    for s in slots[:32]:
+        server.evict_site(s)
+    slots = slots[32:] + server.admit_sites(demo_batch(32, 24))
+    for s in slots[:64]:
+        server.ingest_trigger(s)
+    server.step_once()
+    store.step(enabled=np.arange(n_sites) % 7 != 0)
+    torch.cuda.synchronize()
+    gen = LoadGen(LoadGenConfig(n_ticks=n_ticks, warmup_ticks=2,
+                                trigger_rate_per_site_day=400.0,
+                                storm_every=n_ticks // 6, storm_sites=64,
+                                seed=0))
+    rss0, mem0 = rss_mb(), torch.cuda.memory_allocated()
+    stats, launches = count_launches(
+        torch, lambda: asyncio.run(gen.drive(server, slots)))
+    rss_growth = rss_mb() - rss0
+    mem1 = torch.cuda.memory_allocated()
+    check_launches("service", launches, {})
+    cache = store.step_cache_size()
+    step_ms = trace.metrics.series("service.step_ms")[-n_ticks:]
+    # one replay and its device time, and the eager tick beside it
+    rng = np.random.default_rng(0)
+    below = rng.random((64, n_sites)) < 0.05
+    prof = profile_calls(torch, lambda i=0: store.step(below[i % 64]), 50)
+    eager = profile_calls(torch, lambda i=0: store._tick(), 50)
+    walls = {}
+    for name, tick in (("replay", lambda: store.step()),
+                       ("eager", store._tick)):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(100):
+            tick()
+        torch.cuda.synchronize()
+        walls[name] = (time.perf_counter() - t0) * 10.0
+    # 10 captured ticks against 10 eager ticks from the same state
+    leaves = pytree.tree_leaves(store.state)
+    start = [x.clone() for x in leaves]
+    got = []
+    for i in range(10):
+        got.append([x.clone() for x in store.step(below[i])])
+    end = [x.clone() for x in leaves]
+    for x, y in zip(leaves, start):
+        x.copy_(y)
+    same = True
+    for i in range(10):
+        store._inputs[0].copy_(torch.from_numpy(below[i]))
+        store._inputs[1].fill_(True)
+        store._tick()
+        same &= all(torch.equal(a, b) for a, b in zip(got[i], store.out))
+    same &= all(torch.equal(a, b) for a, b in zip(end, leaves))
+    server.close()
+    res = {"phase": "service", "sites": n_sites, "ticks": stats["ticks"],
+           "ticks_per_s": stats["ticks_per_s"],
+           "ms_per_tick": 1e3 / stats["ticks_per_s"],
+           "step_ms_p50": float(np.percentile(step_ms, 50)),
+           "n_triggers": stats["n_triggers"], "n_storms": stats["n_storms"],
+           "n_resolved": stats["n_resolved"],
+           "p50_trigger_to_target_ms": stats["p50_trigger_to_target_ms"],
+           "p99_trigger_to_target_ms": stats["p99_trigger_to_target_ms"],
+           "max_trigger_to_target_ms": stats["max_trigger_to_target_ms"],
+           "step_cache_size": cache, "rss_growth_mb": rss_growth,
+           "device_mem_delta_bytes": mem1 - mem0,
+           "replay_ms": walls["replay"],
+           "replay_device_us": prof["device_us_per_call"],
+           "replay_kernels": prof["launches_per_call"],
+           "replay_top_kernels_us": prof["kernels"],
+           "eager_tick_ms": walls["eager"],
+           "eager_tick_device_us": eager["device_us_per_call"],
+           "eager_tick_launches": eager["launches_per_call"],
+           "captured_equals_eager": same,
+           "seconds": time.perf_counter() - t_phase}
+    emit(res)
+    if not (stats["n_resolved"] > 0
+            and stats["p99_trigger_to_target_ms"] < SERVICE_MAX_P99_MS
+            and cache == 1 and rss_growth < SERVICE_MAX_RSS_GROWTH_MB
+            and mem1 == mem0 and same):
+        raise RuntimeError(f"service: a gate failed: {res}")
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1087,6 +1362,8 @@ def main() -> int:
     phase_engine(torch)
     phase_cpu_vs_gpu(torch)
     phase_sweep(torch)
+    phase_bidding(torch)
+    phase_service(torch)
     emit({"kernels": [pid_rec, flash_rec, ssd_rec]})
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",

@@ -57,18 +57,20 @@ def device_of(*xs, default=None):
     return default
 
 
-def tensor(x, device=None) -> torch.Tensor:
+def tensor(x, device=None, number_dtype=torch.float32) -> torch.Tensor:
     """``x`` as a tensor on ``device`` (a tensor keeps its device when
     ``device`` is None, and computes in :func:`float_dtype`).  A number
-    becomes a filled 0-d float32 tensor, which needs no copy from the
+    becomes a filled 0-d tensor of ``number_dtype`` (float32 unless the
+    caller computes in float64, where a number keeps its digits as the
+    reference's weakly typed numbers do), which needs no copy from the
     host; an array is copied in float32 (set-up code only: the copy waits
     for the device)."""
     if isinstance(x, torch.Tensor):
         return x.to(device=device or x.device, dtype=float_dtype(x))
-    a = np.array(x, np.float32)
+    a = np.array(x, np.float64)
     if a.ndim == 0:
-        return torch.full((), float(a), dtype=torch.float32, device=device)
-    return torch.from_numpy(a).to(device or "cpu")
+        return torch.full((), float(a), dtype=number_dtype, device=device)
+    return torch.from_numpy(a.astype(np.float32)).to(device or "cpu")
 
 
 _CONSTS: dict = {}

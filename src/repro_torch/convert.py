@@ -1,12 +1,12 @@
 """Carry the reference's state into the port.
 
 What a user brings from the JAX package is state -- a scenario batch,
-Tier-1/plant/Tier-2 state, an engine carry, an event set -- and, for the
-served workload, model parameters and a decode cache.  Each function
-takes that state as a plain dict of numpy arrays (field name -> array,
-nested for nested state) and returns the port's object with tensors on
-``device``.  Nothing here imports JAX: the caller turns its arrays into
-numpy first.
+Tier-1/plant/Tier-2 state, an engine carry, an event set, the bidder's
+optimiser carry and forecast ensemble -- and, for the served workload,
+model parameters and a decode cache.  Each function takes that state as
+a plain dict of numpy arrays (field name -> array, nested for nested
+state) and returns the port's object with tensors on ``device``.
+Nothing here imports JAX: the caller turns its arrays into numpy first.
 """
 from __future__ import annotations
 
@@ -21,6 +21,7 @@ from repro_torch.core.plant import PlantState
 from repro_torch.core.twin import HostLoadParams, _host_kinds
 from repro_torch.grid.frequency import EventBatch
 from repro_torch.grid.scenarios import ScenarioBatch
+from repro_torch.optim.bidding import BidEnsemble, BidState, _proposal_keys
 from repro_torch.random import MASK32
 
 _INT32_FIELDS = ("country_idx", "start_day", "hours", "product_idx",
@@ -108,6 +109,25 @@ def host_load_params(d: dict, seed, device="cuda") -> HostLoadParams:
         jitter_ph=_t(d["jitter_ph"], torch.float32, dev),
         seed=_t(np.asarray(seed).astype(np.int64), torch.int64, dev)
         & MASK32)
+
+
+def bid_state(d: dict, seed: int, device="cuda") -> BidState:
+    """A reference ``BidState`` over B hours.  Its per-hour PRNG ``key``
+    has no counterpart: the port's CEM proposals are keyed by the hours'
+    counter-based keys from ``seed``.  Float fields keep their dtype."""
+    dev = resolve_device(device)
+    out = {k: torch.as_tensor(np.array(d[k]), device=dev)
+           for k in BidState._fields if k not in ("key", "it")}
+    out["it"] = _t(d["it"], torch.int32, dev)
+    out["key"] = _proposal_keys(int(seed), out["z"].shape[0], dev)
+    return BidState(**out)
+
+
+def bid_ensemble(d: dict, device="cuda") -> BidEnsemble:
+    """A reference ``BidEnsemble`` of (B, E) realisations, dtypes kept."""
+    dev = resolve_device(device)
+    return BidEnsemble(**{k: torch.as_tensor(np.array(d[k]), device=dev)
+                          for k in BidEnsemble._fields})
 
 
 def model_params(params: dict, device="cuda") -> dict:

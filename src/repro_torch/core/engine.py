@@ -170,17 +170,28 @@ def engine_init(cfg: EngineConfig, seeds, *, device="cuda") -> EngineState:
         acc=EngineAccum(*([z] * len(EngineAccum._fields))))
 
 
-def _hour_params(params: EngineParams, hour: int) -> HourParams:
-    h = min(hour, params.mu_h.shape[-1] - 1)
+def _hour_params(params: EngineParams, hour) -> HourParams:
+    """One hour's (N,) values: ``hour`` is an int for every lane or an
+    (N,) int64 tensor, one hour per lane."""
+    last = params.mu_h.shape[-1] - 1
+    if isinstance(hour, torch.Tensor):
+        h = torch.clamp(hour, max=last)[:, None]
+
+        def at(x):
+            return torch.gather(x, -1, h)[:, 0]
+    else:
+        h = min(hour, last)
+
+        def at(x):
+            return x[:, h]
     return HourParams(
-        mu=params.mu_h[:, h], rho=params.rho_h[:, h],
-        t_amb=params.t_amb_h[:, h], rho_it=params.rho_it_h[:, h],
-        min_dur_i=params.min_dur_i, pue_design=params.pue_design,
-        clock_w=params.clock_w)
+        mu=at(params.mu_h), rho=at(params.rho_h), t_amb=at(params.t_amb_h),
+        rho_it=at(params.rho_it_h), min_dur_i=params.min_dur_i,
+        pue_design=params.pue_design, clock_w=params.clock_w)
 
 
 def _engine_tick(cfg: EngineConfig, hp: HourParams, state: EngineState,
-                 base_load, below, in_hor, t: int, noise):
+                 base_load, below, in_hor, t, noise):
     """The fused 1 Hz tick of N scenarios.  Returns the new state (its
     ``acc`` untouched), the :class:`EngineSecond`, the TwinMetrics row and
     the (N, len(_ROW)) row of per-tick quantities for the aggregates."""
@@ -188,8 +199,11 @@ def _engine_tick(cfg: EngineConfig, hp: HourParams, state: EngineState,
         (state.in_event, state.hold), below, in_hor, hp.min_dur_i)
     load_h = base_load * hp.mu[:, None] / 0.9
     if cfg.step_transient_amp:
-        load_h = torch.clamp(load_h * workload_lib.step_transient(
-            t, cfg.step_period_s, cfg.step_transient_amp), 0.0, 1.0)
+        wave = workload_lib.step_transient(t, cfg.step_period_s,
+                                           cfg.step_transient_amp)
+        if isinstance(wave, torch.Tensor):
+            wave = wave[:, None]
+        load_h = torch.clamp(load_h * wave, 0.0, 1.0)
     (rls, chip_power, caps), m = twin_lib.twin_tick(
         cfg.n_hosts, cfg.chips_per_host, cfg.chip_tdp, hp.pue_design,
         (state.rls, state.chip_power, state.caps), load_h, hp.mu, hp.rho,
@@ -229,14 +243,17 @@ def engine_step(cfg: EngineConfig, params: EngineParams,
                 state: EngineState, xs, noise=None):
     """One fused 1 Hz tick of N scenarios.
 
-    xs = (base_load (N, H), below (N,) bool, in_hor (N,) bool, t int):
-    the unscaled demand rows, the frequency-below-trigger flags, the
-    horizon gates and the second.  ``noise`` (N, H, C) overrides the
+    xs = (base_load (N, H), below (N,) bool, in_hor (N,) bool, t): the
+    unscaled demand rows, the frequency-below-trigger flags, the horizon
+    gates and the second, an int for every lane or an (N,) int64 tensor
+    of each lane's own second (the online service's lanes are each at
+    their own second since admission).  ``noise`` (N, H, C) overrides the
     counter-based plant noise of second ``t``.  Returns
-    (state, (EngineSecond, TwinMetrics)).
+    (state, (EngineSecond, TwinMetrics)).  A tensor ``t`` is read only
+    on the device, so the tick can be captured as a CUDA graph.
     """
     base_load, below, in_hor, t = xs
-    t = int(t)
+    t = t.to(torch.int64) if isinstance(t, torch.Tensor) else int(t)
     hp = _hour_params(params, t // K)
     if noise is None:
         noise = twin_lib.plant_noise(state.seed, t, 1, cfg.n_hosts,
@@ -244,7 +261,10 @@ def engine_step(cfg: EngineConfig, params: EngineParams,
     state, sec, m, row = _engine_tick(cfg, hp, state, base_load, below,
                                       in_hor, t, noise)
     g = in_hor.to(torch.float32)[:, None]
-    w = g * float(t >= cfg.warmup_s)
+    if isinstance(t, torch.Tensor):
+        w = g * (t >= cfg.warmup_s)[:, None]
+    else:
+        w = g * float(t >= cfg.warmup_s)
     acc = _accumulate(cfg, state.acc, row[:, None], g, w, hp.rho_it,
                       hp.clock_w)
     return state._replace(acc=acc), (sec, m)

@@ -45,10 +45,14 @@ def pue(load, t_amb, *, pue_design=PUE_DESIGN):
     """Instantaneous PUE at load = P_IT / P_IT_design and ambient t_amb."""
     dev = device_of(load, t_amb, pue_design)
     L = clip(f32(load, dev), 1e-3, 1.0)
-    oh = f32(pue_design, dev) - 1.0
     f_fc = free_cooling_fraction(t_amb, dev)
     wide = any(isinstance(v, torch.Tensor) and v.dtype == torch.float64
-               for v in (L, oh, f_fc))
+               for v in (L, pue_design, f_fc))
+    # a number meets float64 inputs at full precision, as the reference's
+    # weakly typed Python numbers do under x64
+    oh = (float(pue_design) if wide and not isinstance(pue_design,
+                                                        torch.Tensor)
+          else f32(pue_design, dev)) - 1.0
     cop_penalty = 1.0 + 0.45 * (1.0 - L)
     chiller_scale = oh * CHILLER_SHARE / (_CHILL_REF_F64 if wide
                                           else _CHILL_REF)

@@ -112,7 +112,8 @@ def revenue_score(mu, rho, t_amb, product_idx, *, pue_aware: bool,
                       pue_aware=pue_aware)
     shortfall = torch.clamp(1.0 - v["delivered_frac"], 0.0, 1.0)
     hard_miss = 1.0 - v["budget_ok"].to(rho.dtype)
-    ev_per_h = tensor(events_per_day, rho.device) / 24.0
+    ev_per_h = tensor(events_per_day, rho.device,
+                      v["rho_it"].dtype) / 24.0
     at_risk = ev_per_h * PENALTY_WINDOW_H * (shortfall + hard_miss)
     net = (rho / RHO_MAX) * (1.0 - at_risk)
     return torch.clamp(net, -1.0, 1.0)
@@ -127,12 +128,14 @@ def throughput_score(mu, rho, clock_w, product_idx, *,
     g_run = workload_lib.throughput_frac(clock_w, mu)
     resid = torch.clamp(mu - rho, min=MIN_RESIDUAL_LOAD)
     g_shed = workload_lib.throughput_frac(clock_w, resid)
-    ev_per_h = tensor(events_per_day, dev) / 24.0
+    dt = torch.promote_types(mu.dtype, rho.dtype)
+    ev_per_h = tensor(events_per_day, dev, dt) / 24.0
     dur_s = take(markets.MIN_DURATION_S, product_idx)
     has_band = (rho > 0.0).to(rho.dtype)
     shed_frac = torch.clamp(ev_per_h * dur_s / 3600.0, 0.0, 1.0) * has_band
     dead_frac = torch.clamp(
-        ev_per_h * tensor(ckpt_cost_s, dev) / 3600.0, 0.0, 1.0) * has_band
+        ev_per_h * tensor(ckpt_cost_s, dev, dt) / 3600.0, 0.0,
+        1.0) * has_band
     dead_frac = torch.minimum(dead_frac, 1.0 - shed_frac)
     tokens = (1.0 - shed_frac - dead_frac) * g_run + shed_frac * g_shed
     g_max = workload_lib.throughput_frac(clock_w, float(MU_GRID[-1]))

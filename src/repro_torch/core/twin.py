@@ -89,21 +89,23 @@ def host_load_params(n_hosts: int, seeds: torch.Tensor) -> HostLoadParams:
 
 def host_loads_rows(p: HostLoadParams, tf: torch.Tensor,
                     fast: torch.Tensor) -> torch.Tensor:
-    """(K,) absolute seconds + (N, K, H) white noise -> (N, K, H) demand
-    rows: slow-wave wander, white noise and the bursty duty cycle."""
+    """Absolute seconds, (K,) shared by the N scenarios or (N, K) per
+    scenario, + (N, K, H) white noise -> (N, K, H) demand rows:
+    slow-wave wander, white noise and the bursty duty cycle."""
+    tf = tf if tf.dim() == 2 else tf[None]                      # (1|N, K)
     freqs = const(np.float32(plant_lib.SLOW_FREQS_HZ), tf.device)
-    ang = 2 * math.pi * freqs * tf[:, None]                     # (K, 4)
+    ang = 2 * math.pi * freqs * tf[..., None]                   # (., K, 4)
     s_t, c_t = torch.sin(ang), torch.cos(ang)
     ph = p.phases[:, None]                                      # (N,1,H,4)
-    slow = ((s_t[None, :, None] * torch.cos(ph)).sum(-1)
-            + (c_t[None, :, None] * torch.sin(ph)).sum(-1)) / 2.0
+    slow = ((s_t[:, :, None] * torch.cos(ph)).sum(-1)
+            + (c_t[:, :, None] * torch.sin(ph)).sum(-1)) / 2.0
     base = p.mean + p.slow_sigma * slow + p.fast_sigma * fast   # (N, K, H)
-    ang_j = 2 * math.pi * plant_lib.BURSTY_JITTER_FREQ_HZ * tf  # (K,)
+    ang_j = 2 * math.pi * plant_lib.BURSTY_JITTER_FREQ_HZ * tf  # (., K)
     jph = p.jitter_ph[:, None, :]
     jit_t = plant_lib.BURSTY_EDGE_JITTER_S * (
-        torch.sin(ang_j)[None, :, None] * torch.cos(jph)
-        + torch.cos(ang_j)[None, :, None] * torch.sin(jph))
-    frac = torch.remainder((tf[None, :, None] + jit_t)
+        torch.sin(ang_j)[..., None] * torch.cos(jph)
+        + torch.cos(ang_j)[..., None] * torch.sin(jph))
+    frac = torch.remainder((tf[..., None] + jit_t)
                            / plant_lib.BURSTY_PERIOD_S + p.duty_phase, 1.0)
     on = frac < plant_lib.BURSTY_DUTY
     bursty = torch.where(on, base, plant_lib.BURSTY_LOW + 0.01 * fast)
@@ -131,15 +133,31 @@ def host_loads_trace(n_hosts: int, n_seconds: int,
     return torch.cat(blocks, dim=1)[:, :n_seconds]
 
 
-def plant_noise(seeds: torch.Tensor, t0: int, k: int, n_hosts: int,
+def plant_noise(seeds: torch.Tensor, t0, k: int, n_hosts: int,
                 chips_per_host: int) -> torch.Tensor:
     """(N, k, H, C) standard normals of seconds t0..t0+k-1: the plant
-    noise the twin tick adds at 2 W, keyed by (seed, second, chip)."""
+    noise the twin tick adds at 2 W, keyed by (seed, second, chip).
+    ``t0`` is an int for every scenario or an (N,) tensor, one start
+    second per scenario."""
     dev = seeds.device
-    t = torch.arange(t0, t0 + k, dtype=torch.int64, device=dev)
+    if isinstance(t0, torch.Tensor):
+        t = t0.to(dev, torch.int64)[:, None] + torch.arange(
+            k, dtype=torch.int64, device=dev)
+    else:
+        t = torch.arange(t0, t0 + k, dtype=torch.int64, device=dev)[None]
     return rnd.normal(seeds[:, None, None, None], rnd.PLANT_NOISE,
-                      t[None, :, None, None],
+                      t[:, :, None, None],
                       rnd.lanes((n_hosts, chips_per_host), dev))
+
+
+def live_load_noise(seeds: torch.Tensor, t: torch.Tensor,
+                    n_hosts: int) -> torch.Tensor:
+    """(N, H) white noise of each scenario's own second ``t`` (N,): the
+    online service's per-second demand draw, keyed by (seed, second,
+    host).  The rollout draws a whole hour block at once instead
+    (:func:`host_loads_block`)."""
+    return rnd.normal(seeds[:, None], rnd.SERVICE_LOAD, t[:, None],
+                      rnd.lanes((n_hosts,), seeds.device))
 
 
 def twin_carry_init(n: int, n_hosts: int, chips_per_host: int, device):

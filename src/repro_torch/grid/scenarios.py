@@ -186,6 +186,15 @@ def frequency_seeds(batch: ScenarioBatch) -> torch.Tensor:
     return (batch.event_seed * 100_003 + batch.seed) & MASK32
 
 
+def bidding_seeds(batch: ScenarioBatch) -> torch.Tensor:
+    """Per-scenario seed of the Tier-3 bidder's forecast ensemble
+    (``repro_torch.optim.bidding``), wrapping at 2**32 like
+    :func:`frequency_seeds`: a different multiplier and offset keep the
+    bidder's perturbations from aliasing the grid-event day it is later
+    settled against."""
+    return (batch.event_seed * 1_000_003 + batch.seed * 97 + 7) & MASK32
+
+
 def masked_quantile(x: torch.Tensor, mask: torch.Tensor,
                     q: float) -> torch.Tensor:
     """Quantile of the masked entries of ``x`` along the last axis, with

@@ -32,6 +32,9 @@ EVENT_COUNT = 6
 EVENT_TIME = 7
 EVENT_NADIR = 8
 EVENT_RECOVERY = 9
+BID_ENSEMBLE = 10      # the bidder's forecast ensemble: (seed, hour, member)
+BID_PROPOSAL = 11      # the bidder's CEM proposals: (seed, hour, iteration)
+SERVICE_LOAD = 12      # the service's live demand noise: (seed, second, host)
 
 
 def _mul32(x: torch.Tensor, c: int) -> torch.Tensor:

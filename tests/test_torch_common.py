@@ -2,7 +2,10 @@
 checks: import hygiene, copied constants, the CUDA default.
 
 The helpers carry state between the two packages as numpy arrays: the
-JAX reference's outputs and draws go through numpy into the port.
+JAX reference's outputs and draws go through numpy into the port.  JAX
+and the reference are imported inside the helpers that use them, so the
+card's machine, which has no JAX, can import this module for the card
+tests.
 """
 import ast
 import dataclasses
@@ -11,13 +14,10 @@ import pathlib
 import subprocess
 import sys
 
-import jax
-import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
-import repro.core.engine as ref_eng
 import repro_torch
 
 # six xdist workers share eight cores
@@ -78,6 +78,8 @@ def port_specs(ref_specs):
 def ref_plant_noise(batch, n_hosts, chips_per_host):
     """(N, T, H, C) plant normals the reference tick draws: its per-tick
     ``split`` chain replayed from ``engine.scenario_keys``."""
+    import jax
+    import repro.core.engine as ref_eng
     T = int(batch.h_max) * 3600
     _, scan_keys = ref_eng.scenario_keys(batch)
 
@@ -93,6 +95,7 @@ def ref_plant_noise(batch, n_hosts, chips_per_host):
 def ref_inputs(cfg, batch):
     """The reference's own draws for a batch: freq (N, T), loads (N, T, H)
     and plant noise (N, T, H, C), as numpy."""
+    import repro.core.engine as ref_eng
     from repro.grid import frequency
     from repro.grid.scenarios import frequency_seeds
     T = int(batch.h_max) * 3600
@@ -117,6 +120,9 @@ def assert_close(got, want, rtol, atol=0.0, msg=""):
 def _port_sources():
     files = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
     assert len(files) > 10
+    for sub in ("optim/bidding.py", "service/state.py", "service/server.py",
+                "service/loadgen.py"):
+        assert PORT / sub in files, sub
     return files
 
 
@@ -139,7 +145,8 @@ def test_port_sources_import_neither_jax_nor_repro(forbidden):
 
 def test_importing_the_engine_loads_neither_jax_nor_repro():
     code = ("import sys; import repro_torch.core.engine, "
-            "repro_torch.core.pid; "
+            "repro_torch.core.pid, repro_torch.optim.bidding, "
+            "repro_torch.service.server, repro_torch.service.loadgen; "
             "bad = [m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m == 'repro' or "
             "m.startswith('repro.')]; print(bad); sys.exit(1 if bad else 0)")
@@ -265,7 +272,10 @@ def test_default_device_is_cuda_and_raises_without_a_card(device):
 def test_convert_round_trips_reference_state():
     """convert.py turns the reference's state, as numpy dicts, into the
     port's tensors."""
+    import jax
+    import jax.numpy as jnp
     import repro.core.ar4 as r_ar4
+    import repro.core.engine as ref_eng
     import repro.core.pid as r_pid
     import repro.core.plant as r_plant
     import repro.grid.frequency as r_freq

@@ -331,3 +331,77 @@ def test_settle_reserve_matches_reference(world):
         np.testing.assert_array_equal(n(got[k]), np.asarray(want[k]), k)
     # a constant band settles as the engine's hourly-band rule does
     assert_close(n(got["net_eur"]), n(world["full"]["net_eur"]), rtol=1e-5)
+
+
+# ---------------------------------------------------------------------------
+# engine_step with one second per lane (the online service's tick)
+# ---------------------------------------------------------------------------
+
+
+def _lane(tree, i):
+    return torch.utils._pytree.tree_map(lambda x: x[i:i + 1], tree)
+
+
+def _leaves_equal(a, b):
+    leaves = torch.utils._pytree.tree_leaves
+    return all(torch.equal(x, y) for x, y in zip(leaves(a), leaves(b)))
+
+
+def test_engine_step_per_lane_seconds(world):
+    """An (N,) tensor of equal seconds is the int path bit for bit; lanes
+    at different seconds (across the warm-up gate and past the last hour)
+    equal one-lane calls at their own int second."""
+    freq, loads, noise = world["inputs"]
+    pb = world["pb"]
+    params, _, _ = eng.engine_params(CFG, pb, ops=tuple(
+        torch.from_numpy(x) for x in world["ops"]))
+    trig_hz = torch.tensor([49.7] * pb.n)
+    on = torch.ones(pb.n, dtype=torch.bool)
+    a = b = eng.engine_init(CFG, pb.seed, device=CPU)
+    for t in range(0, 80, 4):
+        xs = (torch.from_numpy(loads[:, t]),
+              torch.from_numpy(freq[:, t]) < trig_hz, on)
+        a, out_a = eng.engine_step(CFG, params, a, xs + (t,))
+        b, out_b = eng.engine_step(CFG, params, b,
+                                   xs + (torch.full((pb.n,), t),))
+        assert _leaves_equal(a, b) and _leaves_equal(out_a, out_b), t
+    ts = torch.tensor([10, 59, 60, 1234, 3599, 5000])
+    rows = torch.from_numpy(loads[:, 30])
+    below = torch.tensor([True, False, True, False, True, False])
+    new, (sec, m) = eng.engine_step(CFG, params, a, (rows, below, on, ts))
+    for i, t in enumerate(ts.tolist()):
+        one, (sec1, m1) = eng.engine_step(
+            CFG, _lane(params, i), _lane(a, i),
+            (rows[i:i + 1], below[i:i + 1], on[i:i + 1], t))
+        assert _leaves_equal(_lane(new, i), one), t
+        assert _leaves_equal(_lane((sec, m), i), (sec1, m1)), t
+
+
+# ---------------------------------------------------------------------------
+# The seconds tier under the configurations the world above does not use
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("variant", ["step_transient", "pue_blind", "fcr_d",
+                                     "workload_weight"])
+def test_seconds_tier_variant_matches_reference(variant):
+    """Step transients, a PUE-blind plant, the FCR-D product and the
+    workload-weighted objective, each against the reference on its own
+    draws and operating points (2 countries x bands 0 / 0.2, 1 h)."""
+    over = {"step_transient": dict(step_transient_amp=0.05),
+            "pue_blind": dict(pue_aware=False),
+            "workload_weight": dict(workload_weight=1.0)}.get(variant, {})
+    rcfg = dataclasses.replace(REF_CFG, **over)
+    specs = r_specs(countries=("SE", "PL"), seeds=(2,), horizon_h=1,
+                    products=("FCR-D" if variant == "fcr_d" else "FFR",),
+                    reserve_rhos=(0.0, 0.2), event_seeds=(3,))
+    rb = r_build(specs)
+    freq, loads, noise = ref_inputs(rcfg, rb)
+    ref = r_eng.engine_rollout(rcfg, rb, freq=freq, loads=loads)
+    ops = (np.asarray(ref["mu_h"]), np.asarray(ref["rho_h"]))
+    out = eng.engine_rollout(
+        port_config(rcfg), build_scenario_batch(port_specs(specs),
+                                                device=CPU),
+        freq=freq, loads=loads, noise=noise, ops=ops, device=CPU)
+    assert n(out["n_events"]).sum() > 0
+    _check_summary(out, ref)
