@@ -92,6 +92,33 @@ nonzero exit and no result line:
               window, and 10 captured ticks equal 10 eager ticks of the
               same state bit for bit
 
+  tier1_bench E2 and E4 of the paper (benchmarks/e2_step_response.py,
+              e4_closed_loop.py): the settle medians of the 280 -> 200 W
+              cap step per workload, then the 30 s closed loop at 200 Hz
+              (3 chips x 3 seeds per workload), the tracking error beside
+              the paper's; fails unless inference and matmul track inside
+              the 5 % band and bursty above it, unless pid_update
+              launched exactly once per tick, and unless bursty's loop
+              run again through pid_update's plain version gives the same
+              host-power traces and tracking errors
+  fr_latency  E7 (benchmarks/e7_fr_latency.py): 90 FFR triggers through the
+              port's SafetyIsland on UDP, trigger-to-caps wall time plus
+              the plant's settle on the card; fails unless 90/90 are under
+              the 700 ms budget; then the contrast arm, PythonSupervisor
+              under AllocationChurn (printed, not enforced)
+  twin        Fig. 4 (benchmarks/cluster_24h.py): 100 hosts x 3 chips on the
+              DE grid, seeds 0-2 as one run_twin_batch over 24 h or the
+              longest whole number of hours the phase's 180 s allow
+              (printed as a cut): scenario-seconds per wall second, ms per
+              tick, one tick's device time and launches, peak memory, seed
+              0's summary beside the paper's, the net-CO2 decomposition at
+              50 MW for CH/IT/DE, and 1 h of seed 0 on the CPU and on the
+              card with the same inputs
+  reserve     E9's separate replay: reserve_replay_batch over the full E9
+              batch (288 x 24 h), 8 lanes against the per-event oracle,
+              the event counts against the engine phase's, then
+              report.sweep_telemetry(fast=True) rendered
+
 Then a {"kernels": [...]} line, the card's name and power limit as
 nvidia-smi reports them, and the last line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}.
@@ -113,6 +140,13 @@ HBM_BYTES_PER_S = 3.35e12          # H100 SXM data sheet
 L2_BYTES = 50 * 2**20              # H100 SXM, where torch does not report it
 ENGINE_BUDGET_S = 240.0            # wall time the 24 h rollout may spend
 KERNEL_TOL = dict(atol=1e-4, rtol=1e-5)
+# E4's closed loop through pid_update against the same loop through its
+# plain version: a 1-ulp change of every tick's PID outputs moves the
+# 30 s host-power traces by at most 9.2e-4 W and the tracking errors by
+# 2.3e-5 % (CPU runs of experiments.e4_trace_batch), so these hold a
+# 10x margin and still catch a wrong gain, clamp or branch.
+E4_TRACE_TOL = dict(atol=1e-2, rtol=1e-5)
+E4_ERR_ATOL_PCT = 1e-3
 TENSOR_CORE_BF16_FLOP_S = 989e12   # H100 SXM data sheet, dense
 FP32_FLOP_S = 67e12                # H100 SXM data sheet, outside tensor cores
 # flash_attention against its plain version: the reference's kernel
@@ -155,6 +189,17 @@ BIDDING_MIN_NET_EUR_GAIN = 0.0   # bid arm's net over the price-aware grid
 SERVICE_MAX_P99_MS = 700.0       # FFR activation budget
 SERVICE_MAX_RSS_GROWTH_MB = 64.0
 PROFILED_STEPS = 8               # opt steps in the bidder's profiled run
+# the paper's experiments (benchmarks/e2, e4, e7, cluster_24h, e9)
+FR_LATENCY_PORT = 47661          # UDP port of fr_latency's island
+TWIN_BUDGET_S = 180.0            # wall time of the whole twin phase
+TWIN_SEEDS = (0, 1, 2)
+TWIN_PAPER = {"ar4_mae_norm": 0.036, "ar4_p95_norm": 0.09, "q_ffr": 1.0,
+              "mean_mu_green": 0.90, "mean_mu_dirty": 0.40,
+              "mean_rho": 0.2}
+CO2_PAPER_PCT = {"CH": 21, "IT": 20, "DE": 26}
+TWIN_TOL = {"energy": 1e-3, "rls": 2e-2}
+RESERVE_ORACLE_LANES = 8
+RESERVE_FLOAT_RTOL = 1e-3
 
 
 def emit(obj):
@@ -298,7 +343,7 @@ def phase_kernel(torch):
     from repro_torch.kernels import pid_update as pk
     g = torch.Generator(device="cuda").manual_seed(0)
     rows, worst = [], 0.0
-    for n in (7, 1024, 2500, 393_216):
+    for n in (7, 9, 1024, 2500, 393_216):
         def u(lo, hi):
             return lo + (hi - lo) * torch.rand(n, device="cuda",
                                                generator=g)
@@ -979,6 +1024,7 @@ def phase_engine(torch):
           "net_eur": float(out["net_eur"].sum()),
           "it_mwh": float(out["it_mwh"].sum()),
           "sync_free_ticks": 100})
+    return {"hours": hours, "n_events": out["n_events"], "mu_h": out["mu_h"]}
 
 
 CPU_VS_GPU_TOL = {"energy": 1e-3, "rls": 2e-2}
@@ -1301,6 +1347,345 @@ def phase_service(torch):
         raise RuntimeError(f"service: a gate failed: {res}")
 
 
+def phase_tier1_bench(torch):
+    """E2 and E4 of the paper on the card: the settle medians of the
+    280 -> 200 W step per workload, then the 30 s closed loop at 200 Hz
+    (3 chips x 3 seeds per workload, one batch each), counting the
+    pid_update launches: exactly one per tick.  Bursty's batch (the one
+    that drives the integral into its clamp and u onto its ceiling) runs
+    again with pid_update's plain version on the same loads: the
+    host-power traces and tracking errors must agree."""
+    import repro_torch.core.plant as plant
+    import repro_torch.experiments as ex
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.pid_update import pid_update, pid_update_ref
+    t_phase = time.perf_counter()
+    e2 = {w: float(np.median(ex.e2_settle_ms(w, device="cuda")))
+          for w in plant.WORKLOADS}
+    n_ticks = int(ex.E4_HORIZON_S * plant.CONTROL_HZ)
+    env = ex.e4_envelope(n_ticks)
+    loads = {w: ex.e4_loads(w, ex.E4_SEEDS, n_ticks, device="cuda")
+             for w in plant.WORKLOADS}
+    ex.e4_trace_batch(loads["matmul"][:, :5], env[:5], 6.0, device="cuda")
+    torch.cuda.synchronize()
+    pid_update.launches = 0
+    t0 = time.perf_counter()
+    traces = {w: ex.e4_trace_batch(loads[w], env, plant.workload_tau_ms(w),
+                                   device="cuda") for w in plant.WORKLOADS}
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = pid_update.launches
+    ticks = n_ticks * len(plant.WORKLOADS)
+    errs = {w: ex.e4_tracking_err(traces[w], loads[w], env)
+            for w in plant.WORKLOADS}
+    kernel = ops.pid_update
+    ops.pid_update = pid_update_ref
+    try:
+        plain_trace = ex.e4_trace_batch(
+            loads["bursty"], env, plant.workload_tau_ms("bursty"),
+            device="cuda")
+    finally:
+        ops.pid_update = kernel
+    plain_err = ex.e4_tracking_err(plain_trace, loads["bursty"], env)
+    trace_err = float((traces["bursty"] - plain_trace).abs().max())
+    err_diff = float((errs["bursty"] - plain_err).abs().max())
+    errs = {w: v.cpu().numpy() for w, v in errs.items()}
+    flags = ex.e4_in_band(errs)
+    emit({"phase": "tier1_bench",
+          "e2_settle_ms_median": e2, "e2_paper_ms": ex.E2_PAPER_MS,
+          "e4_seeds": list(ex.E4_SEEDS), "e4_chips": ex.E4_CHIPS,
+          "e4_ticks": ticks,
+          "e4_tracking_err_pct": {w: float(v[0]) for w, v in errs.items()},
+          "e4_tracking_err_pct_seed_mean": {w: float(v.mean())
+                                            for w, v in errs.items()},
+          "e4_paper_pct": ex.E4_PAPER_PCT, **flags,
+          "pid_update_launches": launches, "e4_wall_s": wall,
+          "e4_ms_per_tick": wall / ticks * 1e3,
+          "bursty_vs_plain": {"host_power_max_abs_w": trace_err,
+                              "tracking_err_max_abs_pct": err_diff,
+                              "tol": {"host_power": E4_TRACE_TOL,
+                                      "tracking_err_atol_pct":
+                                      E4_ERR_ATOL_PCT}},
+          "seconds": time.perf_counter() - t_phase})
+    if launches != ticks:
+        raise RuntimeError(f"tier1_bench: pid_update launched {launches} "
+                           f"times in {ticks} ticks")
+    if not all(flags.values()):
+        raise RuntimeError(f"tier1_bench: an in-band flag failed: {flags}")
+    torch.testing.assert_close(traces["bursty"], plain_trace,
+                               **E4_TRACE_TOL)
+    if not err_diff <= E4_ERR_ATOL_PCT:
+        raise RuntimeError(f"tier1_bench: bursty's tracking errors through "
+                           f"the kernel and its plain version differ by "
+                           f"{err_diff} %")
+    return launches
+
+
+def phase_fr_latency(torch):
+    """E7 on the card's host: 90 FFR triggers through the port's
+    SafetyIsland on UDP (trigger-to-caps wall time plus the plant's settle
+    on the card), all under the 700 ms budget; then the contrast arm, the
+    same trigger through PythonSupervisor under AllocationChurn (printed,
+    not enforced)."""
+    import repro_torch.core.plant as plant
+    import repro_torch.experiments as ex
+    t_phase = time.perf_counter()
+    res = ex.e7_island_trials(FR_LATENCY_PORT, device="cuda")
+    per = res["per_workload"]
+    lat = np.concatenate([per[w] for w in plant.WORKLOADS])
+    disp = np.asarray(res["dispatch_us"])
+    budget = ex.E7_BUDGET_MS
+    n_under = int((lat < budget).sum())
+    sup = ex.e7_supervisor_trials(res["rng"], 90)
+    median = float(np.median(lat))
+    emit({"phase": "fr_latency", "trials": int(lat.size),
+          "under_budget": f"{n_under}/{lat.size}", "budget_ms": budget,
+          "median_ms": median, "max_ms": float(lat.max()),
+          "margin_x": budget / median,
+          "median_ms_by_workload": {w: float(np.median(per[w]))
+                                    for w in plant.WORKLOADS},
+          "paper": ex.E7_PAPER,
+          "island_dispatch_us_median": float(np.median(disp)),
+          "island_dispatch_us_p99": float(np.percentile(disp, 99)),
+          "supervisor_triggers": int(sup.size),
+          "supervisor_dispatch_ms_median": float(np.median(sup)),
+          "supervisor_dispatch_ms_p99": float(np.percentile(sup, 99)),
+          "island_vs_supervisor_p99_x": float(
+              np.percentile(sup, 99)
+              / max(np.percentile(disp, 99) / 1e3, 1e-6)),
+          "seconds": time.perf_counter() - t_phase})
+    if lat.size != 3 * ex.E7_TRIALS_PER_WORKLOAD or n_under != lat.size:
+        raise RuntimeError(f"fr_latency: {n_under}/{lat.size} trials under "
+                           f"the {budget} ms budget")
+
+
+def twin_tick_profile(torch, twin, cfg, inp):
+    """Wall time, device time, launches and busy share of one twin tick
+    over the stacked scenarios (100 ticks; plant noise drawn beforehand
+    in one block, as the loop draws it per hour)."""
+    n, H, C = inp.loads.shape[0], cfg.n_hosts, cfg.chips_per_host
+    noise = twin.plant_noise(inp.seed, 0, 100, H, C)
+    box = [twin.twin_carry_init(n, H, C, inp.loads.device)]
+
+    def tick(t=0):
+        box[0], _ = twin.twin_tick(
+            H, C, cfg.chip_tdp, cfg.pue_design, box[0], inp.loads[:, t],
+            inp.mu_sec[:, t], inp.rho_sec[:, t], inp.ffr_sec[:, t],
+            inp.t_amb_sec[:, t], noise[:, t])
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for t in range(100):
+        tick(t)
+    torch.cuda.synchronize()
+    tick_ms = (time.perf_counter() - t0) / 100 * 1e3
+    prof = profile_calls(torch, tick, 100)
+    return {"tick_ms": tick_ms,
+            "device_us": prof["device_us_per_call"],
+            "launches": prof["launches_per_call"],
+            "device_busy_share": prof["device_us_per_call"] / 1e3 / tick_ms,
+            "kernels": prof["kernels"]}
+
+
+def phase_twin(torch):
+    """Fig. 4 on the card: a probe hour, one tick's profile, the net-CO2
+    decomposition at 50 MW for CH/IT/DE and 1 h of seed 0 on the CPU and
+    on the card with the same inputs; then benchmarks/cluster_24h.py's
+    configuration (100 hosts x 3 chips, the DE grid, seeds 0-2 as one
+    run_twin_batch) over 24 h or the longest whole number of hours the
+    probe says fits what is left of the phase's budget."""
+    import dataclasses
+    import repro_torch.core.twin as twin
+    from repro_torch.grid import signals
+    t_phase = time.perf_counter()
+    grid = signals.make_grid("DE", 48, seed=0)
+    cfg1 = twin.TwinConfig(n_hosts=100, chips_per_host=3, seconds=3600,
+                           seed=0)
+
+    def scenarios(cfg, device="cuda"):
+        return [twin.prepare_scenario(cfg, grid, seed=s, device=device)
+                for s in TWIN_SEEDS]
+
+    # rate probe: one simulated hour of the three seeds
+    probe = scenarios(cfg1)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    twin.run_twin_batch(cfg1, probe)
+    torch.cuda.synchronize()
+    s_per_h = time.perf_counter() - t0
+    prof = twin_tick_profile(torch, twin, cfg1,
+                             twin.stack_scenarios(probe))
+    cfg50 = twin.TwinConfig(n_hosts=int(50e6 / (3 * 300.0) / 10),
+                            chips_per_host=3, seconds=86_400, seed=0)
+    co2 = {c: twin.net_co2_decomposition(
+        cfg50, signals.make_grid(c, 48, seed=0), {}, device="cuda")
+        for c in CO2_PAPER_PCT}
+    cpu_vs_gpu = twin_cpu_vs_gpu(torch, twin, cfg1, grid)
+    left_s = TWIN_BUDGET_S - (time.perf_counter() - t_phase)
+    hours = max(1, min(24, int(left_s // s_per_h)))
+    cfg = dataclasses.replace(cfg1, seconds=hours * 3600)
+    t0 = time.perf_counter()
+    scens = scenarios(cfg)
+    torch.cuda.synchronize()
+    prep_s = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    out, summaries = twin.run_twin_batch(cfg, scens)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    if not (all_finite(torch, tuple(out))
+            and all(math.isfinite(v) or k.startswith("mean_mu")
+                    or k == "q_ffr" for s in summaries
+                    for k, v in s.items())):
+        raise RuntimeError("twin: a non-finite output")
+    sim_s = len(TWIN_SEEDS) * cfg.seconds
+    res = {"phase": "twin", "hosts": cfg.n_hosts,
+           "chips_per_host": cfg.chips_per_host,
+           "scenarios": len(TWIN_SEEDS), "hours": hours,
+           "cut": None if hours == 24 else
+           f"horizon cut from 24 h to {hours} h by the time budget",
+           "probe_s_per_hour": s_per_h, "prepare_s": prep_s, "wall_s": wall,
+           "scenario_s_per_wall_s": sim_s / wall,
+           "ms_per_tick": wall / cfg.seconds * 1e3,
+           "tick_profile": prof, "peak_mem_bytes": peak,
+           "summary_seed0": {k: v if math.isfinite(v) else None
+                             for k, v in summaries[0].items()},
+           "paper": TWIN_PAPER,
+           "ar4_mae_norm_seed_std": float(np.std(
+               [s["ar4_mae_norm"] for s in summaries])),
+           "net_co2_50mw": {c: {"net_savings_pct": d["net_savings_pct"],
+                                "exogenous_savings_pct":
+                                    d["exogenous_savings_pct"],
+                                "paper_net_pct": CO2_PAPER_PCT[c]}
+                            for c, d in co2.items()},
+           "cpu_vs_gpu": cpu_vs_gpu}
+    res["seconds"] = time.perf_counter() - t_phase
+    emit(res)
+
+
+def twin_cpu_vs_gpu(torch, twin, cfg, grid):
+    """1 h of seed 0 on the CPU and on the card with the same demand,
+    plant noise, FFR events and schedule, held at the CPU tolerances."""
+    scen = twin.prepare_scenario(cfg, grid, seed=0, device="cpu")
+    noise = twin.plant_noise(scen.inputs.seed[None], 0, cfg.seconds,
+                             cfg.n_hosts, cfg.chips_per_host)[0]
+    kw = dict(loads=scen.inputs.loads, noise=noise,
+              ops=(scen.mu_h, scen.rho_h))
+    out_c, a = twin.run_twin(cfg, grid, scen.events, device="cpu", **kw)
+    out_g, b = twin.run_twin(cfg, grid, scen.events, device="cuda", **kw)
+    if not torch.equal(out_c.ffr_active, out_g.ffr_active.cpu()):
+        raise RuntimeError("twin cpu vs gpu: FFR flags differ")
+    worst = {}
+    for k, tol in (("it_energy_mwh", "energy"),
+                   ("facility_energy_mwh", "energy"),
+                   ("chip_power_mean", "energy"), ("q_ffr", "energy"),
+                   ("ar4_mae_norm", "rls"), ("ar4_p95_norm", "rls"),
+                   ("tracking_err_mean", "rls")):
+        d = abs(a[k] - b[k]) / max(abs(a[k]), 1e-12)
+        if not d <= TWIN_TOL[tol]:
+            raise RuntimeError(f"twin cpu vs gpu: {k} {a[k]} vs {b[k]}")
+        worst[k] = d
+    return {"hours": cfg.seconds // 3600, "n_events": len(scen.events),
+            "max_rel_err": worst, "tol": TWIN_TOL}
+
+
+def phase_reserve(torch, engine):
+    """E9's separate reserve replay on the card: reserve_replay_batch over
+    the full E9 batch (288 scenarios x 24 h of 1 Hz frequency) at the
+    Tier-3 selection's hourly mu; 8 lanes against the per-event oracle;
+    the event counts against the fused engine's on the engine phase's
+    horizon; then report.sweep_telemetry(fast=True) rendered."""
+    import dataclasses
+    import io
+    import repro_torch.core.engine as eng
+    import repro_torch.core.reserve as reserve
+    from repro_torch.grid import frequency
+    from repro_torch.grid.scenarios import (build_scenario_batch,
+                                            frequency_seeds)
+    from repro_torch.obs import report
+    t_phase = time.perf_counter()
+    cfg = eng.EngineConfig(n_hosts=2, chips_per_host=2, e_max=24,
+                           events_per_day=4.0)
+
+    def replay(hours, mu_h=None):
+        batch = build_scenario_batch(e9_specs(hours), device="cuda")
+        T = hours * 3600
+        freq, _ = frequency.synthesize_frequency_batch(
+            frequency_seeds(batch), batch.product_idx, n_seconds=T,
+            events_per_day=cfg.events_per_day,
+            max_events=cfg.max_freq_events, device="cuda")
+        if mu_h is None:
+            mu_h = eng.engine_rollout(dataclasses.replace(
+                cfg, with_seconds=False), batch, device="cuda")["mu_h"]
+        args = (freq, mu_h, batch.t_amb, batch.hours * 3600,
+                batch.product_idx, batch.reserve_rho, batch.mw,
+                batch.pue_design)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = reserve.reserve_replay_batch(*args, e_max=cfg.e_max,
+                                           device="cuda")
+        torch.cuda.synchronize()
+        return out, args, time.perf_counter() - t0
+
+    out, args, wall = replay(24)
+    if not all_finite(torch, out["events"]._asdict()):
+        raise RuntimeError("reserve: a non-finite verdict")
+    n = args[0].shape[0]
+    lanes = np.linspace(0, n - 1, RESERVE_ORACLE_LANES).astype(int)
+    host = [a.cpu().numpy() for a in args]
+    worst = 0.0
+    for i in lanes:
+        ref = reserve.reserve_replay_reference(
+            *(a[i] for a in host), e_max=cfg.e_max)
+        got = {k: v[i].cpu().numpy() for k, v in out["events"]._asdict()
+               .items()}
+        same = (int(out["n_events"][i]) == ref["n_events"]
+                and int(out["active_s"][i]) == ref["active_s"]
+                and all(np.array_equal(got[k], getattr(ref["events"], k))
+                        for k in ("t_event_s", "valid", "budget_ok",
+                                  "sustain_ok", "delivered_ok",
+                                  "compliant")))
+        if not same:
+            raise RuntimeError(f"reserve: lane {i} differs from the oracle")
+        for k in ("t_full_ms", "sustain_s", "delivered_mw",
+                  "delivered_frac"):
+            np.testing.assert_allclose(got[k], getattr(ref["events"], k),
+                                       rtol=RESERVE_FLOAT_RTOL, atol=1e-6)
+            worst = max(worst, float(np.max(
+                np.abs(got[k] - getattr(ref["events"], k))
+                / np.maximum(np.abs(getattr(ref["events"], k)), 1e-6))))
+    # the same frequency and operating points through the fused engine:
+    # its detection runs in its tick, so the event counts must agree
+    if engine["hours"] == 24:
+        out_e = out
+    else:
+        out_e, _, _ = replay(engine["hours"], engine["mu_h"])
+    if not torch.equal(out_e["n_events"], engine["n_events"]):
+        raise RuntimeError("reserve: event counts differ from the engine's")
+    t0 = time.perf_counter()
+    tel = report.sweep_telemetry(fast=True, device="cuda")
+    buf = io.StringIO()
+    report.render_telemetry(tel, out=buf)
+    report_s = time.perf_counter() - t0
+    text = buf.getvalue()
+    if "deadline" not in text or "FFR" not in text:
+        raise RuntimeError("reserve: the telemetry report is incomplete")
+    emit({"phase": "reserve", "scenarios": n, "hours": 24,
+          "freq_bytes": args[0].numel() * args[0].element_size(),
+          "wall_s": wall, "ms_per_batch": wall * 1e3,
+          "scenario_days_per_s": n / wall,
+          "ms_per_tick": wall / (24 * 3600) * 1e3,
+          "n_events": int(out["n_events"].sum()),
+          "n_compliant": int((out["events"].valid
+                              & out["events"].compliant).sum()),
+          "oracle_lanes": lanes.tolist(), "oracle_float_max_rel_err": worst,
+          "engine_hours": engine["hours"],
+          "engine_event_counts_equal": True,
+          "report_s": report_s, "report_lines": text.count("\n"),
+          "seconds": time.perf_counter() - t_phase})
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1359,11 +1744,15 @@ def main() -> int:
                             params, 256, hybrid)
     del params
     free()
-    phase_engine(torch)
+    engine = phase_engine(torch)
     phase_cpu_vs_gpu(torch)
     phase_sweep(torch)
     phase_bidding(torch)
     phase_service(torch)
+    pid_rec["launches_e4"] = phase_tier1_bench(torch)
+    phase_fr_latency(torch)
+    phase_twin(torch)
+    phase_reserve(torch, engine)
     emit({"kernels": [pid_rec, flash_rec, ssd_rec]})
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",

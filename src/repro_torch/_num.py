@@ -93,3 +93,14 @@ def take(table, idx):
     if isinstance(idx, torch.Tensor):
         return const(np.asarray(table, np.float32), idx.device)[idx.long()]
     return float(np.float32(np.asarray(table)[int(idx)]))
+
+
+def override(x, shape, name: str, what: str, dev) -> torch.Tensor:
+    """A caller's override of a draw or an input, as a tensor on ``dev``
+    (:func:`tensor`), checked against the ``shape`` it replaces (``what``
+    names that shape in the error)."""
+    x = tensor(x, dev)
+    if tuple(x.shape) != tuple(shape):
+        raise ValueError(f"{name} override must have shape {what} = "
+                         f"{tuple(shape)}, got {tuple(x.shape)}")
+    return x

@@ -39,7 +39,7 @@ import repro_torch.grid.markets as markets
 import repro_torch.obs.telemetry as obs_tel
 import repro_torch.workload.model as workload_lib
 from repro_torch import resolve_device
-from repro_torch._num import take, tensor
+from repro_torch._num import override, take, tensor
 from repro_torch.grid.scenarios import (ScenarioBatch, frequency_seeds,
                                         masked_quantile, scenario_chunk)
 
@@ -482,14 +482,6 @@ def _rollout(cfg: EngineConfig, reduce: str, batch: ScenarioBatch, freq,
     return out
 
 
-def _override(x, shape, name, what, dev):
-    x = tensor(x, dev)
-    if tuple(x.shape) != shape:
-        raise ValueError(f"{name} override must have shape {what} = "
-                         f"{shape}, got {tuple(x.shape)}")
-    return x
-
-
 def base_loads(cfg: EngineConfig, batch: ScenarioBatch) -> torch.Tensor:
     """(N, T, H) unscaled per-host demand rows, materialised: the same
     counter-based draws the rollout makes block by block."""
@@ -533,15 +525,15 @@ def engine_rollout(cfg: EngineConfig, batch: ScenarioBatch, *,
             events_per_day=cfg.events_per_day,
             max_events=cfg.max_freq_events, device=dev)
     else:
-        freq = _override(freq, (n, T), "freq",
-                         "(N, T) = (batch.n, batch.h_max * 3600)", dev)
+        freq = override(freq, (n, T), "freq",
+                        "(N, T) = (batch.n, batch.h_max * 3600)", dev)
     if loads is not None:
-        loads = _override(loads, (n, T, cfg.n_hosts), "loads",
-                          "(N, T, H) = (batch.n, batch.h_max * 3600, "
-                          "cfg.n_hosts)", dev)
+        loads = override(loads, (n, T, cfg.n_hosts), "loads",
+                         "(N, T, H) = (batch.n, batch.h_max * 3600, "
+                         "cfg.n_hosts)", dev)
     if noise is not None:
-        noise = _override(noise, (n, T, cfg.n_hosts, cfg.chips_per_host),
-                          "noise", "(N, T, H, C)", dev)
+        noise = override(noise, (n, T, cfg.n_hosts, cfg.chips_per_host),
+                         "noise", "(N, T, H, C)", dev)
     return _rollout(cfg, reduce, batch, freq, loads, noise, ops)
 
 

@@ -13,13 +13,19 @@ path:
     (the NVML-write analogue the plant simulator consumes),
   * optional SCHED_FIFO + CPU pinning when the container permits it.
 
-The reference's contrast path (``PythonSupervisor``, ``AllocationChurn``)
-belongs to its E7 benchmark and is not copied.
+The contrast path (``PythonSupervisor``) routes the same trigger through a
+realistic supervisor stack -- queue hop, dict dispatch, JSON telemetry,
+logging -- whose tail latency under allocation churn
+(``AllocationChurn``) is what fails TSO pre-qualification in the paper
+(p99 > 250 ms there).
 """
 from __future__ import annotations
 
 import gc
+import json
+import logging
 import os
+import queue
 import socket
 import struct
 import threading
@@ -181,3 +187,118 @@ class SafetyIsland:
                 return False
             time.sleep(0.0002)
         return True
+
+
+# ---------------------------------------------------------------------------
+# The contrast path: a realistic Python supervisor stack
+# ---------------------------------------------------------------------------
+
+
+class PythonSupervisor:
+    """Routes the same trigger through the full supervisor stack.
+
+    Queue hop -> policy dict dispatch -> telemetry JSON -> logging -> cap
+    write.  This is the "without the bypass" arm of E7: correct, but its
+    tail is at the mercy of allocation churn and the GC.
+    """
+
+    def __init__(self, n_chips: int, cap_table: np.ndarray):
+        self.table = cap_table
+        self.caps = cap_table[0].copy()
+        self.q: "queue.Queue[tuple]" = queue.Queue()
+        self.log = logging.getLogger("gridpilot.supervisor")
+        self.events: list = []
+        self._stop = threading.Event()
+        self._thread: Optional[threading.Thread] = None
+        self.done_ns: "queue.Queue[int]" = queue.Queue()
+
+    def start(self) -> None:
+        self._stop.clear()
+        self._thread = threading.Thread(target=self._run, daemon=True)
+        self._thread.start()
+
+    def stop(self) -> None:
+        self._stop.set()
+        self.q.put(None)
+        if self._thread:
+            self._thread.join(timeout=2.0)
+
+    def _run(self) -> None:
+        while not self._stop.is_set():
+            item = self.q.get()
+            if item is None:
+                break
+            op_idx, freq, t_send = item
+            # policy resolution (dict-of-dicts dispatch, as a real stack does)
+            policy = {
+                "product": "FFR",
+                "threshold": FFR_FREQ_THRESHOLD,
+                "op_index": int(op_idx),
+                "freq": float(freq),
+            }
+            if policy["freq"] < policy["threshold"]:
+                row = policy["op_index"] % self.table.shape[0]
+                new_caps = self.table[row].tolist()  # allocation, like prod
+                self.caps = np.asarray(new_caps, np.float32)
+                event = {
+                    "ts": time.time(),
+                    "kind": "ffr_activation",
+                    "caps": new_caps[:8],
+                    "row": row,
+                }
+                self.events.append(json.dumps(event))  # telemetry serialise
+                self.log.debug("FFR activation row=%s", row)
+            self.done_ns.put(time.perf_counter_ns())
+
+    def send_trigger(self, op_index: int = 0, freq_hz: float = 49.5) -> int:
+        t = time.perf_counter_ns()
+        self.q.put((op_index, freq_hz, t))
+        return t
+
+    def wait_done(self, timeout_s: float = 2.0) -> int:
+        return self.done_ns.get(timeout=timeout_s)
+
+
+class AllocationChurn:
+    """Background allocation + GC pressure standing in for the rest of a
+    busy supervisor process (metric scrapes, schedulers, RPC handlers).
+
+    A large retained object graph makes every gen-2 collection a long
+    stop-the-world pause that the GIL imposes on the supervisor thread --
+    the mechanism behind the paper's "p99 > 250 ms" Python-path failure.
+    The island never sees it: its hot path allocates nothing and runs
+    with the collector disabled.
+    """
+
+    def __init__(self, retained_objects: int = 1_500_000, hz: float = 50.0):
+        self.retained_objects = retained_objects
+        self.hz = hz
+        self._stop = threading.Event()
+        self._thread: Optional[threading.Thread] = None
+
+    def start(self) -> None:
+        self._stop.clear()
+        self._thread = threading.Thread(target=self._run, daemon=True)
+        self._thread.start()
+
+    def stop(self) -> None:
+        self._stop.set()
+        if self._thread:
+            self._thread.join(timeout=5.0)
+
+    def _run(self) -> None:
+        # the long-lived heap a real supervisor carries (job tables,
+        # metric registries, config trees)
+        retained = [(i, str(i), {"j": i}) for i in
+                    range(self.retained_objects // 3)]
+        junk: list = []
+        k = 0
+        while not self._stop.is_set():
+            junk.append([{"k": i, "v": os.urandom(256)} for i in range(512)])
+            if len(junk) > 8:
+                junk = junk[-4:]
+            k += 1
+            if k % 16 == 0:
+                gc.collect()  # full collection scans the retained heap
+            time.sleep(1.0 / self.hz)
+        del retained

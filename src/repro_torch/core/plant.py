@@ -12,13 +12,14 @@ pins each against ``repro.core.plant``.
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Optional
 
 import numpy as np
 import torch
 
 from repro_torch import resolve_device
-from repro_torch._num import clip, device_of, f32, where
+from repro_torch._num import clip, const, device_of, f32, tensor, where
 
 P_IDLE = 39.0
 ALPHA = 0.027
@@ -42,7 +43,10 @@ CAP_FALLBACK = 200.0   # W
 
 CONTROL_HZ = 200.0     # Tier-1 tick
 
-# (mean load, fast-noise sigma, slow-noise sigma, demand tau ms)
+WORKLOADS = ("matmul", "inference", "bursty")
+
+# (mean load, fast-noise sigma, slow-noise sigma, demand tau ms); tau makes
+# settle(+/-2 % band) = 5 ms NVML window + 3 tau, the paper's E2 medians
 _ARCHETYPES = {
     "matmul": dict(mean=0.97, fast_sigma=0.021, slow_sigma=0.012,
                    tau_ms=4.33),
@@ -56,6 +60,48 @@ BURSTY_LOW = 0.05
 BURSTY_EDGE_JITTER_S = 0.12
 SLOW_FREQS_HZ = (0.031, 0.073, 0.127, 0.211)
 BURSTY_JITTER_FREQ_HZ = 0.017
+
+
+def workload_tau_ms(workload: str) -> float:
+    return _ARCHETYPES[workload]["tau_ms"]
+
+
+def workload_load(workload: str, t_s, *, phase=0.0, draws=None,
+                  generator: Optional[torch.Generator] = None,
+                  device="cuda") -> torch.Tensor:
+    """Instantaneous utilisation L(t) of an archetype at the seconds
+    ``t_s`` (any shape), on ``device``.
+
+    Slow noise is a band-limited wander (four incommensurate sinusoids
+    with random phases), fast noise is white; the bursty archetype is a
+    4 s compute/idle square wave with a jittered edge.  The reference
+    draws three things from a key: the four wave phases, the fast
+    normals (the shape of ``t_s``) and the jitter phase.  ``draws`` takes
+    those three buffers, ``(phases (4,), fast, jitter ())``; without it
+    they are drawn from ``generator`` (torch's default generator when
+    None) on the generator's device.
+    """
+    a = _ARCHETYPES[workload]
+    dev = resolve_device(device)
+    t = tensor(t_s, dev).float()
+    if draws is None:
+        gdev = generator.device if generator is not None else dev
+        ph = torch.rand(4, generator=generator, device=gdev) * (
+            2 * math.pi)
+        fast = torch.randn(t.shape, generator=generator, device=gdev)
+        jit = torch.rand((), generator=generator, device=gdev) * 6.28
+        draws = (ph, fast, jit)
+    ph, fast, jit = (tensor(x, dev).float() for x in draws)
+    freqs = const(np.float32(SLOW_FREQS_HZ), dev)
+    slow = torch.sin(2 * math.pi * freqs * t[..., None] + ph).sum(-1) / 2.0
+    base = a["mean"] + a["slow_sigma"] * slow + a["fast_sigma"] * fast
+    if workload == "bursty":
+        jit_t = BURSTY_EDGE_JITTER_S * torch.sin(
+            2 * math.pi * BURSTY_JITTER_FREQ_HZ * t + jit)
+        frac = torch.remainder((t + jit_t) / BURSTY_PERIOD_S + phase, 1.0)
+        base = torch.where(frac < BURSTY_DUTY, base,
+                           BURSTY_LOW + 0.01 * fast)
+    return torch.clamp(base, 0.0, 1.0)
 
 
 def power_model(f_mhz, load, *, p_idle=P_IDLE, a=ALPHA, b=BETA, g=GAMMA):
@@ -165,3 +211,49 @@ def plant_step(state: PlantState, load, dt_ms, *, tau_ms: float = 6.0,
     freq = freq_at_cap(cap, clip(f32(load, power.device), 1e-3))
     return PlantState(power=power, cap=cap, pending_cap=state.pending_cap,
                       pending_ms=pend, temp=temp, freq=freq)
+
+
+# r(f): iterations/s.  matmul ~ linear in clock; inference mostly HBM-bound;
+# bursty = duty-cycled matmul.  r0 calibrated to the paper's best-point
+# values (2.880 / 0.570 / 0.549 it/J at (150 W, 945 MHz)).
+_R0 = {"matmul": 0.0905, "inference": 416.0, "bursty": 0.1186}
+
+
+def _minimum(a, b):
+    """``jnp.minimum`` for tensors or Python numbers."""
+    if isinstance(a, torch.Tensor) or isinstance(b, torch.Tensor):
+        dev = device_of(a, b)
+        return torch.minimum(tensor(a, dev), tensor(b, dev))
+    return min(a, b)
+
+
+def throughput(workload: str, f_mhz):
+    """Iterations per second at SM clock ``f_mhz``."""
+    f = f32(f_mhz)
+    if workload == "inference":
+        return _R0["inference"] * (0.45 + 0.55 * f / F_NOMINAL)
+    r = _R0[workload] * f
+    if workload == "bursty":
+        r = r * BURSTY_DUTY * 2.0 * 0.5  # duty-cycled; idle in denominator
+    return r
+
+
+def iterations_per_joule(workload: str, cap, f_request):
+    """Steady-state it/J at a (cap, requested clock) cell of the E1 sweep;
+    ``cap`` and ``f_request`` are numbers or broadcastable tensors.
+
+    bursty evaluates its ON phase at full load (the duty cycle is in time,
+    not utilisation) and averages idle power into the denominator.
+    """
+    load = {"matmul": 1.0, "inference": 0.60, "bursty": 1.0}[workload]
+    dev = device_of(cap, f_request)
+    f_req = f32(f_request, dev)
+    cap = f32(cap, dev)
+    p_unc = power_model(f_req, load)
+    f_eff = where(p_unc > cap, freq_at_cap(cap, load), f_req)
+    p_eff = _minimum(power_model(f_eff, load), cap)
+    if workload == "bursty":
+        r = _R0["bursty"] * f_eff * BURSTY_DUTY
+        p_avg = BURSTY_DUTY * p_eff + (1 - BURSTY_DUTY) * (P_IDLE + 15.0)
+        return r / p_avg
+    return throughput(workload, f_eff) / p_eff

@@ -4,6 +4,9 @@ Activation budgets from the paper's Sect. 1-2: the Nordic FFR requires full
 reserve delivery within 700 ms of the frequency crossing 49.7 Hz; FCR has a
 30 s budget; aFRR/mFRR are the slower restoration products (PICASSO/MARI).
 
+The trigger generator produces Poisson under-frequency excursions with a
+realistic ROCOF so E7 and the twin replay TSO-style activations.
+
 A numpy copy of ``repro.grid.markets``: the port imports nothing of the
 JAX package.  The float32 tables are cast to tensors where they are used.
 """
@@ -53,3 +56,51 @@ CAPACITY_PRICE_EUR_MW_H = np.asarray(
     [p.capacity_price_eur_mw_h for p in _P], np.float32)
 del _P
 
+
+class FFRTriggerGen:
+    """Poisson under-frequency events.
+
+    Each event: frequency ramps down at `rocof` Hz/s from 50.0, bottoms at
+    `nadir`, recovers over `recovery_s`.  Events per day follows the Nordic
+    activation statistics order of magnitude (a few per week at the FFR
+    threshold; more at FCR-D).
+    """
+
+    def __init__(self, events_per_day: float = 4.0, seed: int = 0,
+                 rocof_hz_s: float = 0.2):
+        self.rate = events_per_day
+        self.rocof = rocof_hz_s
+        self.rng = np.random.default_rng(seed)
+
+    def sample_day(self, product: FRProduct = FR_PRODUCTS["FFR"]):
+        """Returns a list of (t_event_s, nadir_hz, recovery_s)."""
+        n = self.rng.poisson(self.rate)
+        out = []
+        for _ in range(n):
+            t = float(self.rng.uniform(0.0, 86_400.0))
+            nadir = float(self.rng.uniform(product.full_delivery_hz - 0.1,
+                                           product.trigger_hz - 0.02))
+            rec = float(self.rng.uniform(60.0, 600.0))
+            out.append((t, nadir, rec))
+        return sorted(out)
+
+    def frequency_trace(self, events, n_seconds: int) -> np.ndarray:
+        """Grid frequency at 1 Hz over the horizon with the sampled events.
+
+        Events are applied in list order with overwrite semantics (a later
+        event's ramp wins on overlapping seconds); each event is two slice
+        assignments, not a per-second loop.
+        """
+        f = np.full(n_seconds, NOMINAL_HZ)
+        f += 0.01 * np.cumsum(
+            self.rng.standard_normal(n_seconds)
+        ) / np.sqrt(np.arange(1, n_seconds + 1))
+        for (t, nadir, rec) in events:
+            t0 = int(t)
+            fall_s = max(int((NOMINAL_HZ - nadir) / self.rocof), 1)
+            kf = np.arange(max(min(t0 + fall_s, n_seconds) - t0, 0))
+            f[t0:t0 + kf.size] = NOMINAL_HZ - self.rocof * kf
+            r0 = t0 + fall_s
+            kr = np.arange(max(min(r0 + int(rec), n_seconds) - r0, 0))
+            f[r0:r0 + kr.size] = nadir + (NOMINAL_HZ - nadir) * kr / rec
+        return f

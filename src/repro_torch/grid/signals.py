@@ -19,6 +19,7 @@ JAX package.
 from __future__ import annotations
 
 import zlib
+from dataclasses import dataclass
 
 import numpy as np
 
@@ -114,3 +115,26 @@ def synthesize_t_amb(country: str, n_hours: int, seed: int = 0,
     noise = 1.2 * rng.standard_normal(n_hours)
     return base + diurnal + front + noise
 
+
+@dataclass(frozen=True)
+class GridSignals:
+    country: str
+    ci: np.ndarray        # (H,) gCO2/kWh
+    t_amb: np.ndarray     # (H,) degC
+
+    @property
+    def hours(self) -> int:
+        return len(self.ci)
+
+    def greenness(self) -> np.ndarray:
+        lo, hi = self.ci.min(), self.ci.max()
+        return 1.0 - (self.ci - lo) / max(hi - lo, 1e-9)
+
+
+def make_grid(country: str, n_hours: int = 7 * 24, seed: int = 0,
+              start_day_of_year: int = 15) -> GridSignals:
+    return GridSignals(
+        country=country,
+        ci=synthesize_ci(country, n_hours, seed, start_day_of_year),
+        t_amb=synthesize_t_amb(country, n_hours, seed, start_day_of_year),
+    )

@@ -49,6 +49,10 @@ def clock_weight(mix: str) -> float:
     return float(CLOCK_W[mix_index(mix)])
 
 
+def tokens_per_mw_s(mix: str) -> float:
+    return float(TOKENS_PER_MW_S[mix_index(mix)])
+
+
 def throughput_frac(clock_w, power_frac):
     """Normalised throughput in [0, 1] at per-chip power ``power_frac``
     (a fraction of TDP): DVFS blend of the clock- and HBM-bound branches

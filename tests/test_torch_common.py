@@ -121,7 +121,9 @@ def _port_sources():
     files = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
     assert len(files) > 10
     for sub in ("optim/bidding.py", "service/state.py", "service/server.py",
-                "service/loadgen.py"):
+                "service/loadgen.py", "core/twin.py", "core/reserve.py",
+                "core/dispatch.py", "core/island.py", "obs/report.py",
+                "experiments.py"):
         assert PORT / sub in files, sub
     return files
 
@@ -146,7 +148,13 @@ def test_port_sources_import_neither_jax_nor_repro(forbidden):
 def test_importing_the_engine_loads_neither_jax_nor_repro():
     code = ("import sys; import repro_torch.core.engine, "
             "repro_torch.core.pid, repro_torch.optim.bidding, "
-            "repro_torch.service.server, repro_torch.service.loadgen; "
+            "repro_torch.service.server, repro_torch.service.loadgen, "
+            "repro_torch.core.twin, repro_torch.core.reserve, "
+            "repro_torch.core.dispatch, repro_torch.obs.report, "
+            "repro_torch.experiments, repro_torch.core, repro_torch.grid, "
+            "repro_torch.obs, repro_torch.workload; "
+            "import repro_torch.core as c, repro_torch.grid as g; "
+            "[getattr(m, k) for m in (c, g) for k in m.__all__]; "
             "bad = [m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m == 'repro' or "
             "m.startswith('repro.')]; print(bad); sys.exit(1 if bad else 0)")
@@ -167,6 +175,14 @@ def _constant_pairs():
     import repro.grid.signals as r_signals
     import repro.obs.telemetry as r_tel
     import repro.workload.model as r_wl
+    import repro.core.dispatch as r_dispatch
+    import repro.core.reserve as r_reserve
+    import repro.core.twin as r_twin
+    import repro.obs.report as r_report
+    import repro_torch.core.dispatch as p_dispatch
+    import repro_torch.core.reserve as p_reserve
+    import repro_torch.core.twin as p_twin
+    import repro_torch.obs.report as p_report
     import repro_torch.core.ar4 as p_ar4
     import repro_torch.core.pid as p_pid
     import repro_torch.core.plant as p_plant
@@ -181,7 +197,8 @@ def _constant_pairs():
         (r_plant, p_plant): (
             "P_IDLE ALPHA BETA GAMMA TDP CAP_MIN CAP_MAX F_MAX F_MIN F_VMIN "
             "F_NOMINAL GOV_SLEW ACTUATE_DELAY_MS TAU_THERMAL T_AMBIENT_INT "
-            "R_TH T_FALLBACK CAP_FALLBACK CONTROL_HZ _ARCHETYPES "
+            "R_TH T_FALLBACK CAP_FALLBACK CONTROL_HZ WORKLOADS _ARCHETYPES "
+            "_R0 "
             "BURSTY_PERIOD_S BURSTY_DUTY BURSTY_LOW BURSTY_EDGE_JITTER_S "
             "SLOW_FREQS_HZ BURSTY_JITTER_FREQ_HZ"),
         (r_pue, p_pue): (
@@ -205,6 +222,12 @@ def _constant_pairs():
             "MIX_ORDER CLOCK_W TOKENS_PER_MW_S STEP_PERIOD_S_DEFAULT "
             "STEP_COMPUTE_FRAC DEFAULT_GRID_CKPT_S P_FLOOR_FRAC P_IDLE_FRAC "
             "F_AT_TDP"),
+        (r_dispatch, p_dispatch): (
+            "SIGMA_PCT BETA_CUTOFF HIGH_SIGMA_CAP ELASTIC_FRACTION "
+            "SHORT_JOB_H LOOKAHEAD_H"),
+        (r_reserve, p_reserve): "E_MAX DELIVERY_TOL PENALTY_WINDOW_H",
+        (r_twin, p_twin): "LOAD_BLOCK_S",
+        (r_report, p_report): "BAR_W",
         (r_tel, p_tel): (
             "TRACK_ERR_EDGES N_TRACK_BUCKETS RESP_FRAC_EDGES N_RESP_BUCKETS "
             "CAP_SAT_TOL_W HOUR_S"),
@@ -235,6 +258,22 @@ def test_copied_constants_equal_the_reference():
                                   p_freq._NADIR_LO)
     np.testing.assert_array_equal(np.asarray(r_freq._NADIR_HI, np.float32),
                                   p_freq._NADIR_HI)
+
+
+@pytest.mark.parametrize("pkg", ["core", "grid", "obs", "workload"])
+def test_packages_export_the_references_names(pkg):
+    """Each port package resolves every name of the reference package's
+    ``__all__``, less the training stack's (ROADMAP A14)."""
+    import importlib
+    ref = importlib.import_module(f"repro.{pkg}")
+    port = importlib.import_module(f"repro_torch.{pkg}")
+    a14 = {"PowerActuator", "RUN_FULL", "StepDecision", "duty_run_quota",
+           "CkptCostModel", "checkpoint_bytes", "grid_event_cost_s",
+           "manifest_bytes", "tree_bytes"}
+    missing = [k for k in ref.__all__ if k not in a14
+               and not hasattr(port, k)]
+    assert not missing, missing
+    assert set(ref.__all__) - a14 <= set(port.__all__)
 
 
 def test_pid_gains_come_from_the_constants():
