@@ -4,6 +4,7 @@
     python3 chip_smoke.py
     python3 chip_smoke.py --flash-only   # build and flash_attention only
     python3 chip_smoke.py --ssd-only     # build and ssd_scan only
+    python3 chip_smoke.py --train-only   # build, flash_bwd and train only
 
 Phases, each printing one JSON line; any failure ends the run with a
 nonzero exit and no result line:
@@ -59,6 +60,28 @@ nonzero exit and no result line:
               zamba2-2.7b at full width and depth: exactly 54 ssd_scan and
               9 flash_attention launches per forward; decode against
               forward at S = 256
+  flash_bwd   flash_attention's two backward kernels (flash_bwd_dq,
+              flash_bwd_dkdv) against autograd through the plain version
+              (f32 1e-4, bf16 2e-2) at qwen2-1.5b's call (2, 4096, 12, 2,
+              128) bf16 causal and at small and odd shapes (head dims 64
+              and 80, windows, S not a multiple of 64, Sq > Sk), the
+              forward's LSE against the plain one; at qwen2-1.5b's call
+              each kernel's cold-L2 device time beside its bound (3 and 4
+              products over the visible pairs; the pair's 5 products are
+              257.7 GFLOP, 0.261 ms), the plain version's backward and
+              scaled_dot_product_attention's backward (the yardstick)
+  train       the Trainer at full qwen2-1.5b width and depth (bf16 compute
+              over f32 parameters, remat "dots", AdamW on the card) for 8
+              steps of (2, 2048) tokens with a GridPilot attached and an
+              FFR trigger after step 3: fails unless every loss is finite,
+              steps were shed with an ffr_shed event, and each run step
+              launched the attention forward 56 times (twice per layer
+              under "dots") and each backward kernel 28 times; ms per
+              step, tokens/s, peak memory, one profiled step's device time,
+              busy share and top kernels; a 2-layer cut through the kernels
+              against the plain versions (2e-2 norm-relative per leaf);
+              smollm-135m at full width checkpointed after 4 steps and
+              restarted to 6 against an unbroken run (1e-5)
   engine      engine_rollout(reduce="summary") on the full E9 batch (288
               scenarios, 6 countries x 3 seeds x 2 products x 4 bands x 2
               event draws) over 24 h, or the longest whole number of hours
@@ -256,6 +279,11 @@ def profile_calls(torch, fn, reps, match=()):
                  key=lambda e: e.self_cpu_time_total, reverse=True)[:5]
     return {
         "device_us_per_call": sum(dev_us(e) for e in kernels) / reps,
+        # each kernel's mean per launch times its launches per call
+        # rounded, which a dropped event does not move
+        "rounded_us_per_call": sum(
+            dev_us(e) / max(e.count, 1) * round(e.count / reps)
+            for e in kernels),
         "matched_us_per_call": {m: sum(dev_us(e) for e in kernels
                                        if m in e.key) / reps
                                 for m in match},
@@ -1686,6 +1714,407 @@ def phase_reserve(torch, engine):
           "seconds": time.perf_counter() - t_phase})
 
 
+# ---------------------------------------------------------------------------
+# Training: flash_attention's backward kernels and the trainer
+# ---------------------------------------------------------------------------
+
+# the backward's gradients against autograd through the plain version
+FLASH_BWD_TOL = {"float32": dict(atol=1e-4, rtol=1e-4),
+                 "bfloat16": dict(atol=2e-2, rtol=2e-2)}
+# products of the backward over the visible pairs: flash_bwd_dq recomputes
+# S and does dP and dq (3), flash_bwd_dkdv S, dP, dv and dk (4); the least
+# work of the whole gradient is 5 (S, dP, dq, dk, dv), 2.5x the forward's
+FLASH_BWD_PRODUCTS = {"flash_bwd_dq": 3, "flash_bwd_dkdv": 4, "pair": 5}
+TRAIN_SHAPE = (2, 2048)            # global batch x seq of the train phase
+TRAIN_STEPS = 8
+TRAIN_TRIGGER_AFTER = 3            # fire_test_trigger after this step
+TRAIN_ISLAND_PORT = 47681          # UDP port of the train phase's island
+TRAIN_CUT_LAYERS = 2               # the kernels-vs-plain check's depth
+TRAIN_CUT_REL = 2e-2               # bf16, norm-relative per leaf
+CKPT_ARCH, CKPT_SHAPE = "smollm-135m", (2, 512)
+CKPT_STEPS, CKPT_RESTART_STEPS = 4, 6
+CKPT_LOSS_RTOL = 1e-5
+
+
+def flash_bwd_cases():
+    """(shape (B, S, H, Hkv, D), dtype name, window, Sk or None) of the
+    backward check: qwen2-1.5b's call, then small and odd shapes in both
+    dtypes -- head dims 64 and 80, windows, S not a multiple of the
+    64-row tiles, Sq > Sk."""
+    return ([(PREFILL_SHAPE, "bfloat16", 0, None)]
+            + [(shape, dt, w, None)
+               for shape, w in (((2, 256, 4, 2, 64), 0),
+                                ((1, 200, 6, 2, 80), 24),
+                                ((1, 300, 12, 2, 128), 0),
+                                ((1, 1000, 12, 2, 128), 100))
+               for dt in ("float32", "bfloat16")]
+            + [((1, 256, 4, 2, 64), "bfloat16", 0, 100)])
+
+
+def flash_bwd_bound(shape, products, window=0):
+    """(ms, bound_by) of ``products`` bf16 products over the visible pairs
+    against reading q, k, v, o, dO and the LSE once and writing dq, dk,
+    dv once."""
+    b, s, h, hkv, d = shape
+    _, _, fwd_flops, _ = flash_bound_ms(shape, "bfloat16", window)
+    flops = fwd_flops / 2 * products        # the forward is 2 products
+    nbytes = 2 * b * s * d * (3 * h + 2 * hkv) + 2 * b * s * d * (
+        h + 2 * hkv) + 4 * b * h * s
+    t_ops = flops / TENSOR_CORE_BF16_FLOP_S
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    return max(t_ops, t_bytes) * 1e3, \
+        "operations" if t_ops >= t_bytes else "bytes"
+
+
+def plain_grads(torch, q, k, v, do, window):
+    from repro_torch.kernels import flash_attention as fa
+    leaves = [x.detach().clone().requires_grad_(True) for x in (q, k, v)]
+    out = fa.flash_attention_ref(*leaves, causal=True, window=window)
+    return torch.autograd.grad(out, leaves, do)
+
+
+def time_flash_bwd(torch, g):
+    """Cold-L2 device times at qwen2-1.5b's call: the two kernels (per
+    kernel and together), the plain version's backward (autograd through
+    flash_attention_ref) and SDPA's backward (the yardstick; the port
+    never calls it), each through torch.autograd.grad where autograd is
+    involved."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as fa
+    shape = PREFILL_SHAPE
+
+    def one_set():
+        q, k, v = flash_inputs(torch, g, shape, torch.bfloat16)
+        do = torch.randn_like(q)
+        o, lse = fa.flash_attention_with_lse(q, k, v, causal=True)
+        return q, k, v, o, do, lse
+    first = one_set()
+    set_bytes = sum(x.numel() * x.element_size() for x in first)
+    sets = [first] + [one_set() for _ in range(
+        math.ceil(4 * l2_bytes(torch) / set_bytes) - 1)]
+
+    def kernels(q, k, v, o, do, lse):
+        return fa.flash_attention_bwd(q, k, v, o, do, lse, causal=True)
+
+    def graphs(fwd, layout):
+        out = []
+        for q, k, v, _, do, _ in sets:
+            leaves = [layout(x).detach().requires_grad_(True)
+                      for x in (q, k, v)]
+            out.append((fwd(*leaves), leaves, layout(do)))
+        return out
+
+    def grad_call(built):
+        turn = itertools.count()
+
+        def call(_i=0):
+            o, leaves, do = built[next(turn) % len(built)]
+            kept.append(torch.autograd.grad(o, leaves, do,
+                                            retain_graph=True))
+        return call
+
+    kept = []
+    prof_k = profile_calls(torch, cycled(sets, kernels, kept), 10,
+                           match=("flash_bwd_dq", "flash_bwd_dkdv"))
+    kept.clear()
+    sdpa = graphs(lambda q, k, v: F.scaled_dot_product_attention(
+        q, k, v, is_causal=True, enable_gqa=True),
+        lambda x: x.transpose(1, 2).contiguous())
+    prof_l = profile_calls(torch, grad_call(sdpa), 10)
+    kept.clear()
+    del sdpa
+    plain = graphs(lambda q, k, v: fa.flash_attention_ref(q, k, v,
+                                                          causal=True),
+                   lambda x: x)[:1]
+    prof_p = profile_calls(torch, grad_call(plain), 4)
+    kept.clear()
+    del plain, sets
+    torch.cuda.empty_cache()
+    # each kernel launches once a call: its mean per launch, which CUPTI
+    # dropping an event of the window does not move
+    per = {m: prof_k["matched_us_per_launch"][m] / 1e3
+           for m in ("flash_bwd_dq", "flash_bwd_dkdv")}
+    return {"shape": list(shape), "dtype": "bfloat16", "window": 0,
+            "ms": per, "pair_ms": sum(per.values()),
+            "ms_per_call_window": {m: v / 1e3 for m, v in
+                                   prof_k["matched_us_per_call"].items()},
+            "plain_ms": prof_p["rounded_us_per_call"] / 1e3,
+            "library_ms": prof_l["rounded_us_per_call"] / 1e3,
+            "library_kernels": prof_l["kernels"],
+            "cold_sets": math.ceil(4 * l2_bytes(torch) / set_bytes)}
+
+
+def phase_flash_bwd(torch):
+    """flash_attention's two backward kernels against autograd through the
+    plain version (f32 1e-4, bf16 2e-2) at qwen2-1.5b's call and at small
+    and odd shapes, the forward's LSE against the plain one, and their
+    device times beside the bound and SDPA's backward; returns the two
+    kernels' records of the {"kernels": ...} line."""
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import flash_attention as fa
+    t_phase = time.perf_counter()
+    g = torch.Generator(device="cuda").manual_seed(11)
+    checks, worst = [], {"flash_bwd_dq": 0.0, "flash_bwd_dkdv": 0.0}
+    for shape, dt, window, sk in flash_bwd_cases():
+        dtype = getattr(torch, dt)
+        q, k, v = flash_inputs(torch, g, shape, dtype, sk)
+        do = torch.randn(q.shape, device="cuda", generator=g).to(dtype)
+        o, lse = fa.flash_attention_with_lse(q, k, v, causal=True,
+                                             window=window)
+        got = fa.flash_attention_bwd(q, k, v, o, do, lse, causal=True,
+                                     window=window)
+        want = plain_grads(torch, q, k, v, do, window)
+        torch.cuda.synchronize()
+        errs = [float((a.float() - b.float()).abs().max())
+                for a, b in zip(got, want)]
+        for a, b in zip(got, want):
+            torch.testing.assert_close(a.float(), b.float(),
+                                       **FLASH_BWD_TOL[dt])
+        _, lse_plain = fa.flash_attention_lse_ref(q, k, v, causal=True,
+                                                  window=window)
+        lse_err = float((lse - lse_plain).abs().max())
+        torch.testing.assert_close(lse, lse_plain, atol=1e-3, rtol=1e-4)
+        worst["flash_bwd_dq"] = max(worst["flash_bwd_dq"], errs[0])
+        worst["flash_bwd_dkdv"] = max(worst["flash_bwd_dkdv"], *errs[1:])
+        checks.append({"shape": list(shape), "dtype": dt, "window": window,
+                       "sk": sk or shape[1], "max_abs_err_dq_dk_dv": errs,
+                       "lse_max_abs_err": lse_err,
+                       "tol": FLASH_BWD_TOL[dt]})
+        del q, k, v, do, o, lse, got, want
+    torch.cuda.empty_cache()
+    t = time_flash_bwd(torch, g)
+    ptxas = ptxas_by_kernel(_build.PTXAS_REPORT.get("flash_attention_bwd",
+                                                    ""))
+    recs = []
+    for name in ("flash_bwd_dq", "flash_bwd_dkdv"):
+        bound_ms, bound_by = flash_bwd_bound(PREFILL_SHAPE,
+                                             FLASH_BWD_PRODUCTS[name])
+        recs.append({
+            "name": name, "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
+            "replaces": "src/repro/kernels/flash_attention.py:139",
+            "max_abs_err": worst[name], "ms": t["ms"][name],
+            "plain_ms": t["plain_ms"], "bound_ms": bound_ms,
+            "bound_by": bound_by, "library_ms": t["library_ms"],
+            "shape": list(PREFILL_SHAPE), "dtype": "bfloat16"})
+    pair_bound, _ = flash_bwd_bound(PREFILL_SHAPE, FLASH_BWD_PRODUCTS["pair"])
+    emit({"phase": "flash_bwd", "checks": checks, **t,
+          "bound_ms": {r["name"]: r["bound_ms"] for r in recs},
+          "pair_bound_ms": pair_bound, "bound_by": "operations",
+          "pair_over_library": t["pair_ms"] / t["library_ms"],
+          "plain": "autograd through flash_attention_ref (dq, dk, dv "
+                   "together)",
+          "library": "torch.autograd.grad through scaled_dot_product_"
+                     "attention(is_causal=True, enable_gqa=True) on "
+                     "(B, H, S, D): dq, dk and dv together",
+          "ptxas": {k: v for k, v in ptxas.items() if "flash_bwd" in k
+                    and ("128" in k or "80" in k)},
+          "seconds": time.perf_counter() - t_phase})
+    return recs
+
+
+def train_launch_counters():
+    from repro_torch.kernels import flash_attention as fa
+    return {"flash_attention": fa.flash_attention,
+            "flash_bwd_dq": fa.flash_bwd_dq,
+            "flash_bwd_dkdv": fa.flash_bwd_dkdv}
+
+
+def grads_rel(torch, got, want):
+    """max over leaves of ||got - want|| / ||want||."""
+    from repro_torch._tree import leaves_with_paths
+    worst, leaf = 0.0, None
+    wl = dict(leaves_with_paths(want))
+    for path, g in leaves_with_paths(got):
+        w = wl[path].float()
+        r = float((g.float() - w).norm() / w.norm().clamp_min(1e-30))
+        if r > worst:
+            worst, leaf = r, "/".join(path)
+    return worst, leaf
+
+
+def train_cut_check(torch, cfg):
+    """A TRAIN_CUT_LAYERS-layer cut at full width: the first step's loss
+    and gradients through the kernels and through the plain versions."""
+    import dataclasses
+    from repro_torch.data.tokens import TokenPipeline
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ops
+    from repro_torch.models import build_model
+    from repro_torch.train.step import loss_and_grads
+    cut = dataclasses.replace(cfg, num_layers=TRAIN_CUT_LAYERS)
+    model = build_model(cut, device="cuda")
+    params = model.init(0)
+    b, s = TRAIN_SHAPE
+    batch = TokenPipeline(b, s, cut.vocab_size, device="cuda").batch_at(0)
+    counters = train_launch_counters()
+    before = {k: c.launches for k, c in counters.items()}
+    loss_k, _, grads_k = loss_and_grads(model, params, batch)
+    launched = {k: c.launches - before[k] for k, c in counters.items()}
+    kernel = ops.flash_attention
+    ops.flash_attention = fa.flash_attention_ref
+    try:
+        loss_p, _, grads_p = loss_and_grads(model, params, batch)
+    finally:
+        ops.flash_attention = kernel
+    torch.cuda.synchronize()
+    rel, leaf = grads_rel(torch, grads_k, grads_p)
+    loss_rel = abs(float(loss_k) - float(loss_p)) / abs(float(loss_p))
+    if not (rel <= TRAIN_CUT_REL and loss_rel <= TRAIN_CUT_REL):
+        raise RuntimeError(f"train: the {TRAIN_CUT_LAYERS}-layer cut's "
+                           f"kernels miss the plain versions: loss "
+                           f"{loss_rel}, gradient {rel} at {leaf}")
+    if launched["flash_bwd_dq"] != TRAIN_CUT_LAYERS or \
+            launched["flash_bwd_dkdv"] != TRAIN_CUT_LAYERS:
+        raise RuntimeError(f"train: the cut's backward launched {launched}")
+    return {"layers": TRAIN_CUT_LAYERS, "loss_kernels": float(loss_k),
+            "loss_plain": float(loss_p), "loss_rel_err": loss_rel,
+            "grad_rel_err_max": rel, "grad_rel_err_leaf": leaf,
+            "tol_rel": TRAIN_CUT_REL, "launches": launched}
+
+
+def ckpt_restart_check(torch):
+    """smollm-135m at full width: 4 steps with a checkpoint directory, a
+    new trainer that restores and runs to 6, against an unbroken run to 6
+    (its losses at steps 4-5, the 5th and 6th steps, within 1e-5)."""
+    import shutil
+    import tempfile
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.train.trainer import Trainer, TrainerConfig
+    cfg = get_cfg(CKPT_ARCH)
+    shape = ShapeConfig("smoke_ckpt", CKPT_SHAPE[1], CKPT_SHAPE[0], "train")
+    root = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+    t0 = time.perf_counter()
+    try:
+        def run(steps, ckpt_dir):
+            t = Trainer(cfg, shape, TrainerConfig(
+                steps=steps, ckpt_dir=ckpt_dir, log_every=0), device="cuda")
+            return t, t.train()
+        run(CKPT_STEPS, root)
+        t2, out2 = run(CKPT_RESTART_STEPS, root)
+        _, full = run(CKPT_RESTART_STEPS, None)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    restarted = [h["loss"] for h in out2["history"]]
+    unbroken = [h["loss"] for h in full["history"][CKPT_STEPS:]]
+    restored = any(e["event"] == "restored" for e in t2.events)
+    steps = [h["step"] for h in out2["history"]]
+    ok = restored and steps == list(range(CKPT_STEPS, CKPT_RESTART_STEPS)) \
+        and np.allclose(restarted, unbroken, rtol=CKPT_LOSS_RTOL, atol=0)
+    if not ok:
+        raise RuntimeError(f"train: the restart did not continue the run: "
+                           f"restored {restored}, steps {steps}, losses "
+                           f"{restarted} against {unbroken}")
+    return {"arch": CKPT_ARCH, "batch": CKPT_SHAPE[0], "seq": CKPT_SHAPE[1],
+            "steps": [CKPT_STEPS, CKPT_RESTART_STEPS],
+            "restarted_losses": restarted, "unbroken_losses": unbroken,
+            "rtol": CKPT_LOSS_RTOL, "restored_event": restored,
+            "seconds": time.perf_counter() - t0}
+
+
+def phase_train(torch):
+    """The Trainer at full qwen2-1.5b width and depth (bf16 compute over
+    f32 parameters, remat "dots", random weights from seed 0, AdamW state
+    on the card) for TRAIN_STEPS steps of TRAIN_SHAPE tokens with a port
+    GridPilot attached and an FFR trigger fired mid-run; then the
+    2-layer kernels-vs-plain check and the smollm-135m restart check.
+    Returns each kernel's launches in the trainer's run."""
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.core.controller import GridPilot
+    from repro_torch.core.plant import train_step_cost
+    from repro_torch.grid.signals import make_grid
+    from repro_torch.train.trainer import Trainer, TrainerConfig
+    t_phase = time.perf_counter()
+    cfg = get_cfg("qwen2-1.5b")
+    b, s = TRAIN_SHAPE
+    shape = ShapeConfig("smoke_train", s, b, "train")
+    gp = GridPilot(n_hosts=1, chips_per_host=1,
+                   island_port=TRAIN_ISLAND_PORT, device="cuda")
+    try:
+        grid = make_grid("DE", 24)
+        plan = gp.hourly_plan(grid.ci, grid.t_amb)
+        trainer = Trainer(cfg, shape, TrainerConfig(
+            steps=TRAIN_STEPS, log_every=0), gridpilot=gp, device="cuda")
+        params, opt = trainer.init_state()
+        torch.cuda.synchronize()
+
+        def on_step(step, metrics):
+            if step == TRAIN_TRIGGER_AFTER:
+                gp.fire_test_trigger()
+                time.sleep(0.05)  # the UDP trigger reaches the island
+
+        counters = train_launch_counters()
+        torch.cuda.reset_peak_memory_stats()
+        for c in counters.values():
+            c.launches = 0
+        t0 = time.perf_counter()
+        out = trainer.train(params, opt, on_step=on_step)
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t0
+        launches = {k: c.launches for k, c in counters.items()}
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        params, opt = out["params"], out["opt"]
+        hist, skipped = out["history"], out["skipped"]
+        losses = [h["loss"] for h in hist]
+        runs = len(hist)
+        per_fwd = 2 if cfg.plan.remat in ("dots", "full") else 1
+        want = {"flash_attention": runs * cfg.num_layers * per_fwd,
+                "flash_bwd_dq": runs * cfg.num_layers,
+                "flash_bwd_dkdv": runs * cfg.num_layers}
+        shed = any(e["event"] == "ffr_shed" for e in out["events"])
+        if not all(np.isfinite(losses)) or not out["skipped"] > 0 or \
+                not shed or launches != want:
+            raise RuntimeError(
+                f"train: losses {losses}, skipped {out['skipped']}, "
+                f"ffr_shed {shed}, launches {launches} (expected {want})")
+        # where a step's time goes: one more step under the profiler
+        batch = trainer._pipeline().batch_at(TRAIN_STEPS)
+        step_fn = trainer.bundle.step_fn
+        t1 = time.perf_counter()
+        step_fn(params, opt, batch, TRAIN_STEPS)
+        torch.cuda.synchronize()
+        step_wall_ms = (time.perf_counter() - t1) * 1e3
+        prof = profile_calls(
+            torch, lambda i=0: step_fn(params, opt, batch, TRAIN_STEPS + 1),
+            1, match=("flash_fwd", "flash_bwd_dq", "flash_bwd_dkdv"))
+    finally:
+        gp.close()
+    del params, opt, out, trainer
+    torch.cuda.empty_cache()
+    flops, nbytes = train_step_cost(cfg, b, s)
+    dts = [h["dt"] for h in hist]
+    ms = statistics.median(dts[1:]) * 1e3
+    cut = train_cut_check(torch, cfg)
+    torch.cuda.empty_cache()
+    restart = ckpt_restart_check(torch)
+    emit({"phase": "train", "arch": cfg.name, "params": cfg.param_count(),
+          "batch": b, "seq": s, "steps": TRAIN_STEPS, "run_steps": runs,
+          "skipped": skipped,
+          "cut": {"batch_x_seq": [b, s], "reference_train_4k": [256, 4096],
+                  "why": "one card; the reference's train_4k is 256 x "
+                         "4096 on a pod"},
+          "compute_dtype": "bfloat16", "param_dtype": "float32",
+          "remat": cfg.plan.remat, "plan": {"mu": plan.mu, "rho": plan.rho},
+          "losses": losses, "ms_per_step": ms,
+          "step_ms": [d * 1e3 for d in dts], "wall_s": wall_s,
+          "tokens_per_s": b * s / (ms * 1e-3), "peak_gb": peak_gb,
+          "launches": launches, "launches_expected": want,
+          "launches_per_step": {k: v / runs for k, v in launches.items()},
+          "profiled_step_wall_ms": step_wall_ms,
+          "device_ms_per_step": prof["device_us_per_call"] / 1e3,
+          "busy_share": prof["device_us_per_call"] / 1e3 / step_wall_ms,
+          "kernel_device_ms": {k: v / 1e3 for k, v in
+                               prof["matched_us_per_call"].items()},
+          "launches_per_profiled_step": prof["launches_per_call"],
+          "top_kernels_us": prof["kernels"],
+          "model_tflop_per_step": flops / 1e12,
+          "model_tflop_s": flops / (ms * 1e-3) / 1e12,
+          "mfu_vs_989": flops / (ms * 1e-3) / TENSOR_CORE_BF16_FLOP_S,
+          "cut_check": cut, "restart_check": restart,
+          "seconds": time.perf_counter() - t_phase})
+    return launches
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1706,6 +2135,12 @@ def main() -> int:
     if "--ssd-only" in sys.argv[1:]:
         # the build and ssd_scan's kernel phase alone; no result line
         phase_ssd_kernel(torch)
+        return 0
+    if "--train-only" in sys.argv[1:]:
+        # the build, the backward kernels' phase and the train phase
+        # alone; no result line
+        phase_flash_bwd(torch)
+        phase_train(torch)
         return 0
     pid_rec = phase_kernel(torch)
     flash_rec = phase_flash_kernel(torch)
@@ -1744,6 +2179,13 @@ def main() -> int:
                             params, 256, hybrid)
     del params
     free()
+    bwd_recs = phase_flash_bwd(torch)
+    free()
+    train_launches = phase_train(torch)
+    for rec in bwd_recs:
+        rec["launches"] = train_launches[rec["name"]]
+    flash_rec["launches_train"] = train_launches["flash_attention"]
+    free()
     engine = phase_engine(torch)
     phase_cpu_vs_gpu(torch)
     phase_sweep(torch)
@@ -1753,7 +2195,7 @@ def main() -> int:
     phase_fr_latency(torch)
     phase_twin(torch)
     phase_reserve(torch, engine)
-    emit({"kernels": [pid_rec, flash_rec, ssd_rec]})
+    emit({"kernels": [pid_rec, flash_rec, ssd_rec, *bwd_recs]})
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,

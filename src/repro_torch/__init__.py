@@ -1,7 +1,8 @@
 """GridPilot in PyTorch: the port of ``repro`` for NVIDIA GPUs.
 
 The package mirrors the layout of the JAX package (``core``, ``grid``,
-``workload``, ``obs``, ``kernels``) with the same function names, written
+``workload``, ``obs``, ``kernels``, ``models``, ``optim``, ``train``,
+``ckpt``, ``data``, ``launch``) with the same function names, written
 in PyTorch idiom: plain functions on tensors whose leading scenario axis
 is written out where JAX used ``vmap``, Python loops where JAX used
 ``lax.scan``, and NamedTuple/dataclass state with tensor fields.

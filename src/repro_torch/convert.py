@@ -149,3 +149,13 @@ def decode_cache(cache: dict, device="cuda") -> dict:
            for k, v in cache.items() if k != "cur"}
     out["cur"] = int(np.asarray(cache["cur"]))
     return out
+
+
+def adamw_state(d: dict, device="cuda"):
+    """A reference ``AdamWState`` (``step``, and ``mu``/``nu`` as nested
+    dicts of numpy arrays) as the port's, the step a 0-d int32 tensor."""
+    from repro_torch.optim.adamw import AdamWState
+    dev = resolve_device(device)
+    return AdamWState(step=_t(d["step"], torch.int32, dev),
+                      mu=model_params(d["mu"], dev),
+                      nu=model_params(d["nu"], dev))

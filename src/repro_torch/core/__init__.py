@@ -28,7 +28,7 @@ _EXPORTS = {
     "plan_from_operating_point": "controller",
     # per-tier building blocks
     "PlantState": "plant", "init_plant": "plant", "plant_step": "plant",
-    "power_model": "plant",
+    "power_model": "plant", "load_from_cost_analysis": "plant",
     "PIDState": "pid", "init_pid": "pid", "pid_step": "pid",
     "pid_rollout": "pid", "pid_rollout_batch": "pid",
     "RLSState": "ar4", "init_rls": "ar4", "predict": "ar4",

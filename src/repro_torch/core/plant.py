@@ -257,3 +257,57 @@ def iterations_per_joule(workload: str, cap, f_request):
         p_avg = BURSTY_DUTY * p_eff + (1 - BURSTY_DUTY) * (P_IDLE + 15.0)
         return r / p_avg
     return throughput(workload, f_eff) / p_eff
+
+
+# ---------------------------------------------------------------------------
+# The card: drive the plant from a training step's cost
+# ---------------------------------------------------------------------------
+# The counterpart of the reference's "TPU adaptation", with the H100's own
+# peaks (NVIDIA's data sheet, SXM part, dense; rated at the full 700 W
+# power limit), not a TPU's.
+
+H100_PEAK_FLOPS = 989e12    # bf16 tensor cores, dense
+H100_HBM_BW = 3.35e12       # B/s
+
+
+def load_from_cost_analysis(flops_per_step: float, bytes_per_step: float,
+                            step_time_s: float) -> float:
+    """Map a step's roofline occupancy onto plant utilisation:
+    L = max(compute occupancy, memory occupancy) against one H100's
+    peaks -- the busier unit pins board power, which is what the
+    facility meter sees."""
+    if step_time_s <= 0:
+        return 1.0
+    occ_c = flops_per_step / (H100_PEAK_FLOPS * step_time_s)
+    occ_m = bytes_per_step / (H100_HBM_BW * step_time_s)
+    return float(np.clip(max(occ_c, occ_m), 0.0, 1.0))
+
+
+def attention_pairs(seq: int, window: int = 0) -> int:
+    """(row, column) pairs one head's causal (and windowed) attention
+    needs over a sequence."""
+    if window <= 0 or window >= seq:
+        return seq * (seq + 1) // 2
+    return window * (window + 1) // 2 + (seq - window) * window
+
+
+def train_step_cost(cfg, batch: int, seq: int) -> tuple[float, float]:
+    """(FLOPs, bytes) of one training step of a dense-family ``cfg`` on
+    (batch, seq) tokens, from the config's shapes.
+
+    FLOPs: 6 N T for the weight products (N the weights that enter a
+    matrix product -- the projections, the MLP and the (tied) unembedding;
+    T = batch x seq tokens) plus 3 x the attention forward's 4 B H D per
+    visible pair per layer (the backward's products being twice the
+    forward's; the plain attention computes all seq^2 pairs).  Bytes: AdamW's float32 traffic, each
+    parameter, gradient and both moments read once and the parameter and
+    moments written once (28 bytes per parameter).
+    """
+    d, h, hd = cfg.d_model, cfg.n_heads, cfg.resolved_head_dim
+    qf, kf = h * hd, cfg.n_kv_heads * hd
+    per_layer = d * qf + 2 * d * kf + qf * d + 3 * d * cfg.d_ff
+    n_mm = cfg.num_layers * per_layer + cfg.padded_vocab * d
+    tokens = batch * seq
+    pairs = attention_pairs(seq, cfg.sliding_window)
+    attn = 3 * 4 * batch * h * hd * pairs * cfg.num_layers
+    return 6.0 * n_mm * tokens + attn, 28.0 * cfg.param_count()

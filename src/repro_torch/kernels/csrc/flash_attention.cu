@@ -8,7 +8,9 @@
 //                * v[b, j, h / (H / Hkv)]
 // over the columns j < Sk that the masks leave: causal (i >= j) and, for
 // window > 0, i - j < window.  The running (acc, m, l) are float32; the
-// output has the input's type.
+// output has the input's type.  When the caller passes an lse buffer (a
+// call whose output autograd will differentiate), each row's log-sum-exp
+// m + log l goes there too, for the backward in flash_attention_bwd.cu.
 //
 // What bounds it on this card: operations.  At the prefill shape
 // (2, 4096, 12, 2, 128) in bf16 a causal call does 4*B*H*D*(S(S+1)/2)
@@ -61,6 +63,7 @@ namespace {
 
 constexpr float kNegInf = -1e30f;  // the TPU kernel's finite mask value
 constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
 
 struct Strides {  // element strides of (B, S, H) of q, k, v, o; d is 1
   long long qb, qs, qh, kb, ks, kh, vb, vs, vh, ob, os, oh;
@@ -69,6 +72,9 @@ struct Strides {  // element strides of (B, S, H) of q, k, v, o; d is 1
 struct Problem {
   int Sq, Sk, group, causal, window;
   float scale;
+  // (B, H, Sq) float32: each row's log-sum-exp of its scaled scores, for
+  // the backward (flash_attention_bwd.cu); null when nothing needs it
+  float* lse;
 };
 
 // First and one-past-last kv tile that a q-tile [q0, q0 + bq) can see.
@@ -201,6 +207,12 @@ __global__ void __launch_bounds__(kF32Threads)
     }
   }
 
+  // m is of the scaled scores.  The row's LSE goes out first, its index
+  // from the block and thread indices: computed after the output's store
+  // it kept one more value live and ptxas spilled 8 bytes at D = 80.
+  if (p.lse != nullptr && sub == 0 && qrow < p.Sq)
+    p.lse[(blockIdx.z * gridDim.y + blockIdx.y) * p.Sq + blockIdx.x * BQ +
+          (threadIdx.x >> 2)] = m + __logf(l);  // B H Sq < 2^31: checked
   if (qrow < p.Sq) {
     const float inv = 1.f / fmaxf(l, 1e-20f);
     float* ob = o + b * st.ob + qrow * st.os + h * st.oh;
@@ -740,6 +752,16 @@ __global__ void __launch_bounds__(kTmaThreads, 1)
     l1 += __shfl_xor_sync(0xffffffffu, l1, x);
   }
   const float inv0 = 1.f / fmaxf(l0, 1e-20f), inv1 = 1.f / fmaxf(l1, 1e-20f);
+  if (p.lse != nullptr && tg == 0) {
+    // l sums exp2(s scale2 - mu) with mu the final reference of the row;
+    // a row that saw no key (l = 0) gets +inf, so every P of it is 0
+    const float kInf = __int_as_float(0x7f800000);
+    float* lb = p.lse + (static_cast<long long>(b) * H + h) * p.Sq;
+    const float mu0 = (m0 == kNegInf ? 0.f : m0) * scale2;
+    const float mu1 = (m1 == kNegInf ? 0.f : m1) * scale2;
+    if (r0 < p.Sq) lb[r0] = l0 > 0.f ? (mu0 + log2f(l0)) * kLn2 : kInf;
+    if (r1 < p.Sq) lb[r1] = l1 > 0.f ? (mu1 + log2f(l1)) * kLn2 : kInf;
+  }
   __nv_bfloat16* ob = out.o + b * out.ob + h * out.oh;
 #pragma unroll
   for (int n = 0; n < NO; ++n) {
@@ -879,18 +901,22 @@ int info_of(int dtype, int* out) {
 // dtype: 0 float32, 1 bfloat16.  Strides are in elements; the last
 // dimension of every tensor is contiguous, and the caller has checked
 // 16-byte alignment of the pointers and of the (B, S, H) strides (the
-// bf16 kernel's tensor maps need exactly that).
+// bf16 kernel's tensor maps need exactly that).  lse, when not null, is a
+// packed (B, H, Sq) float32 tensor that receives each row's log-sum-exp
+// of its scaled scores over the visible columns (+inf in bf16, about
+// -1e30 in float32, for a row that sees no key).
 extern "C" int flash_attention_launch(
     const void* q, const void* k, const void* v, void* o, int dtype, int B,
     int Sq, int Sk, int H, int Hkv, int D, long long qb, long long qs,
     long long qh, long long kb, long long ks, long long kh, long long vb,
     long long vs, long long vh, long long ob, long long os, long long oh,
-    int causal, int window, float scale, void* stream) {
+    int causal, int window, float scale, float* lse, void* stream) {
   if (B <= 0 || Sq <= 0 || Sk <= 0 || Hkv <= 0 || H % Hkv != 0 ||
-      (dtype != 0 && dtype != 1) || H > 65535 || B > 65535)
+      (dtype != 0 && dtype != 1) || H > 65535 || B > 65535 ||
+      (lse != nullptr && static_cast<long long>(B) * H * Sq >= (1LL << 31)))
     return static_cast<int>(cudaErrorInvalidValue);
   const Strides st{qb, qs, qh, kb, ks, kh, vb, vs, vh, ob, os, oh};
-  const Problem p{Sq, Sk, H / Hkv, causal, window, scale};
+  const Problem p{Sq, Sk, H / Hkv, causal, window, scale, lse};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err;
   switch (D) {

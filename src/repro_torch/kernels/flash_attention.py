@@ -1,5 +1,5 @@
-"""Blocked online-softmax attention forward: the CUDA kernel and its plain
-version.
+"""Blocked online-softmax attention: the CUDA forward and backward kernels,
+their plain versions, and the autograd Function that joins them.
 
 Port of the Pallas TPU kernel ``repro/kernels/flash_attention.py`` (route:
 CUDA C++ for sm_90a, ``csrc/flash_attention.cu``, bound with ctypes).  At
@@ -20,6 +20,20 @@ averages every value row; the model never makes such a call (Sq == Sk).
 anything else; :func:`flash_attention_ref` is the same function as dense
 masked softmax in float32 (``repro/kernels/ref.py::attention_ref``), the
 CPU path and the card's yardstick.
+
+The gradient (``csrc/flash_attention_bwd.cu``, new in the port: the TPU
+kernel has none, the reference lets XLA differentiate
+``blocked_attention``) is two kernels after FlashAttention-2:
+:func:`flash_bwd_dq` (delta = rowsum(dO o) and dq) and
+:func:`flash_bwd_dkdv` (dk and dv, summed over each GQA group with no
+atomics).  Both recompute the probabilities from the row log-sum-exp that
+the forward writes when asked (:func:`flash_attention_with_lse`).
+:class:`FlashAttentionFn` is the ``torch.autograd.Function`` whose
+forward is the forward kernel and whose backward is those two; its plain
+counterpart is autograd through :func:`flash_attention_ref`, and
+:func:`flash_attention_bwd_ref` writes out the formulas the kernels
+compute, for the CPU tests.  A row that sees no key gets a zero gradient
+from the kernels.
 """
 from __future__ import annotations
 
@@ -69,26 +83,84 @@ def flash_attention_ref(q, k, v, *, causal: bool = True, window: int = 0):
     """Plain torch version: dense masked softmax in float32, output in
     q.dtype."""
     check_args(q, k, v, causal=causal, window=window)
+    return _out_ref(_scores_ref(q, k, causal, window), v).to(q.dtype)
+
+
+def flash_attention_lse_ref(q, k, v, *, causal: bool = True,
+                            window: int = 0):
+    """Plain version of the forward with its row log-sum-exp: (out in
+    q.dtype, lse (B, H, Sq) float32 of the scaled scores over the visible
+    columns; -1e30 plus the log of Sk for a row that sees no key, whose
+    masked columns all weigh the same)."""
+    check_args(q, k, v, causal=causal, window=window)
+    s = _scores_ref(q, k, causal, window)
+    return _out_ref(s, v).to(q.dtype), torch.logsumexp(s, dim=-1)
+
+
+def _out_ref(s, v):
+    """softmax(s) v in float32, the kv heads repeated over their group."""
+    rep = s.shape[1] // v.shape[2]
+    return torch.einsum("bhqk,bkhd->bqhd", torch.softmax(s, dim=-1),
+                        v.float().repeat_interleave(rep, dim=2))
+
+
+def _scores_ref(q, k, causal, window):
+    """(B, H, Sq, Sk) float32 scaled scores, NEG_INF where masked."""
     sq, h, d = q.shape[1], q.shape[2], q.shape[3]
     sk, rep = k.shape[1], h // k.shape[2]
     kk = k.float().repeat_interleave(rep, dim=2)
-    vv = v.float().repeat_interleave(rep, dim=2)
     s = torch.einsum("bqhd,bkhd->bhqk", q.float(), kk) / math.sqrt(d)
-    q_pos = torch.arange(sq, device=q.device)[:, None]
-    k_pos = torch.arange(sk, device=q.device)[None, :]
-    mask = torch.ones(sq, sk, dtype=torch.bool, device=q.device)
+    return torch.where(_mask(sq, sk, causal, window, q.device), s, NEG_INF)
+
+
+def _mask(sq, sk, causal, window, device):
+    q_pos = torch.arange(sq, device=device)[:, None]
+    k_pos = torch.arange(sk, device=device)[None, :]
+    mask = torch.ones(sq, sk, dtype=torch.bool, device=device)
     if causal:
         mask &= q_pos >= k_pos
     if window > 0:
         mask &= q_pos - k_pos < window
-    s = torch.where(mask, s, NEG_INF)
-    p = torch.softmax(s, dim=-1)
-    return torch.einsum("bhqk,bkhd->bqhd", p, vv).to(q.dtype)
+    return mask
+
+
+def flash_attention_bwd_ref(q, k, v, o, do, lse, *, causal: bool = True,
+                            window: int = 0):
+    """The backward kernels' formulas as dense float32 torch: returns
+    (dq, dk, dv) in the inputs' dtype.  P = exp(s - lse) on the visible
+    pairs and 0 elsewhere, delta = rowsum(dO o), dS = P (dO v - delta),
+    dq = dS k scale, dk = dS^T q scale and dv = P^T dO, each summed over
+    the query heads of a GQA group.  Equal to autograd through
+    :func:`flash_attention_ref` wherever every row sees a key."""
+    check_args(q, k, v, causal=causal, window=window)
+    b, sq, h, d = q.shape
+    sk, hkv = k.shape[1], k.shape[2]
+    rep, scale = h // hkv, 1.0 / math.sqrt(d)
+    kk = k.float().repeat_interleave(rep, dim=2)
+    vv = v.float().repeat_interleave(rep, dim=2)
+    p = torch.where(_mask(sq, sk, causal, window, q.device),
+                    torch.exp(_scores_ref(q, k, causal, window)
+                              - lse[..., None]), 0.0)
+    dof = do.float()
+    delta = torch.einsum("bqhd,bqhd->bhq", dof, o.float())
+    dp = torch.einsum("bqhd,bkhd->bhqk", dof, vv)
+    ds = p * (dp - delta[..., None])
+    dq = torch.einsum("bhqk,bkhd->bqhd", ds, kk) * scale
+    dk = torch.einsum("bhqk,bqhd->bkhd", ds, q.float()) * scale
+    dv = torch.einsum("bhqk,bqhd->bkhd", p, dof)
+    dk = dk.reshape(b, sk, hkv, rep, d).sum(3)
+    dv = dv.reshape(b, sk, hkv, rep, d).sum(3)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
 _ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 7
              + [ctypes.c_longlong] * 12
-             + [ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_void_p])
+             + [ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_void_p,
+                ctypes.c_void_p])
+# q, k, v, o|dout, ... pointers, then dtype, B, Sq, Sk, H, Hkv, D, causal,
+# window, scale, stream (csrc/flash_attention_bwd.cu)
+_BWD_ARGTYPES = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 9
+                 + [ctypes.c_float, ctypes.c_void_p])
 
 
 def _launcher():
@@ -136,25 +208,42 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0):
     a CPU tensor, another dtype, head dim or layout, or a launch the
     runtime refuses.
     """
+    return _forward(q, k, v, causal, window, want_lse=False)[0]
+
+
+def flash_attention_with_lse(q, k, v, *, causal: bool = True,
+                             window: int = 0):
+    """The same launch (and count) as :func:`flash_attention`, which also
+    writes each row's log-sum-exp: returns (out, lse (B, H, Sq) float32;
+    +inf in bfloat16 for a row that sees no key)."""
+    return _forward(q, k, v, causal, window, want_lse=True)
+
+
+def _check_cuda(q, k, v, causal, window, name):
     dev = q.device
     if dev.type != "cuda":
-        raise ValueError(
-            f"flash_attention launches on CUDA tensors, got {dev}")
+        raise ValueError(f"{name} launches on CUDA tensors, got {dev}")
     check_args(q, k, v, causal=causal, window=window)
     if q.dtype not in DTYPES:
-        raise ValueError(f"flash_attention takes float32 or bfloat16, got "
-                         f"{q.dtype}")
+        raise ValueError(f"{name} takes float32 or bfloat16, got {q.dtype}")
+    if q.shape[3] not in HEAD_DIMS:
+        raise ValueError(f"head dim {q.shape[3]} is not one of {HEAD_DIMS}")
+    if k.shape[1] == 0:
+        raise ValueError(f"{name} needs at least one key")
+
+
+def _forward(q, k, v, causal, window, want_lse):
+    _check_cuda(q, k, v, causal, window, "flash_attention")
+    dev = q.device
     b, sq, h, d = q.shape
     sk, hkv = k.shape[1], k.shape[2]
-    if d not in HEAD_DIMS:
-        raise ValueError(f"head dim {d} is not one of {HEAD_DIMS}")
     for x, name in ((q, "q"), (k, "k"), (v, "v")):
         _check_cuda_layout(x, name, dev)
-    if sk == 0:
-        raise ValueError("flash_attention needs at least one key")
     out = torch.empty_like(q, memory_format=torch.contiguous_format)
+    lse = torch.empty(b, h, sq, device=dev, dtype=torch.float32) \
+        if want_lse else None
     if b == 0 or sq == 0 or h == 0:
-        return out
+        return out, lse
     fn = _launcher()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
@@ -162,11 +251,143 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0):
                 DTYPES[q.dtype], b, sq, sk, h, hkv, d,
                 *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
                 *out.stride()[:3], int(causal), int(window),
-                1.0 / math.sqrt(d), stream)
+                1.0 / math.sqrt(d), lse.data_ptr() if want_lse else None,
+                stream)
     if rc != 0:
         raise RuntimeError(f"flash_attention launch failed: cudaError {rc}")
     flash_attention.launches += 1
-    return out
+    return out, lse
 
 
 flash_attention.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# Backward kernels
+# ---------------------------------------------------------------------------
+
+
+def _bwd_launcher(name):
+    fn = getattr(_build.load("flash_attention_bwd"), name)
+    fn.argtypes = _BWD_ARGTYPES
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def _bwd_args(q, k, causal, window):
+    b, sq, h, d = q.shape
+    sk, hkv = k.shape[1], k.shape[2]
+    return (DTYPES[q.dtype], b, sq, sk, h, hkv, d, int(causal), int(window),
+            1.0 / math.sqrt(d))
+
+
+def _check_bwd(tensors, q, lse, name):
+    """The backward kernels read packed tensors: q's dtype and device for
+    every input, float32 (B, H, Sq) for the LSE and delta."""
+    b, sq, h, _ = q.shape
+    for x in tensors:
+        if x.device != q.device or x.dtype != q.dtype or \
+                not x.is_contiguous():
+            raise ValueError(f"{name} takes contiguous {q.dtype} tensors on "
+                             f"{q.device}, got {x.dtype} on {x.device} with "
+                             f"strides {x.stride()}")
+    for x in lse:
+        if x.shape != (b, h, sq) or x.dtype != torch.float32 or \
+                x.device != q.device or not x.is_contiguous():
+            raise ValueError(f"{name}: the LSE and delta are contiguous "
+                             f"float32 {(b, h, sq)} on {q.device}, got "
+                             f"{x.dtype} {tuple(x.shape)}")
+
+
+def flash_bwd_dq(q, k, v, o, do, lse, *, causal: bool = True,
+                 window: int = 0):
+    """Launch ``flash_bwd_dq``: every input contiguous on one CUDA device,
+    q, k, v, o and dO of one dtype, lse from the forward.  Returns (dq in
+    q's dtype, delta = rowsum(dO o) as (B, H, Sq) float32), and adds one
+    to ``flash_bwd_dq.launches``."""
+    _check_cuda(q, k, v, causal, window, "flash_bwd_dq")
+    _check_bwd((q, k, v, o, do), q, (lse,), "flash_bwd_dq")
+    if o.shape != q.shape or do.shape != q.shape:
+        raise ValueError(f"o {tuple(o.shape)} and dO {tuple(do.shape)} must "
+                         f"have q's shape {tuple(q.shape)}")
+    dq = torch.empty_like(q)
+    delta = torch.empty_like(lse)
+    fn = _bwd_launcher("flash_bwd_dq_launch")
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+                do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+                dq.data_ptr(), *_bwd_args(q, k, causal, window), stream)
+    if rc != 0:
+        raise RuntimeError(f"flash_bwd_dq launch failed: cudaError {rc}")
+    flash_bwd_dq.launches += 1
+    return dq, delta
+
+
+def flash_bwd_dkdv(q, k, v, do, lse, delta, *, causal: bool = True,
+                   window: int = 0):
+    """Launch ``flash_bwd_dkdv`` after :func:`flash_bwd_dq` (it reads that
+    kernel's delta).  Returns (dk, dv) in k's dtype, each summed over the
+    query heads of its GQA group, and adds one to
+    ``flash_bwd_dkdv.launches``."""
+    _check_cuda(q, k, v, causal, window, "flash_bwd_dkdv")
+    _check_bwd((q, k, v, do), q, (lse, delta), "flash_bwd_dkdv")
+    if do.shape != q.shape:
+        raise ValueError(f"dO {tuple(do.shape)} must have q's shape "
+                         f"{tuple(q.shape)}")
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    fn = _bwd_launcher("flash_bwd_dkdv_launch")
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+                lse.data_ptr(), delta.data_ptr(), dk.data_ptr(),
+                dv.data_ptr(), *_bwd_args(q, k, causal, window), stream)
+    if rc != 0:
+        raise RuntimeError(f"flash_bwd_dkdv launch failed: cudaError {rc}")
+    flash_bwd_dkdv.launches += 1
+    return dk, dv
+
+
+flash_bwd_dq.launches = 0
+flash_bwd_dkdv.launches = 0
+
+
+def flash_attention_bwd(q, k, v, o, do, lse, *, causal: bool = True,
+                        window: int = 0):
+    """(dq, dk, dv) of the forward's output o for its gradient dO: the two
+    backward kernels in turn, on packed copies of any strided input."""
+    q, k, v, o, do = (x.contiguous() for x in (q, k, v, o, do))
+    dq, delta = flash_bwd_dq(q, k, v, o, do, lse, causal=causal,
+                             window=window)
+    dk, dv = flash_bwd_dkdv(q, k, v, do, lse, delta, causal=causal,
+                            window=window)
+    return dq, dk, dv
+
+
+# the two halves of the Function; tests swap in the plain versions
+_fwd = flash_attention_with_lse
+_bwd = flash_attention_bwd
+
+
+class FlashAttentionFn(torch.autograd.Function):
+    """``flash_attention`` with a gradient: the forward kernel (writing
+    each row's LSE when ``need_grad``), and the two backward kernels.
+    ``ops.flash_attention`` routes every CUDA call through it; with
+    ``need_grad`` false (serving, ``no_grad``) it is the plain forward
+    launch, with no LSE written and nothing saved."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal: bool, window: int, need_grad: bool):
+        if not need_grad:
+            return flash_attention(q, k, v, causal=causal, window=window)
+        out, lse = _fwd(q, k, v, causal=causal, window=window)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.causal, ctx.window = causal, window
+        return out
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, out, lse = ctx.saved_tensors
+        dq, dk, dv = _bwd(q, k, v, out, do, lse, causal=ctx.causal,
+                          window=ctx.window)
+        return dq, dk, dv, None, None, None

@@ -3,14 +3,28 @@
 A CUDA tensor goes to the hand-written kernel, which launches or raises;
 a CPU tensor goes to the kernel's plain torch version.  Nothing falls
 back from one to the other.
+
+On the card the model kernels' outputs carry autograd through a
+``torch.autograd.Function`` each: ``FlashAttentionFn``, whose backward
+is the two hand-written backward kernels, and ``SsdScanFn``, whose
+backward raises until the scan's backward kernel exists (ROADMAP A14b).
+Under ``no_grad``, or when no input needs a gradient, the forward is the
+same single launch as before, and the forward kernel writes no LSE.  On
+the CPU autograd differentiates the plain versions as they are.
 """
 from __future__ import annotations
 
-from repro_torch.kernels.flash_attention import (
-    flash_attention as _flash_cuda, flash_attention_ref)
+import torch
+
+from repro_torch.kernels.flash_attention import (FlashAttentionFn,
+                                                 flash_attention_ref)
 from repro_torch.kernels.pid_update import (DT_S, PIDGains, pid_update_ref,
                                             pid_update as _pid_cuda)
-from repro_torch.kernels.ssd_scan import ssd_scan as _ssd_cuda, ssd_scan_ref
+from repro_torch.kernels.ssd_scan import SsdScanFn, ssd_scan_ref
+
+
+def _needs_grad(*tensors) -> bool:
+    return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
 
 
 def flash_attention(q, k, v, *, causal: bool = True, window: int = 0):
@@ -19,7 +33,8 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0):
     the kv block raises ``NotImplementedError`` on either device."""
     if q.device.type == "cpu":
         return flash_attention_ref(q, k, v, causal=causal, window=window)
-    return _flash_cuda(q, k, v, causal=causal, window=window)
+    return FlashAttentionFn.apply(q, k, v, causal, window,
+                                  _needs_grad(q, k, v))
 
 
 def pid_update(target, power, temp, integ, prev_err, gains: PIDGains, *,
@@ -38,4 +53,4 @@ def ssd_scan(x, dt, A, B, C, *, chunk: int = 256):
     must be 0 on either device."""
     if x.device.type == "cpu":
         return ssd_scan_ref(x, dt, A, B, C, chunk)[0]
-    return _ssd_cuda(x, dt, A, B, C, chunk=chunk)
+    return SsdScanFn.apply(x, dt, A, B, C, chunk)

@@ -250,3 +250,23 @@ def ssd_scan(x, dt, A, B, C, *, chunk: int = 256):
 
 
 ssd_scan.launches = 0
+
+
+class SsdScanFn(torch.autograd.Function):
+    """``ssd_scan`` as an autograd node: its forward is the kernel, and its
+    backward raises, because the scan's backward kernel is a later slice
+    of the port.  Without it a backward through the card path would give
+    x, dt, B and C a zero gradient with no error (the kernel fills a
+    ``torch.empty``, which has no ``grad_fn``).  ``ops.ssd_scan`` routes
+    every CUDA call through it; on the CPU the plain version is
+    differentiated as it is."""
+
+    @staticmethod
+    def forward(ctx, x, dt, A, B, C, chunk: int):
+        return ssd_scan(x, dt, A, B, C, chunk=chunk)
+
+    @staticmethod
+    def backward(ctx, dy):
+        raise NotImplementedError(
+            "ssd_scan has no backward kernel yet: training the SSM and "
+            "hybrid families on a card waits for ROADMAP A14b")

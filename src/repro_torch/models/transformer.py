@@ -12,17 +12,30 @@ state) in a dict of tensors that ``lm_decode_step`` updates in place, and
 the decode position ``cache["cur"]`` is a Python int, so no index waits
 on the device.
 
+Training: ``lm_loss`` is the reference's next-token cross-entropy with
+its z-loss, in float32; ``lm_forward`` returns the logits and the aux
+loss term, 0 for every ported family.  ``lm_trunk`` honours
+``cfg.plan.remat`` with ``torch.utils.checkpoint`` per layer, as the
+reference's ``jax.checkpoint`` policies do: ``"none"`` saves every
+activation, ``"full"`` recomputes the whole layer in the backward, and
+``"dots"`` saves the outputs of the matrix products that have no batch
+dimension (the projections and the MLP: ``aten.mm``) and recomputes the
+rest, attention included -- so with ``"dots"`` or ``"full"`` the
+attention forward runs twice per training step.  Remat moves memory,
+never the numbers.
+
 The MoE, enc-dec and VLM families are a later slice of the port: their
 configs raise ``NotImplementedError`` naming the ROADMAP item.  With them
 go the reference's MoE aux loss and VLM frontend embeddings, which the
-ported families do not have: here ``lm_forward`` returns the logits
-alone.
+ported families do not have.
 """
 from __future__ import annotations
 
+import functools
 import math
 
 import torch
+from torch.utils import checkpoint as ckpt_lib
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.kernels import ops
@@ -31,6 +44,9 @@ from repro_torch.models.layers import ParamSpec, TensorSpec, apply_rope, \
     gated_mlp, rmsnorm
 
 PORTED = ("dense", "ssm", "hybrid")
+AUX_LOSS_WEIGHT = 0.01
+Z_LOSS_WEIGHT = 1e-4
+REMAT_POLICIES = ("none", "dots", "full")
 
 
 def check_family(cfg: ArchConfig) -> None:
@@ -194,17 +210,54 @@ def embed_tokens(params, tokens, dtype):
     return params["embed"][tokens].to(dtype)
 
 
+def _dots_policy(ctx, func, *args, **kwargs):
+    """Save what the reference's ``dots_with_no_batch_dims_saveable``
+    saves: products without a batch dimension (``aten.mm``, which every
+    2-D weight product becomes), and recompute everything else."""
+    if func is torch.ops.aten.mm.default:
+        return ckpt_lib.CheckpointPolicy.MUST_SAVE
+    return ckpt_lib.CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _remat(fn, policy: str):
+    """``fn`` under the activation-checkpoint policy (see the module
+    docstring); the identity where no gradient is recorded."""
+    if policy not in REMAT_POLICIES:
+        raise ValueError(f"remat policy {policy!r} is not one of "
+                         f"{REMAT_POLICIES}")
+    if policy == "none":
+        return fn
+    context_fn = (functools.partial(
+        ckpt_lib.create_selective_checkpoint_contexts, _dots_policy)
+        if policy == "dots" else ckpt_lib.noop_context_fn)
+
+    def wrapped(*args):
+        if not torch.is_grad_enabled():
+            return fn(*args)
+        return ckpt_lib.checkpoint(fn, *args, use_reentrant=False,
+                                   context_fn=context_fn)
+    return wrapped
+
+
 def lm_trunk(cfg: ArchConfig, params, x, positions):
-    """Embeddings -> final norm. x: (B,S,D)."""
+    """Embeddings -> final norm. x: (B,S,D).  Each layer (each Mamba-2
+    layer of the hybrid family, as in the reference) runs under
+    ``cfg.plan.remat``."""
+    layer = _remat(functools.partial(_layer, cfg), cfg.plan.remat)
+    # one unbind per stacked leaf: its backward stacks the layers'
+    # gradients once, where indexing layer by layer would add a
+    # zero-filled copy of the whole stack per layer
+    stacks = {k: p.unbind(0) for k, p in params["layers"].items()}
     if cfg.family == "hybrid":
         for c in range(cfg.num_layers // cfg.hybrid_period):
             x = shared_block(cfg, params["shared"], x, positions,
                              cfg.sliding_window)
+            chunk = {k: v[c].unbind(0) for k, v in stacks.items()}
             for j in range(cfg.hybrid_period):
-                x = _layer(cfg, x, _layer_params(params, c, j), positions)
+                x = layer(x, {k: v[j] for k, v in chunk.items()}, positions)
     else:
         for i in range(cfg.num_layers):
-            x = _layer(cfg, x, _layer_params(params, i), positions)
+            x = layer(x, {k: v[i] for k, v in stacks.items()}, positions)
     return rmsnorm(x, params["final_norm"], cfg.norm_eps)
 
 
@@ -221,6 +274,9 @@ def lm_logits(cfg, params, x):
 
 def lm_forward(cfg, params, tokens, *, dtype=torch.bfloat16,
                last_only=False):
+    """Returns (logits (B, S, V) -- (B, 1, V) with ``last_only`` --, aux
+    loss): the aux term is the MoE router's in the reference, a float32
+    0 for the ported families."""
     x = embed_tokens(params, tokens, dtype)
     b, s = x.shape[:2]
     positions = torch.arange(s, device=x.device)[None, :].expand(b, s)
@@ -229,7 +285,24 @@ def lm_forward(cfg, params, tokens, *, dtype=torch.bfloat16,
         # serving prefill wants only the next-token distribution: slice
         # BEFORE the unembed so the (B, S, V) logits never materialise.
         x = x[:, -1:, :]
-    return lm_logits(cfg, params, x)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    return lm_logits(cfg, params, x), aux
+
+
+def lm_loss(cfg, params, batch, *, dtype=torch.bfloat16):
+    """Next-token CE (+ z-loss + aux), in float32.  batch: tokens (B, S).
+    Returns (loss, {"ce", "zloss", "aux"}), each a 0-d tensor."""
+    tokens = batch["tokens"]
+    logits, aux = lm_forward(cfg, params, tokens, dtype=dtype)
+    # shift: predict tokens[:, 1:]
+    logits = logits[:, :-1].float()
+    targets = tokens[:, 1:].long()
+    logz = torch.logsumexp(logits, dim=-1)
+    tgt = torch.gather(logits, -1, targets[..., None])[..., 0]
+    ce = torch.mean(logz - tgt)
+    zloss = torch.mean(logz ** 2)
+    loss = ce + Z_LOSS_WEIGHT * zloss + AUX_LOSS_WEIGHT * aux
+    return loss, {"ce": ce, "zloss": zloss, "aux": aux}
 
 
 # ---------------------------------------------------------------------------

@@ -1,4 +1,8 @@
-"""Optimisers of the port: the Tier-3 bidder (``bidding``)."""
+"""Optimisers of the port: AdamW and its schedule (``adamw``,
+``schedule``), int8 error-feedback compression (``compress``) and the
+Tier-3 bidder (``bidding``)."""
+from repro_torch.optim.adamw import (AdamWState, adamw_init, adamw_update,
+                                     global_norm)
 from repro_torch.optim.bidding import (
     BidConfig,
     BidEnsemble,
@@ -8,6 +12,16 @@ from repro_torch.optim.bidding import (
     ensemble_objective,
     optimize_bids,
 )
+from repro_torch.optim.compress import (CompressionState, compress_init,
+                                        dequantize_int8, ef_compress,
+                                        ef_decompress, quantize_int8)
+from repro_torch.optim.schedule import warmup_cosine
 
-__all__ = ["BidConfig", "BidEnsemble", "BidResult", "BidState",
-           "bids_for_batch", "ensemble_objective", "optimize_bids"]
+__all__ = [
+    "AdamWState", "adamw_init", "adamw_update", "global_norm",
+    "warmup_cosine",
+    "CompressionState", "compress_init", "ef_compress", "ef_decompress",
+    "quantize_int8", "dequantize_int8",
+    "BidConfig", "BidEnsemble", "BidResult", "BidState", "bids_for_batch",
+    "ensemble_objective", "optimize_bids",
+]

@@ -35,6 +35,8 @@ EVENT_RECOVERY = 9
 BID_ENSEMBLE = 10      # the bidder's forecast ensemble: (seed, hour, member)
 BID_PROPOSAL = 11      # the bidder's CEM proposals: (seed, hour, iteration)
 SERVICE_LOAD = 12      # the service's live demand noise: (seed, second, host)
+TOKEN_ZIPF = 13        # the synthetic LM batch's tokens: (seed, step, lane)
+TOKEN_REPEAT = 14      # its repeat-the-previous-token flags
 
 
 def _mul32(x: torch.Tensor, c: int) -> torch.Tensor:

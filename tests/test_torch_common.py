@@ -123,7 +123,9 @@ def _port_sources():
     for sub in ("optim/bidding.py", "service/state.py", "service/server.py",
                 "service/loadgen.py", "core/twin.py", "core/reserve.py",
                 "core/dispatch.py", "core/island.py", "obs/report.py",
-                "experiments.py"):
+                "experiments.py", "train/trainer.py", "train/step.py",
+                "ckpt/manager.py", "data/tokens.py", "optim/adamw.py",
+                "workload/actuator.py", "launch/train.py"):
         assert PORT / sub in files, sub
     return files
 
@@ -152,7 +154,9 @@ def test_importing_the_engine_loads_neither_jax_nor_repro():
             "repro_torch.core.twin, repro_torch.core.reserve, "
             "repro_torch.core.dispatch, repro_torch.obs.report, "
             "repro_torch.experiments, repro_torch.core, repro_torch.grid, "
-            "repro_torch.obs, repro_torch.workload; "
+            "repro_torch.obs, repro_torch.workload, "
+            "repro_torch.train.trainer, repro_torch.launch.train, "
+            "repro_torch.ckpt, repro_torch.data, repro_torch.optim; "
             "import repro_torch.core as c, repro_torch.grid as g; "
             "[getattr(m, k) for m in (c, g) for k in m.__all__]; "
             "bad = [m for m in sys.modules if m == 'jax' or "
@@ -193,7 +197,13 @@ def _constant_pairs():
     import repro_torch.grid.signals as p_signals
     import repro_torch.obs.telemetry as p_tel
     import repro_torch.workload.model as p_wl
+    import repro.models.transformer as r_tr
+    import repro.data.m100 as r_m100
+    import repro_torch.models.transformer as p_tr
+    import repro_torch.data.m100 as p_m100
     names = {
+        (r_tr, p_tr): "AUX_LOSS_WEIGHT Z_LOSS_WEIGHT",
+        (r_m100, p_m100): "M100_NODE_POWER_W",
         (r_plant, p_plant): (
             "P_IDLE ALPHA BETA GAMMA TDP CAP_MIN CAP_MAX F_MAX F_MIN F_VMIN "
             "F_NOMINAL GOV_SLEW ACTUATE_DELAY_MS TAU_THERMAL T_AMBIENT_INT "

@@ -1,0 +1,270 @@
+"""The gradient of the port's flash_attention.
+
+On the CPU: autograd through the plain version against ``jax.grad`` of the
+reference's ``blocked_attention`` (which the reference trains through), the
+backward kernels' formulas (``flash_attention_bwd_ref``) against autograd,
+and ``FlashAttentionFn``'s plumbing with the plain versions in the
+kernels' place.  On a card (marked ``cuda``, skipped without one): the two
+backward kernels against autograd through the plain version over a grid of
+shapes, the forward's LSE, and the repaired fault -- a backward through
+``ops.flash_attention`` reaches the kernels, one through ``ops.ssd_scan``
+raises:
+
+    python -m pytest -q -m cuda tests/test_torch_flash_bwd.py
+
+The card's machine has no JAX: it is imported inside the tests that use
+it.
+"""
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.kernels import flash_attention as fa
+from repro_torch.kernels import ops
+
+# the reference's kernel tolerances (tests/test_kernels.py) on the CPU;
+# 1e-4 for float32 gradients on the card, whose sums run over up to 4096
+# rows in another order than the plain version's
+F32_GRAD = dict(atol=2e-5, rtol=2e-5)
+CARD_TOL = {torch.float32: dict(atol=1e-4, rtol=1e-4),
+            torch.bfloat16: dict(atol=2e-2, rtol=2e-2)}
+
+
+def _arrays(b, s, h, hkv, d, seed=0, sk=None):
+    rng = np.random.default_rng(seed)
+    sk = s if sk is None else sk
+    return [rng.standard_normal(sh).astype(np.float32)
+            for sh in ((b, s, h, d), (b, sk, hkv, d), (b, sk, hkv, d),
+                       (b, s, h, d))]
+
+
+def _plain_grads(q, k, v, do, **kw):
+    """(out, dq, dk, dv) of autograd through the plain version."""
+    q, k, v = (x.detach().clone().requires_grad_(True) for x in (q, k, v))
+    out = fa.flash_attention_ref(q, k, v, **kw)
+    dq, dk, dv = torch.autograd.grad(out, (q, k, v), do)
+    return out.detach(), dq, dk, dv
+
+
+# ---------------------------------------------------------------------------
+# CPU: the plain gradient against the reference's
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("shape,window", [
+    ((1, 64, 4, 1, 64), 0),      # GQA 4:1
+    ((2, 48, 6, 2, 64), 8),      # GQA 3:1, window 8
+    ((1, 40, 4, 1, 128), 8),
+    ((1, 32, 6, 2, 128), 0),
+])
+def test_plain_gradient_matches_jax_grad_of_blocked_attention(shape,
+                                                              window):
+    import jax
+    import jax.numpy as jnp
+    from repro.models.layers import blocked_attention
+    q, k, v, do = _arrays(*shape, seed=1)
+
+    def f(q, k, v):
+        out = blocked_attention(q, k, v, causal=True, window=window)
+        return jnp.sum(out * do)
+
+    want = jax.grad(f, argnums=(0, 1, 2))(*map(jnp.asarray, (q, k, v)))
+    got = _plain_grads(*map(torch.from_numpy, (q, k, v, do)),
+                       causal=True, window=window)[1:]
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), **F32_GRAD)
+
+
+@pytest.mark.parametrize("shape,window,sk", [
+    ((1, 64, 4, 4, 32), 0, None),
+    ((2, 48, 6, 2, 16), 8, None),
+    ((1, 40, 6, 1, 80), 0, 24),     # Sq > Sk: every row still sees a key
+    ((1, 24, 4, 2, 64), 5, 40),     # Sk > Sq
+])
+def test_kernel_formulas_match_autograd(shape, window, sk):
+    q, k, v, do = map(torch.from_numpy, _arrays(*shape, seed=2, sk=sk))
+    out, lse = fa.flash_attention_lse_ref(q, k, v, causal=True,
+                                          window=window)
+    torch.testing.assert_close(
+        out, fa.flash_attention_ref(q, k, v, causal=True, window=window),
+        rtol=0, atol=0)
+    got = fa.flash_attention_bwd_ref(q, k, v, out, do, lse, causal=True,
+                                     window=window)
+    want = _plain_grads(q, k, v, do, causal=True, window=window)[1:]
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, **F32_GRAD)
+
+
+def test_kernel_formulas_give_rows_without_keys_no_gradient():
+    """Sq > Sk + window leaves rows that see no key: the kernels' formulas
+    give them (and what they would add to dk, dv) zero, never NaN."""
+    q, k, v, do = map(torch.from_numpy, _arrays(1, 40, 2, 1, 16, seed=3,
+                                                sk=8))
+    out, lse = fa.flash_attention_lse_ref(q, k, v, causal=True, window=4)
+    dq, dk, dv = fa.flash_attention_bwd_ref(q, k, v, out, do, lse,
+                                            causal=True, window=4)
+    assert all(torch.isfinite(x).all() for x in (dq, dk, dv))
+    assert (dq[:, 11:] == 0).all()      # row 11 on sees no column < 8
+
+
+def test_function_plumbing_with_plain_versions(monkeypatch):
+    """FlashAttentionFn with the plain versions in the kernels' place: one
+    forward with its LSE, one backward handed autograd's non-contiguous
+    dO as it comes, and the gradients equal autograd's."""
+    calls = []
+
+    def fwd(q, k, v, *, causal, window):
+        calls.append("fwd")
+        return fa.flash_attention_lse_ref(q, k, v, causal=causal,
+                                          window=window)
+
+    def bwd(q, k, v, o, do, lse, *, causal, window):
+        calls.append(("bwd", do.is_contiguous()))
+        return fa.flash_attention_bwd_ref(q, k, v, o, do.contiguous(), lse,
+                                          causal=causal, window=window)
+
+    monkeypatch.setattr(fa, "_fwd", fwd)
+    monkeypatch.setattr(fa, "_bwd", bwd)
+    q, k, v, do = map(torch.from_numpy, _arrays(2, 32, 4, 2, 16, seed=4))
+    leaves = [x.clone().requires_grad_(True) for x in (q, k, v)]
+    out = fa.FlashAttentionFn.apply(*leaves, True, 6, True)
+    assert out.grad_fn is not None
+    # a transposed view as the incoming gradient
+    do_t = do.transpose(1, 2).contiguous().transpose(1, 2)
+    got = torch.autograd.grad(out, leaves, do_t)
+    want = _plain_grads(q, k, v, do, causal=True, window=6)[1:]
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, **F32_GRAD)
+    assert calls == ["fwd", ("bwd", False)]
+
+
+def test_cpu_dispatch_is_differentiated_as_it_is():
+    q, k, v, do = map(torch.from_numpy, _arrays(1, 16, 2, 1, 16, seed=5))
+    leaves = [x.clone().requires_grad_(True) for x in (q, k, v)]
+    out = ops.flash_attention(*leaves, causal=True, window=0)
+    assert out.grad_fn is not None
+    assert "FlashAttentionFn" not in type(out.grad_fn).__name__
+    got = torch.autograd.grad(out, leaves, do)
+    want = _plain_grads(q, k, v, do, causal=True)[1:]
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("fn", [fa.flash_bwd_dq, fa.flash_bwd_dkdv,
+                                fa.flash_attention_with_lse])
+def test_backward_wrappers_refuse_cpu_tensors(fn):
+    q, k, v, do = map(torch.from_numpy, _arrays(1, 16, 2, 1, 16))
+    lse = torch.zeros(1, 2, 16)
+    args = {fa.flash_bwd_dq: (q, k, v, q, do, lse),
+            fa.flash_bwd_dkdv: (q, k, v, do, lse, lse),
+            fa.flash_attention_with_lse: (q, k, v)}[fn]
+    with pytest.raises(ValueError, match="CUDA"):
+        fn(*args)
+
+
+# ---------------------------------------------------------------------------
+# On the card
+# ---------------------------------------------------------------------------
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (torch.cuda.is_available() is "
+                    "false)")
+    return torch.device("cuda")
+
+
+F32, BF16 = torch.float32, torch.bfloat16
+# (B, S, H, Hkv, D), dtype, window, Sk (None: Sk = S)
+CARD_CASES = ([((1, 128, 4, 4, 32), dt, 0, None) for dt in (F32, BF16)]
+              + [((2, 256, 4, 2, 64), dt, 0, None) for dt in (F32, BF16)]
+              + [((2, 192, 6, 3, 16), dt, 0, None) for dt in (F32, BF16)]
+              + [((1, 200, 6, 2, 80), dt, w, None) for dt in (F32, BF16)
+                 for w in (0, 24)]
+              + [((1, 300, 12, 2, 128), dt, w, None) for dt in (F32, BF16)
+                 for w in (0, 100)]
+              + [((1, 256, 4, 2, 64), BF16, 0, 100),    # Sq > Sk
+                 ((1, 100, 4, 2, 64), F32, 0, 60),
+                 ((1, 100, 4, 2, 64), BF16, 16, 160),   # Sk > Sq
+                 ((1, 300, 2, 2, 32), BF16, 16, None),
+                 ((1, 256, 6, 1, 128), BF16, 0, None),  # GQA group 6
+                 ((2, 1024, 12, 2, 128), BF16, 0, None)])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,dtype,window,sk", CARD_CASES)
+def test_cuda_backward_matches_plain_autograd(cuda, shape, dtype, window,
+                                              sk):
+    q, k, v, do = (torch.from_numpy(a).to(cuda, dtype)
+                   for a in _arrays(*shape, seed=6, sk=sk))
+    out, lse = fa.flash_attention_with_lse(q, k, v, causal=True,
+                                           window=window)
+    before = fa.flash_bwd_dq.launches, fa.flash_bwd_dkdv.launches
+    got = fa.flash_attention_bwd(q, k, v, out, do, lse, causal=True,
+                                 window=window)
+    torch.cuda.synchronize()
+    assert (fa.flash_bwd_dq.launches, fa.flash_bwd_dkdv.launches) == (
+        before[0] + 1, before[1] + 1)
+    _, want_lse = fa.flash_attention_lse_ref(q, k, v, causal=True,
+                                             window=window)
+    torch.testing.assert_close(lse, want_lse, atol=1e-3, rtol=1e-4)
+    want = _plain_grads(q, k, v, do, causal=True, window=window)[1:]
+    for g, w in zip(got, want):
+        assert g.dtype == dtype and g.shape == w.shape
+        torch.testing.assert_close(g.float(), w.float(), **CARD_TOL[dtype])
+
+
+@pytest.mark.cuda
+def test_cuda_rows_without_keys_get_no_gradient(cuda):
+    q, k, v, do = (torch.from_numpy(a).to(cuda, BF16)
+                   for a in _arrays(1, 128, 2, 2, 32, seed=7, sk=32))
+    out, lse = fa.flash_attention_with_lse(q, k, v, causal=True, window=16)
+    assert torch.isinf(lse[:, :, 47:]).all() and \
+        torch.isfinite(lse[:, :, :47]).all()
+    dq, dk, dv = fa.flash_attention_bwd(q, k, v, out, do, lse, causal=True,
+                                        window=16)
+    assert all(torch.isfinite(x).all() for x in (dq, dk, dv))
+    assert (dq[:, 47:] == 0).all()
+
+
+@pytest.mark.cuda
+def test_cuda_ops_flash_attention_carries_autograd(cuda):
+    """The repaired fault: a backward through ops.flash_attention on the
+    card reaches the two backward kernels and gives the plain version's
+    gradients; under no_grad the forward is one launch and equal to the
+    kernel's output bit for bit."""
+    q, k, v, do = (torch.from_numpy(a).to(cuda, BF16)
+                   for a in _arrays(2, 256, 12, 2, 128, seed=8))
+    leaves = [x.clone().requires_grad_(True) for x in (q, k, v)]
+    before = (fa.flash_attention.launches, fa.flash_bwd_dq.launches,
+              fa.flash_bwd_dkdv.launches)
+    out = ops.flash_attention(*leaves, causal=True, window=0)
+    assert out.grad_fn is not None
+    got = torch.autograd.grad(out, leaves, do)
+    torch.cuda.synchronize()
+    assert (fa.flash_attention.launches, fa.flash_bwd_dq.launches,
+            fa.flash_bwd_dkdv.launches) == tuple(n + 1 for n in before)
+    want = _plain_grads(q, k, v, do, causal=True)[1:]
+    for g, w in zip(got, want):
+        assert float(g.float().abs().max()) > 0
+        torch.testing.assert_close(g.float(), w.float(), **CARD_TOL[BF16])
+    with torch.no_grad():
+        served = ops.flash_attention(q, k, v, causal=True)
+    assert served.grad_fn is None
+    assert torch.equal(served, fa.flash_attention(q, k, v, causal=True))
+
+
+@pytest.mark.cuda
+def test_cuda_ops_ssd_scan_backward_raises(cuda):
+    g = torch.Generator(device="cuda").manual_seed(9)
+    x = torch.randn(1, 64, 2, 16, device=cuda, generator=g,
+                    requires_grad=True)
+    dt = torch.nn.functional.softplus(
+        torch.randn(1, 64, 2, device=cuda, generator=g))
+    A = -torch.exp(torch.randn(2, device=cuda, generator=g))
+    B, C = torch.randn(2, 1, 64, 16, device=cuda, generator=g)
+    y = ops.ssd_scan(x, dt, A, B, C, chunk=16)
+    assert y.grad_fn is not None
+    with pytest.raises(NotImplementedError, match="A14b"):
+        y.sum().backward()
