@@ -60,16 +60,25 @@ nonzero exit and no result line:
               zamba2-2.7b at full width and depth: exactly 54 ssd_scan and
               9 flash_attention launches per forward; decode against
               forward at S = 256
-  flash_bwd   flash_attention's two backward kernels (flash_bwd_dq,
-              flash_bwd_dkdv) against autograd through the plain version
-              (f32 1e-4, bf16 2e-2) at qwen2-1.5b's call (2, 4096, 12, 2,
-              128) bf16 causal and at small and odd shapes (head dims 64
-              and 80, windows, S not a multiple of 64, Sq > Sk), the
-              forward's LSE against the plain one; at qwen2-1.5b's call
-              each kernel's cold-L2 device time beside its bound (3 and 4
+  flash_bwd   flash_attention's two backward wrappers (flash_bwd_dq,
+              flash_bwd_dkdv; in bf16 the wgmma kernels and, when the GQA
+              group is split, flash_bwd_dkdv_sum) against autograd through
+              the plain version (f32 1e-4, bf16 2e-2) at qwen2-1.5b's
+              prefill call (2, 4096, 12, 2, 128) and training call (2,
+              2048, ...) bf16 causal and at small and odd shapes (head
+              dims 64 and 80, windows, S not a multiple of 64, Sq > Sk),
+              every case run twice and held to bitwise equality, the
+              forward's LSE against the plain one, SDPA's backward's own
+              error at the prefill call (printed, not a gate); at both
+              calls each wrapper's cold-L2 device time per call (the sum
+              of its kernels), TFLOP/s and share of its bound (3 and 4
               products over the visible pairs; the pair's 5 products are
-              257.7 GFLOP, 0.261 ms), the plain version's backward and
-              scaled_dot_product_attention's backward (the yardstick)
+              257.7 GFLOP, 0.261 ms at the prefill call), the split used,
+              SDPA's backward (the yardstick) and at the prefill call the
+              plain version's backward; the kernels' registers, shared
+              memory and local memory as the CUDA runtime reports them,
+              failing on local memory (a spill) in a bf16 kernel at D =
+              128, and ptxas' report when this process ran nvcc
   train       the Trainer at full qwen2-1.5b width and depth (bf16 compute
               over f32 parameters, remat "dots", AdamW on the card) for 8
               steps of (2, 2048) tokens with a GridPilot attached and an
@@ -184,6 +193,10 @@ ZAMBA2_ATTN_SHAPE = (2, 4096, 32, 32, 80)  # zamba2-2.7b's shared block
 # NVIDIA H100 80GB HBM3, 700 W): only the ratio to the library call
 # timed in the same run compares across cards
 FLASH_PREV_MS = {128: 0.924, 80: 1.372}
+# ptxas' report of flash_fwd_tma before its PTX helpers moved into
+# csrc/hopper.cuh (an earlier call of this script): the move must leave it
+FLASH_PREV_PTXAS = {128: "Used 188 registers, used 16 barriers",
+                    80: "Used 162 registers, used 16 barriers"}
 DECODE_TOL = dict(atol=2e-3, rtol=2e-3)  # tests/test_models.py
 # ssd_scan: the reference's kernel tolerances (tests/test_kernels.py)
 SSD_TOL = {"chunked": dict(atol=1e-4, rtol=1e-4),
@@ -246,14 +259,17 @@ def cuda_time_ms(torch, fn, reps=100):
     return statistics.median(times)
 
 
-def profile_calls(torch, fn, reps, match=()):
+def profile_calls(torch, fn, reps, match=(), groups=None):
     """Run ``fn`` ``reps`` times under torch.profiler (CUPTI): device time
     and kernel launches per call, the device time per call and per launch
     of the kernels whose name holds each string of ``match`` (the latter
-    does not move when CUPTI drops an event of the window), and the five
-    ops with the most host time (inflated by the profiler; for ranking
-    only)."""
+    does not move when CUPTI drops an event of the window), for each
+    label of ``groups`` the device time per call of the kernels whose
+    base name (``kernel_base``) is one of its names, each kernel's mean
+    per launch times its launches per call rounded, and the five ops with
+    the most host time (inflated by the profiler; for ranking only)."""
     from torch.profiler import ProfilerActivity, profile
+    from repro_torch.obs.trace import kernel_base
     cuda = torch.autograd.DeviceType.CUDA
 
     def dev_us(e):
@@ -291,6 +307,14 @@ def profile_calls(torch, fn, reps, match=()):
             m: sum(dev_us(e) for e in kernels if m in e.key)
             / max(sum(e.count for e in kernels if m in e.key), 1)
             for m in match},
+        "group_us_per_call": {
+            label: sum(dev_us(e) / max(e.count, 1) * round(e.count / reps)
+                       for e in kernels if kernel_base(e.key) in names)
+            for label, names in (groups or {}).items()},
+        "group_kernels": {
+            label: sorted({kernel_base(e.key) for e in kernels
+                           if kernel_base(e.key) in names})
+            for label, names in (groups or {}).items()},
         "launches_per_call": sum(e.count for e in kernels) / reps,
         "kernels": {e.key[:60]: dev_us(e) / max(e.count, 1)
                     for e in sorted(kernels, key=dev_us, reverse=True)[:5]},
@@ -572,6 +596,7 @@ def time_flash(torch, g, shape, window):
             "ptxas": ptxas_by_kernel(_build.PTXAS_REPORT.get(
                 "flash_attention", "")).get(
                     f"{fa.KERNELS[torch.bfloat16]}<{shape[4]}>"),
+            "ptxas_prev": FLASH_PREV_PTXAS[shape[4]],
             "prev_ms": FLASH_PREV_MS[shape[4]],
             "prev_ms_from": "an earlier call on another card (the mma.sync "
                             "kernel before the TMA + wgmma redesign)",
@@ -1725,6 +1750,14 @@ FLASH_BWD_TOL = {"float32": dict(atol=1e-4, rtol=1e-4),
 # S and does dP and dq (3), flash_bwd_dkdv S, dP, dv and dk (4); the least
 # work of the whole gradient is 5 (S, dP, dq, dk, dv), 2.5x the forward's
 FLASH_BWD_PRODUCTS = {"flash_bwd_dq": 3, "flash_bwd_dkdv": 4, "pair": 5}
+TRAIN_ATTN_SHAPE = (2, 2048, 12, 2, 128)  # qwen2-1.5b's call in training
+# the backward wrappers' bf16 ms at the prefill call and (per launch) in
+# the train phase's profiled step, from an earlier call of this script on
+# another card (the scalar f32-FMA kernels before the wgmma redesign,
+# NVIDIA H100 80GB HBM3, 700 W)
+FLASH_BWD_PREV_MS = {"prefill": {"flash_bwd_dq": 9.717,
+                                 "flash_bwd_dkdv": 10.635},
+                     "train": {"flash_bwd_dq": 2.58, "flash_bwd_dkdv": 4.90}}
 TRAIN_SHAPE = (2, 2048)            # global batch x seq of the train phase
 TRAIN_STEPS = 8
 TRAIN_TRIGGER_AFTER = 3            # fire_test_trigger after this step
@@ -1738,10 +1771,11 @@ CKPT_LOSS_RTOL = 1e-5
 
 def flash_bwd_cases():
     """(shape (B, S, H, Hkv, D), dtype name, window, Sk or None) of the
-    backward check: qwen2-1.5b's call, then small and odd shapes in both
-    dtypes -- head dims 64 and 80, windows, S not a multiple of the
-    64-row tiles, Sq > Sk."""
-    return ([(PREFILL_SHAPE, "bfloat16", 0, None)]
+    backward check: qwen2-1.5b's prefill and training calls, then small
+    and odd shapes in both dtypes -- head dims 64 and 80, windows, S not a
+    multiple of the 64-row tiles, Sq > Sk."""
+    return ([(PREFILL_SHAPE, "bfloat16", 0, None),
+             (TRAIN_ATTN_SHAPE, "bfloat16", 0, None)]
             + [(shape, dt, w, None)
                for shape, w in (((2, 256, 4, 2, 64), 0),
                                 ((1, 200, 6, 2, 80), 24),
@@ -1752,9 +1786,9 @@ def flash_bwd_cases():
 
 
 def flash_bwd_bound(shape, products, window=0):
-    """(ms, bound_by) of ``products`` bf16 products over the visible pairs
-    against reading q, k, v, o, dO and the LSE once and writing dq, dk,
-    dv once."""
+    """(ms, bound_by, flop) of ``products`` bf16 products over the visible
+    pairs against reading q, k, v, o, dO and the LSE once and writing dq,
+    dk, dv once."""
     b, s, h, hkv, d = shape
     _, _, fwd_flops, _ = flash_bound_ms(shape, "bfloat16", window)
     flops = fwd_flops / 2 * products        # the forward is 2 products
@@ -1763,7 +1797,11 @@ def flash_bwd_bound(shape, products, window=0):
     t_ops = flops / TENSOR_CORE_BF16_FLOP_S
     t_bytes = nbytes / HBM_BYTES_PER_S
     return max(t_ops, t_bytes) * 1e3, \
-        "operations" if t_ops >= t_bytes else "bytes"
+        "operations" if t_ops >= t_bytes else "bytes", flops
+
+
+def sm_count(torch):
+    return torch.cuda.get_device_properties(0).multi_processor_count
 
 
 def plain_grads(torch, q, k, v, do, window):
@@ -1773,15 +1811,29 @@ def plain_grads(torch, q, k, v, do, window):
     return torch.autograd.grad(out, leaves, do)
 
 
-def time_flash_bwd(torch, g):
-    """Cold-L2 device times at qwen2-1.5b's call: the two kernels (per
-    kernel and together), the plain version's backward (autograd through
-    flash_attention_ref) and SDPA's backward (the yardstick; the port
-    never calls it), each through torch.autograd.grad where autograd is
-    involved."""
+def sdpa_grads(torch, q, k, v, do):
+    """dq, dk, dv through scaled_dot_product_attention (causal, GQA) on
+    (B, H, S, D) copies, returned in (B, S, H, D)."""
+    import torch.nn.functional as F
+    leaves = [x.transpose(1, 2).contiguous().requires_grad_(True)
+              for x in (q, k, v)]
+    out = F.scaled_dot_product_attention(*leaves, is_causal=True,
+                                         enable_gqa=True)
+    grads = torch.autograd.grad(out, leaves, do.transpose(1, 2))
+    return [x.transpose(1, 2) for x in grads]
+
+
+def time_flash_bwd(torch, g, shape, plain_reps):
+    """Cold-L2 device times at one bf16 causal call: the two wrappers
+    (each the sum of its kernels per call, flash_bwd_dkdv_sum included
+    when the call splits) and together, the plain version's backward
+    (autograd through flash_attention_ref; skipped for plain_reps = 0)
+    and SDPA's backward (the yardstick; the port never calls it), each
+    through torch.autograd.grad where autograd is involved; each
+    wrapper's TFLOP/s and share of its bound."""
     import torch.nn.functional as F
     from repro_torch.kernels import flash_attention as fa
-    shape = PREFILL_SHAPE
+    b, s, h, hkv, _ = shape
 
     def one_set():
         q, k, v = flash_inputs(torch, g, shape, torch.bfloat16)
@@ -1790,8 +1842,8 @@ def time_flash_bwd(torch, g):
         return q, k, v, o, do, lse
     first = one_set()
     set_bytes = sum(x.numel() * x.element_size() for x in first)
-    sets = [first] + [one_set() for _ in range(
-        math.ceil(4 * l2_bytes(torch) / set_bytes) - 1)]
+    n_sets = math.ceil(4 * l2_bytes(torch) / set_bytes)
+    sets = [first] + [one_set() for _ in range(n_sets - 1)]
 
     def kernels(q, k, v, o, do, lse):
         return fa.flash_attention_bwd(q, k, v, o, do, lse, causal=True)
@@ -1814,8 +1866,9 @@ def time_flash_bwd(torch, g):
         return call
 
     kept = []
+    groups = fa.BWD_KERNELS[torch.bfloat16]
     prof_k = profile_calls(torch, cycled(sets, kernels, kept), 10,
-                           match=("flash_bwd_dq", "flash_bwd_dkdv"))
+                           groups=groups)
     kept.clear()
     sdpa = graphs(lambda q, k, v: F.scaled_dot_product_attention(
         q, k, v, is_causal=True, enable_gqa=True),
@@ -1823,38 +1876,57 @@ def time_flash_bwd(torch, g):
     prof_l = profile_calls(torch, grad_call(sdpa), 10)
     kept.clear()
     del sdpa
-    plain = graphs(lambda q, k, v: fa.flash_attention_ref(q, k, v,
-                                                          causal=True),
-                   lambda x: x)[:1]
-    prof_p = profile_calls(torch, grad_call(plain), 4)
-    kept.clear()
-    del plain, sets
+    plain_ms = None
+    if plain_reps:
+        plain = graphs(lambda q, k, v: fa.flash_attention_ref(q, k, v,
+                                                              causal=True),
+                       lambda x: x)[:1]
+        prof_p = profile_calls(torch, grad_call(plain), plain_reps)
+        plain_ms = prof_p["rounded_us_per_call"] / 1e3
+        kept.clear()
+        del plain
+    del sets, first
     torch.cuda.empty_cache()
-    # each kernel launches once a call: its mean per launch, which CUPTI
-    # dropping an event of the window does not move
-    per = {m: prof_k["matched_us_per_launch"][m] / 1e3
-           for m in ("flash_bwd_dq", "flash_bwd_dkdv")}
+    per = {m: prof_k["group_us_per_call"][m] / 1e3 for m in groups}
+    rec = {}
+    for name, ms in per.items():
+        bound_ms, bound_by, flops = flash_bwd_bound(
+            shape, FLASH_BWD_PRODUCTS[name])
+        rec[name] = {"ms": ms, "bound_ms": bound_ms, "bound_by": bound_by,
+                     "bound_share": bound_ms / ms, "gflop": flops / 1e9,
+                     "tflop_s": flops / (ms * 1e-3) / 1e12,
+                     "kernels": prof_k["group_kernels"][name]}
+    pair_bound, _, pair_flops = flash_bwd_bound(shape,
+                                                FLASH_BWD_PRODUCTS["pair"])
+    pair_ms = sum(per.values())
+    library_ms = prof_l["rounded_us_per_call"] / 1e3
     return {"shape": list(shape), "dtype": "bfloat16", "window": 0,
-            "ms": per, "pair_ms": sum(per.values()),
-            "ms_per_call_window": {m: v / 1e3 for m, v in
-                                   prof_k["matched_us_per_call"].items()},
-            "plain_ms": prof_p["rounded_us_per_call"] / 1e3,
-            "library_ms": prof_l["rounded_us_per_call"] / 1e3,
-            "library_kernels": prof_l["kernels"],
-            "cold_sets": math.ceil(4 * l2_bytes(torch) / set_bytes)}
+            "splits": fa.dkdv_splits(b, hkv, h // hkv, s, sm_count(torch)),
+            "kernels": rec, "ms": per, "pair_ms": pair_ms,
+            "pair_bound_ms": pair_bound, "pair_bound_share":
+                pair_bound / pair_ms,
+            "pair_tflop_s_5_products": pair_flops / (pair_ms * 1e-3) / 1e12,
+            "plain_ms": plain_ms, "library_ms": library_ms,
+            "pair_over_library": pair_ms / library_ms,
+            "library_kernels": prof_l["kernels"], "cold_sets": n_sets}
 
 
 def phase_flash_bwd(torch):
-    """flash_attention's two backward kernels against autograd through the
-    plain version (f32 1e-4, bf16 2e-2) at qwen2-1.5b's call and at small
-    and odd shapes, the forward's LSE against the plain one, and their
-    device times beside the bound and SDPA's backward; returns the two
-    kernels' records of the {"kernels": ...} line."""
+    """flash_attention's two backward wrappers against autograd through the
+    plain version (f32 1e-4, bf16 2e-2) at qwen2-1.5b's prefill and
+    training calls and at small and odd shapes, each run twice and held
+    to bitwise equality, the forward's LSE against the plain one, SDPA's
+    backward's own error at the prefill call (context, not a gate), the
+    device times at both calls beside the bound and SDPA's backward, and
+    the bf16 kernels' resources from the CUDA runtime (no local memory at
+    D = 128); returns the two wrappers' records of the {"kernels": ...}
+    line."""
     from repro_torch.kernels import _build
     from repro_torch.kernels import flash_attention as fa
     t_phase = time.perf_counter()
     g = torch.Generator(device="cuda").manual_seed(11)
     checks, worst = [], {"flash_bwd_dq": 0.0, "flash_bwd_dkdv": 0.0}
+    sdpa_err = None
     for shape, dt, window, sk in flash_bwd_cases():
         dtype = getattr(torch, dt)
         q, k, v = flash_inputs(torch, g, shape, dtype, sk)
@@ -1863,8 +1935,13 @@ def phase_flash_bwd(torch):
                                              window=window)
         got = fa.flash_attention_bwd(q, k, v, o, do, lse, causal=True,
                                      window=window)
+        again = fa.flash_attention_bwd(q, k, v, o, do, lse, causal=True,
+                                       window=window)
         want = plain_grads(torch, q, k, v, do, window)
         torch.cuda.synchronize()
+        if not all(torch.equal(a, b) for a, b in zip(got, again)):
+            raise RuntimeError(f"flash_bwd: two runs at {shape} {dt} "
+                               f"window {window} differ")
         errs = [float((a.float() - b.float()).abs().max())
                 for a, b in zip(got, want)]
         for a, b in zip(got, want):
@@ -1874,41 +1951,63 @@ def phase_flash_bwd(torch):
                                                   window=window)
         lse_err = float((lse - lse_plain).abs().max())
         torch.testing.assert_close(lse, lse_plain, atol=1e-3, rtol=1e-4)
+        if shape == PREFILL_SHAPE and dt == "bfloat16":
+            sdpa_err = [float((a.float() - b.float()).abs().max())
+                        for a, b in zip(sdpa_grads(torch, q, k, v, do),
+                                        want)]
         worst["flash_bwd_dq"] = max(worst["flash_bwd_dq"], errs[0])
         worst["flash_bwd_dkdv"] = max(worst["flash_bwd_dkdv"], *errs[1:])
+        b, s, h, hkv, _ = shape
         checks.append({"shape": list(shape), "dtype": dt, "window": window,
-                       "sk": sk or shape[1], "max_abs_err_dq_dk_dv": errs,
+                       "sk": sk or s, "max_abs_err_dq_dk_dv": errs,
                        "lse_max_abs_err": lse_err,
+                       "splits": fa.dkdv_splits(b, hkv, h // hkv, sk or s,
+                                                sm_count(torch))
+                       if dt == "bfloat16" else 1,
+                       "bitwise_equal_twice": True,
                        "tol": FLASH_BWD_TOL[dt]})
-        del q, k, v, do, o, lse, got, want
+        del q, k, v, do, o, lse, got, again, want
     torch.cuda.empty_cache()
-    t = time_flash_bwd(torch, g)
-    ptxas = ptxas_by_kernel(_build.PTXAS_REPORT.get("flash_attention_bwd",
-                                                    ""))
+    t = time_flash_bwd(torch, g, PREFILL_SHAPE, plain_reps=4)
+    t_train = time_flash_bwd(torch, g, TRAIN_ATTN_SHAPE, plain_reps=0)
+    build = {d: fa.bwd_kernel_info(torch.bfloat16, d) for d in (80, 128)}
+    spilled = {k: v for k, v in build[128].items() if v["local_bytes"]}
+    if spilled:
+        raise RuntimeError(f"flash_bwd: the bf16 kernels at D = 128 use "
+                           f"local memory (spills): {spilled}")
+    # printed as context only: empty when this process found the library
+    # already built
+    ptxas = {k: v for k, v in ptxas_by_kernel(_build.PTXAS_REPORT.get(
+        "flash_attention_bwd", "")).items() if "flash_bwd" in k
+        and ("128" in k or "80" in k or "_sum" in k)}
     recs = []
     for name in ("flash_bwd_dq", "flash_bwd_dkdv"):
-        bound_ms, bound_by = flash_bwd_bound(PREFILL_SHAPE,
-                                             FLASH_BWD_PRODUCTS[name])
+        k_pre, k_train = t["kernels"][name], t_train["kernels"][name]
         recs.append({
             "name": name, "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
             "replaces": "src/repro/kernels/flash_attention.py:139",
-            "max_abs_err": worst[name], "ms": t["ms"][name],
-            "plain_ms": t["plain_ms"], "bound_ms": bound_ms,
-            "bound_by": bound_by, "library_ms": t["library_ms"],
-            "shape": list(PREFILL_SHAPE), "dtype": "bfloat16"})
-    pair_bound, _ = flash_bwd_bound(PREFILL_SHAPE, FLASH_BWD_PRODUCTS["pair"])
-    emit({"phase": "flash_bwd", "checks": checks, **t,
-          "bound_ms": {r["name"]: r["bound_ms"] for r in recs},
-          "pair_bound_ms": pair_bound, "bound_by": "operations",
-          "pair_over_library": t["pair_ms"] / t["library_ms"],
+            "max_abs_err": worst[name], "ms": k_pre["ms"],
+            "plain_ms": t["plain_ms"], "bound_ms": k_pre["bound_ms"],
+            "bound_by": k_pre["bound_by"], "library_ms": t["library_ms"],
+            "shape": list(PREFILL_SHAPE), "dtype": "bfloat16",
+            "kernels_bf16": list(fa.BWD_KERNELS[torch.bfloat16][name]),
+            "splits": t["splits"], "ms_train_call": k_train["ms"]})
+    emit({"phase": "flash_bwd", "checks": checks,
+          "prefill_call": t, "train_call": t_train,
+          "sdpa_max_abs_err_dq_dk_dv": sdpa_err,
+          "kernels_max_abs_err": worst,
+          "prev_ms": FLASH_BWD_PREV_MS,
+          "prev_ms_from": "an earlier call of this script on another card "
+                          "(the scalar f32-FMA kernels before the wgmma "
+                          "redesign; the training call's from the train "
+                          "phase's profiled step)",
           "plain": "autograd through flash_attention_ref (dq, dk, dv "
                    "together)",
           "library": "torch.autograd.grad through scaled_dot_product_"
                      "attention(is_causal=True, enable_gqa=True) on "
                      "(B, H, S, D): dq, dk and dv together",
-          "ptxas": {k: v for k, v in ptxas.items() if "flash_bwd" in k
-                    and ("128" in k or "80" in k)},
+          "build": build, "ptxas": ptxas,
           "seconds": time.perf_counter() - t_phase})
     return recs
 
@@ -2022,6 +2121,7 @@ def phase_train(torch):
     from repro_torch.configs.base import ShapeConfig
     from repro_torch.core.controller import GridPilot
     from repro_torch.core.plant import train_step_cost
+    from repro_torch.kernels import flash_attention as fa
     from repro_torch.grid.signals import make_grid
     from repro_torch.train.trainer import Trainer, TrainerConfig
     t_phase = time.perf_counter()
@@ -2076,7 +2176,8 @@ def phase_train(torch):
         step_wall_ms = (time.perf_counter() - t1) * 1e3
         prof = profile_calls(
             torch, lambda i=0: step_fn(params, opt, batch, TRAIN_STEPS + 1),
-            1, match=("flash_fwd", "flash_bwd_dq", "flash_bwd_dkdv"))
+            1, match=("flash_fwd",),
+            groups=fa.BWD_KERNELS[torch.bfloat16])
     finally:
         gp.close()
     del params, opt, out, trainer
@@ -2104,7 +2205,9 @@ def phase_train(torch):
           "device_ms_per_step": prof["device_us_per_call"] / 1e3,
           "busy_share": prof["device_us_per_call"] / 1e3 / step_wall_ms,
           "kernel_device_ms": {k: v / 1e3 for k, v in
-                               prof["matched_us_per_call"].items()},
+                               {**prof["matched_us_per_call"],
+                                **prof["group_us_per_call"]}.items()},
+          "bwd_kernels": prof["group_kernels"],
           "launches_per_profiled_step": prof["launches_per_call"],
           "top_kernels_us": prof["kernels"],
           "model_tflop_per_step": flops / 1e12,

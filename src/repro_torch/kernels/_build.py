@@ -8,8 +8,9 @@ with a plain C interface, all sources at once, one ``nvcc`` each:
 
 The library goes into ``build/kernels/`` at the root of the checkout (a
 directory git ignores), at first use, and its file name carries a hash of
-the source and the flags: an edited source builds anew, an unchanged one
-loads the library already there.  Without ``nvcc`` the build raises; it
+the source, of every ``csrc/*.cuh`` header it includes (directly or
+through another header) and of the flags: an edited source or header
+builds anew, an unchanged one loads the library already there.  Without ``nvcc`` the build raises; it
 never skips a kernel.
 """
 from __future__ import annotations
@@ -17,6 +18,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 from pathlib import Path
@@ -26,6 +28,8 @@ BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3",
               "-std=c++17", "-shared", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v")
+
+_INCLUDE = re.compile(r'^\s*#\s*include\s+"([^"]+)"', re.MULTILINE)
 
 _LOADED: dict[str, ctypes.CDLL] = {}
 # ptxas' register/spill report of each library built by this process
@@ -45,9 +49,23 @@ def find_nvcc() -> str:
         "/usr/local/cuda/bin): the port's CUDA kernels cannot be built")
 
 
+def sources(name: str) -> list[Path]:
+    """``csrc/<name>.cu`` and the csrc headers it includes with
+    ``#include "..."``, directly or through another header."""
+    found, todo = [], [CSRC / f"{name}.cu"]
+    while todo:
+        path = todo.pop()
+        if path in found:
+            continue
+        found.append(path)
+        todo += [CSRC / inc for inc in _INCLUDE.findall(path.read_text())]
+    return found
+
+
 def library_path(name: str) -> Path:
-    src = CSRC / f"{name}.cu"
-    h = hashlib.sha256(src.read_bytes())
+    h = hashlib.sha256()
+    for src in sources(name):
+        h.update(src.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
 

@@ -53,11 +53,7 @@
 // the cudaError_t of the launch (0 on success); a shape, type or head
 // size it does not take returns cudaErrorInvalidValue before launching.
 
-#include <cuda.h>          // CUtensorMap (types only: no link to libcuda)
-#include <cudaTypedefs.h>  // PFN_cuTensorMapEncodeTiled
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "hopper.cuh"  // mbarriers, TMA, wgmma, tensor maps
 
 namespace {
 
@@ -233,16 +229,9 @@ __global__ void __launch_bounds__(kF32Threads)
 // eighth issues the load of the tile STAGES on.  No __syncthreads() sits
 // in the kv loop.
 //
-// Tiles land in shared memory as TMA writes them: NB column blocks of
-// W = SW / 2 columns, each `rows` rows of SW bytes swizzled with the
-// SW-byte pattern (16-byte chunk c of row r sits at chunk c ^ ((r * SW /
-// 128) % (SW / 16))), which is the layout the wgmma descriptors name.
-// D = 128 and 64 use 64-column blocks and the 128-byte swizzle, D = 32
-// one 32-column block and the 64-byte swizzle, D = 80 five 16-column
-// blocks and the 32-byte swizzle (a 160-byte row fits no wider atom;
-// zero-filling to 128 columns would cost 1.6x the tensor work), D = 16
-// one 16-column block.  One 5-D tensor map (W, S, NB, H, B) per tensor
-// loads all NB blocks of a tile in one instruction.
+// Tiles land in shared memory in swizzled column blocks (hopper.cuh); at
+// D = 80 five 16-column blocks with the 32-byte swizzle, since
+// zero-filling to 128 columns would cost 1.6x the tensor work.
 //
 // Why no producer warp: with a producer warpgroup beside the two (384
 // threads), ptxas (CUDA 12.9) held every thread to 168 registers with or
@@ -250,13 +239,8 @@ __global__ void __launch_bounds__(kF32Threads)
 // slower there (PERF.md); 256 threads may use 255.
 // ---------------------------------------------------------------------------
 
-constexpr int kSmemMax = 232448;  // shared memory a block may use (227 KB)
-
 template <int D>
-struct Geo {
-  static constexpr int SW = D % 64 == 0 ? 128 : D % 32 == 0 ? 64 : 32;
-  static constexpr int W = SW / 2;     // columns per block
-  static constexpr int NB = D / W;     // column blocks per tile
+struct Geo : Swizzle<D> {
   static constexpr int BQ = 128, BK = 128;
   static constexpr int Q_BYTES = BQ * D * 2;
   static constexpr int KV_BYTES = BK * D * 2;  // one of K, V
@@ -274,90 +258,6 @@ struct Geo {
 
 constexpr int kTmaThreads = 256;  // two warpgroups of 64 q rows
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
-               "r"(count)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, int bytes) {
-  asm volatile(
-      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
-      "r"(bytes)
-      : "memory");
-}
-
-// Returns once the phase of parity `parity` of the barrier has completed.
-// A wait that outlasts 2^26 polls (each try_wait suspends the thread for
-// a while) is a broken pipeline: trap, so the launch fails instead of
-// hanging the card.
-__device__ __forceinline__ void mbar_wait(uint32_t bar, int parity) {
-  uint32_t done;
-  for (uint32_t n = 0;; ++n) {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(bar), "r"(parity)
-        : "memory");
-    if (done) return;
-    if (n == (1u << 26)) __trap();
-  }
-}
-
-// One tile of one (h, b) from row `row`, through a 5-D map (W, S, NB, H,
-// B) whose box (W, rows, NB) lands as NB column blocks of `rows` rows.
-__device__ __forceinline__ void tma_tile(uint32_t dst, const CUtensorMap* map,
-                                         int h, int row, int b,
-                                         uint32_t bar) {
-  asm volatile(
-      "cp.async.bulk.tensor.5d.shared::cluster.global.mbarrier::complete_tx"
-      "::bytes [%0], [%1, {%2, %3, %2, %4, %5}], [%6];\n" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(0), "r"(row), "r"(h),
-      "r"(b), "r"(bar)
-      : "memory");
-}
-
-// wgmma: a warpgroup MMA (bf16 in, f32 accumulate) on a 64-row tile,
-// issued asynchronously by all 128 threads of a warpgroup; fence before
-// the first of a batch, commit the batch, wait for it.
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void wgmma_wait_all() {
-  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
-}
-
-// Keeps the compiler from moving reads or writes of an operand of an
-// asynchronous wgmma across the wait that ends it.
-template <int N>
-__device__ __forceinline__ void fence_regs(float* d) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
-}
-
-template <int N>
-__device__ __forceinline__ void fence_regs(uint32_t* d) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(d[i])::"memory");
-}
-
-__device__ __forceinline__ float ex2(float x) {  // 2^x, flushing denormals
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
-}
-
 // Named barriers 1 and 2 over the block's 256 threads: a warpgroup waits
 // for its turn (sync) and hands the turn to the other (arrive).
 __device__ __forceinline__ void named_sync(int id) {
@@ -366,167 +266,6 @@ __device__ __forceinline__ void named_sync(int id) {
 
 __device__ __forceinline__ void named_arrive(int id) {
   asm volatile("bar.arrive %0, 256;\n" ::"r"(id) : "memory");
-}
-
-// Shared-memory matrix descriptor: start address, leading and stride
-// byte offsets (16-byte units) and the swizzle of the layout TMA wrote
-// (1: 128 B, 2: 64 B, 3: 32 B).
-template <int SW>
-__device__ __forceinline__ uint64_t make_desc(uint32_t addr, uint32_t lbo,
-                                              uint32_t sbo) {
-  constexpr uint64_t layout = SW == 128 ? 1 : SW == 64 ? 2 : 3;
-  return static_cast<uint64_t>((addr >> 4) & 0x3FFF) |
-         (static_cast<uint64_t>((lbo >> 4) & 0x3FFF) << 16) |
-         (static_cast<uint64_t>((sbo >> 4) & 0x3FFF) << 32) | (layout << 62);
-}
-
-// d (m64nN, f32) += A (desc) B (desc), both K-major; acc = 0 overwrites d.
-template <int N>
-__device__ __forceinline__ void wgmma_ss(float* d, uint64_t a, uint64_t b,
-                                         int acc);
-// d (m64nN, f32) += A (registers, bf16) B (desc, N-major: transposed).
-template <int N>
-__device__ __forceinline__ void wgmma_rs(float* d, const uint32_t* a,
-                                         uint64_t b);
-
-template <>
-__device__ __forceinline__ void wgmma_ss<128>(float* d, uint64_t a, uint64_t b,
-                                             int acc) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, "
-      "%40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, "
-      "%56, %57, %58, %59, %60, %61, %62, %63"
-      "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-      "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
-      "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
-      "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-      "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
-      "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-      "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
-      "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-      "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
-      "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
-      "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
-      "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-      "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "l"(a), "l"(b), "r"(acc));
-}
-
-template <>
-__device__ __forceinline__ void wgmma_rs<16>(float* d, const uint32_t* a,
-                                             uint64_t b) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7"
-      "}, {%8, %9, %10, %11}, %12, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-      "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
-}
-
-template <>
-__device__ __forceinline__ void wgmma_rs<32>(float* d, const uint32_t* a,
-                                             uint64_t b) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15"
-      "}, {%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-      "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
-      "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
-      "+f"(d[15])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
-}
-
-template <>
-__device__ __forceinline__ void wgmma_rs<64>(float* d, const uint32_t* a,
-                                             uint64_t b) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31"
-      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-      "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
-      "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
-      "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-      "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
-      "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-      "+f"(d[30]), "+f"(d[31])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
-}
-
-template <>
-__device__ __forceinline__ void wgmma_rs<80>(float* d, const uint32_t* a,
-                                             uint64_t b) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %45, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n80k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39"
-      "}, {%40, %41, %42, %43}, %44, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-      "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
-      "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
-      "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-      "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
-      "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-      "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
-      "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
-}
-
-template <>
-__device__ __forceinline__ void wgmma_rs<128>(float* d, const uint32_t* a,
-                                             uint64_t b) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, "
-      "%40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, "
-      "%56, %57, %58, %59, %60, %61, %62, %63"
-      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-      "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
-      "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
-      "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-      "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
-      "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-      "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
-      "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-      "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
-      "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
-      "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
-      "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-      "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
 }
 
 struct OutArgs {  // o (B, Sq, H, D): pointer and element strides
@@ -546,18 +285,6 @@ __device__ __forceinline__ void load_kv(const CUtensorMap* tk,
   mbar_expect_tx(full, 2 * G::KV_BYTES);
   tma_tile(sK, tk, hk, t * G::BK, b, full);
   tma_tile(sK + G::KV_BYTES, tv, hk, t * G::BK, b, full);
-}
-
-// Lane 0 of a warp whose reads of a stage are complete counts the warp out
-// on the stage's counter (acquire-release, so the last sees the others'
-// reads done); returns true to the eighth warp of the round.
-__device__ __forceinline__ bool last_to_leave(uint32_t counter) {
-  uint32_t before;
-  asm volatile("atom.acq_rel.cta.shared::cta.add.u32 %0, [%1], 1;\n"
-               : "=r"(before)
-               : "r"(counter)
-               : "memory");
-  return (before & 7) == 7;
 }
 
 template <int D>
@@ -666,7 +393,7 @@ __global__ void __launch_bounds__(kTmaThreads, 1)
     fence_regs<BK / 4>(&pa[0][0]);
     if (i > 0) {
       __syncwarp();
-      if (lane == 0 && last_to_leave(bar + 8 * (ST + sp)) &&
+      if (lane == 0 && last_to_leave<8>(bar + 8 * (ST + sp)) &&
           i - 1 + ST < n_t)
         load_kv<D>(&tk, &tv, sQ, bar, hk, b, t_lo + i - 1 + ST, sp);
     }
@@ -791,61 +518,6 @@ cudaError_t launch_f32(const void* q, const void* k, const void* v, void* o,
   return cudaGetLastError();
 }
 
-// cuTensorMapEncodeTiled of libcuda, looked up through the CUDA runtime's
-// entry-point query, so the library is built without linking libcuda.
-PFN_cuTensorMapEncodeTiled encode_fn() {
-  static PFN_cuTensorMapEncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* f = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    cudaError_t err = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &f, 12000, cudaEnableDefault, &found);
-#else
-    cudaError_t err = cudaGetDriverEntryPoint(
-        "cuTensorMapEncodeTiled", &f, cudaEnableDefault, &found);
-#endif
-    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<PFN_cuTensorMapEncodeTiled>(f);
-  }
-  return fn;
-}
-
-// A 5-D map (W, S, NB, H, B), innermost first, over a bf16 tensor with
-// element strides (sh, ss, sb) and a contiguous last dim: the head dim
-// split into NB column blocks of W, so that one box (W, rows, NB) lands
-// as NB column blocks of `rows` rows each, swizzled SW bytes; rows >= S
-// read as zeros.  A dim of size 1 gets the stride a packed tensor would have
-// (only coordinate 0 is read, and a view may carry any stride there).
-template <int D>
-bool encode_map(CUtensorMap* map, const void* ptr, int H, int S, int B,
-                long long sh, long long ss, long long sb, int rows) {
-  using G = Geo<D>;
-  PFN_cuTensorMapEncodeTiled fn = encode_fn();
-  if (fn == nullptr) return false;
-  const long long n[4] = {S, G::NB, H, B}, st[4] = {ss, G::W, sh, sb};
-  cuuint64_t dims[5] = {static_cast<cuuint64_t>(G::W), 0, 0, 0, 0};
-  cuuint64_t strides[4];
-  cuuint64_t packed = 2ull * G::W;
-  for (int i = 0; i < 4; ++i) {
-    dims[i + 1] = static_cast<cuuint64_t>(n[i]);
-    strides[i] = n[i] == 1 ? packed : static_cast<cuuint64_t>(2 * st[i]);
-    packed = strides[i] * n[i];
-  }
-  cuuint32_t box[5] = {static_cast<cuuint32_t>(G::W),
-                       static_cast<cuuint32_t>(rows),
-                       static_cast<cuuint32_t>(G::NB), 1u, 1u};
-  cuuint32_t unit[5] = {1u, 1u, 1u, 1u, 1u};
-  const CUtensorMapSwizzle swizzle =
-      G::SW == 128 ? CU_TENSOR_MAP_SWIZZLE_128B
-      : G::SW == 64 ? CU_TENSOR_MAP_SWIZZLE_64B
-                    : CU_TENSOR_MAP_SWIZZLE_32B;
-  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 5, const_cast<void*>(ptr),
-            dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
-            CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
-}
-
 template <int D>
 cudaError_t launch_bf16(const void* q, const void* k, const void* v,
                         void* o, int B, int H, const Strides& st,
@@ -876,17 +548,6 @@ cudaError_t launch(int dtype, const void* q, const void* k, const void* v,
                    const Problem& p, cudaStream_t stream) {
   return dtype == 0 ? launch_f32<D>(q, k, v, o, B, H, st, p, stream)
                     : launch_bf16<D>(q, k, v, o, B, H, st, p, stream);
-}
-
-template <typename K>
-int kernel_info(K kernel, int dyn_smem, int* info) {
-  cudaFuncAttributes a;
-  cudaError_t err = cudaFuncGetAttributes(&a, kernel);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  info[0] = a.numRegs;
-  info[1] = static_cast<int>(a.sharedSizeBytes) + dyn_smem;
-  info[2] = static_cast<int>(a.localSizeBytes);
-  return 0;
 }
 
 template <int D>

@@ -23,11 +23,22 @@ CPU path and the card's yardstick.
 
 The gradient (``csrc/flash_attention_bwd.cu``, new in the port: the TPU
 kernel has none, the reference lets XLA differentiate
-``blocked_attention``) is two kernels after FlashAttention-2:
+``blocked_attention``) is two wrappers after FlashAttention-2's split:
 :func:`flash_bwd_dq` (delta = rowsum(dO o) and dq) and
 :func:`flash_bwd_dkdv` (dk and dv, summed over each GQA group with no
 atomics).  Both recompute the probabilities from the row log-sum-exp that
-the forward writes when asked (:func:`flash_attention_with_lse`).
+the forward writes when asked (:func:`flash_attention_with_lse`).  The
+kernels each launches are a fixed function of the dtype
+(``BWD_KERNELS``).  bf16 runs the Hopper kernels: every product on the
+tensor cores with wgmma (dq does 3 products over the visible pairs: S,
+dP, dq; dkdv 4: S, dP, dv, dk, so both are bound by operations), tiles by
+TMA into mbarrier rings, P and dS rounded to bf16 in registers.  dkdv's
+block owns one kv tile of one kv head and walks ``dkdv_splits`` parts of
+its GQA group; with more than one part each block writes float32
+partials that ``flash_bwd_dkdv_sum`` adds in part order
+(:func:`flash_bwd_dkdv_split_ref` is that scheme in plain torch), so the
+grid fills the card at the training call and two runs are bitwise equal.
+float32 runs scalar FMA kernels (tensor cores would be TF32).
 :class:`FlashAttentionFn` is the ``torch.autograd.Function`` whose
 forward is the forward kernel and whose backward is those two; its plain
 counterpart is autograd through :func:`flash_attention_ref`, and
@@ -50,6 +61,21 @@ DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 # the kernel each dtype launches, at every head dim (csrc/flash_attention.cu)
 KERNELS = {torch.float32: "flash_fwd_f32", torch.bfloat16: "flash_fwd_tma"}
 BLOCK_K = 128  # the TPU kernel's kv block, which sets its padding contract
+# the kernels each backward wrapper launches, per dtype, at every head dim
+# (csrc/flash_attention_bwd.cu); flash_bwd_dkdv_sum only when
+# dkdv_splits(...) > 1
+BWD_KERNELS = {
+    torch.float32: {"flash_bwd_dq": ("flash_bwd_dq",),
+                    "flash_bwd_dkdv": ("flash_bwd_dkdv",)},
+    torch.bfloat16: {"flash_bwd_dq": ("flash_bwd_dq_wgmma",),
+                     "flash_bwd_dkdv": ("flash_bwd_dkdv_wgmma",
+                                        "flash_bwd_dkdv_sum")},
+}
+BWD_ROWS = 64        # rows of every backward tile
+# blocks of flash_bwd_dkdv_wgmma per SM that dkdv_splits aims for, and the
+# SM count it assumes when not given the card's (an H100 SXM's)
+DKDV_BLOCKS_PER_SM = 2
+H100_SMS = 132
 
 
 def check_args(q, k, v, *, causal: bool, window: int) -> None:
@@ -153,14 +179,67 @@ def flash_attention_bwd_ref(q, k, v, o, do, lse, *, causal: bool = True,
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
+def dkdv_splits(b: int, hkv: int, group: int, sk: int,
+                sms: int = H100_SMS) -> int:
+    """Parts of each GQA group that flash_bwd_dkdv's bf16 kernel splits
+    its walk over: the smallest divisor s of ``group`` for which
+    b hkv ceil(sk / 64) s blocks reach DKDV_BLOCKS_PER_SM per SM of a card
+    with ``sms`` SMs, else the group itself.  On an H100 (132 SMs): 3 at
+    qwen2-1.5b's training call (2, 2048, group 6, Hkv 2), 2 at its prefill
+    call (2, 4096)."""
+    base = b * hkv * -(-sk // BWD_ROWS)
+    for s in range(1, group + 1):
+        if group % s == 0 and base * s >= DKDV_BLOCKS_PER_SM * sms:
+            return s
+    return group
+
+
+def flash_bwd_dkdv_split_ref(q, k, v, do, lse, delta, *, splits: int,
+                             causal: bool = True, window: int = 0):
+    """flash_bwd_dkdv's split scheme as dense float32 torch: split s of
+    ``splits`` sums dk and dv over query heads s (group / splits) ..
+    (s + 1) (group / splits) - 1 of each GQA group into float32 partials
+    (splits, B, Sk, Hkv, D), which are added in split order, as
+    ``flash_bwd_dkdv_sum`` adds them.  delta is rowsum(dO o) (B, H, Sq).
+    Returns (dk, dv) in k's dtype."""
+    check_args(q, k, v, causal=causal, window=window)
+    b, sq, h, d = q.shape
+    sk, hkv = k.shape[1], k.shape[2]
+    group, scale = h // hkv, 1.0 / math.sqrt(d)
+    if splits < 1 or group % splits:
+        raise ValueError(f"splits {splits} does not divide the group "
+                         f"{group}")
+    per = group // splits
+    vv = v.float().repeat_interleave(group, dim=2)
+    p = torch.where(_mask(sq, sk, causal, window, q.device),
+                    torch.exp(_scores_ref(q, k, causal, window)
+                              - lse[..., None]), 0.0)
+    dof = do.float()
+    dp = torch.einsum("bqhd,bkhd->bhqk", dof, vv)
+    ds = p * (dp - delta[..., None])
+    # (B, Sk, H, D) per query head, then (B, Sk, Hkv, splits, per, D)
+    dk = torch.einsum("bhqk,bqhd->bkhd", ds, q.float()) * scale
+    dv = torch.einsum("bhqk,bqhd->bkhd", p, dof)
+    parts_k = dk.reshape(b, sk, hkv, splits, per, d).sum(4)
+    parts_v = dv.reshape(b, sk, hkv, splits, per, d).sum(4)
+    out_k, out_v = parts_k[:, :, :, 0], parts_v[:, :, :, 0]
+    for s in range(1, splits):
+        out_k = out_k + parts_k[:, :, :, s]
+        out_v = out_v + parts_v[:, :, :, s]
+    return out_k.to(k.dtype), out_v.to(v.dtype)
+
+
 _ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 7
              + [ctypes.c_longlong] * 12
              + [ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_void_p,
                 ctypes.c_void_p])
 # q, k, v, o|dout, ... pointers, then dtype, B, Sq, Sk, H, Hkv, D, causal,
-# window, scale, stream (csrc/flash_attention_bwd.cu)
+# window, scale, stream (csrc/flash_attention_bwd.cu); dkdv takes splits
+# and the partials' scratch before the stream
 _BWD_ARGTYPES = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 9
                  + [ctypes.c_float, ctypes.c_void_p])
+_DKDV_ARGTYPES = _BWD_ARGTYPES[:-1] + [ctypes.c_int, ctypes.c_void_p,
+                                       ctypes.c_void_p]
 
 
 def _launcher():
@@ -267,11 +346,33 @@ flash_attention.launches = 0
 # ---------------------------------------------------------------------------
 
 
-def _bwd_launcher(name):
+def _bwd_launcher(name, argtypes=_BWD_ARGTYPES):
     fn = getattr(_build.load("flash_attention_bwd"), name)
-    fn.argtypes = _BWD_ARGTYPES
+    fn.argtypes = argtypes
     fn.restype = ctypes.c_int
     return fn
+
+
+def bwd_kernel_info(dtype, d: int) -> dict:
+    """Registers, shared memory and local memory (spills and stack) of
+    each kernel of ``BWD_KERNELS[dtype]`` at head dim ``d``, as the CUDA
+    runtime reports them (builds the library): {name: {"registers",
+    "smem_bytes", "local_bytes"}}."""
+    fn = _build.load("flash_attention_bwd").flash_bwd_kernel_info
+    fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                   ctypes.POINTER(ctypes.c_int)]
+    fn.restype = ctypes.c_int
+    names = [n for group in BWD_KERNELS[dtype].values() for n in group]
+    out = {}
+    for which, name in enumerate(names):
+        info = (ctypes.c_int * 3)()
+        rc = fn(DTYPES[dtype], d, which, info)
+        if rc != 0:
+            raise RuntimeError(f"flash_bwd_kernel_info({name}): cudaError "
+                               f"{rc}")
+        out[name] = {"registers": info[0], "smem_bytes": info[1],
+                     "local_bytes": info[2]}
+    return out
 
 
 def _bwd_args(q, k, causal, window):
@@ -329,19 +430,29 @@ def flash_bwd_dkdv(q, k, v, do, lse, delta, *, causal: bool = True,
     """Launch ``flash_bwd_dkdv`` after :func:`flash_bwd_dq` (it reads that
     kernel's delta).  Returns (dk, dv) in k's dtype, each summed over the
     query heads of its GQA group, and adds one to
-    ``flash_bwd_dkdv.launches``."""
+    ``flash_bwd_dkdv.launches``.  In bf16 with ``dkdv_splits`` > 1 it
+    allocates the float32 partials (2, splits, B, Sk, Hkv, D) and the
+    call also launches ``flash_bwd_dkdv_sum``."""
     _check_cuda(q, k, v, causal, window, "flash_bwd_dkdv")
     _check_bwd((q, k, v, do), q, (lse, delta), "flash_bwd_dkdv")
     if do.shape != q.shape:
         raise ValueError(f"dO {tuple(do.shape)} must have q's shape "
                          f"{tuple(q.shape)}")
+    b, _, h, d = q.shape
+    sk, hkv = k.shape[1], k.shape[2]
+    sms = torch.cuda.get_device_properties(q.device).multi_processor_count
+    splits = dkdv_splits(b, hkv, h // hkv, sk, sms) \
+        if q.dtype == torch.bfloat16 else 1
+    part = torch.empty(2, splits, b, sk, hkv, d, device=q.device,
+                       dtype=torch.float32) if splits > 1 else None
     dk, dv = torch.empty_like(k), torch.empty_like(v)
-    fn = _bwd_launcher("flash_bwd_dkdv_launch")
+    fn = _bwd_launcher("flash_bwd_dkdv_launch", _DKDV_ARGTYPES)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
                 lse.data_ptr(), delta.data_ptr(), dk.data_ptr(),
-                dv.data_ptr(), *_bwd_args(q, k, causal, window), stream)
+                dv.data_ptr(), *_bwd_args(q, k, causal, window), splits,
+                part.data_ptr() if part is not None else None, stream)
     if rc != 0:
         raise RuntimeError(f"flash_bwd_dkdv launch failed: cudaError {rc}")
     flash_bwd_dkdv.launches += 1

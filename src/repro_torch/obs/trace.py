@@ -33,6 +33,7 @@ from __future__ import annotations
 
 import json
 import os
+import re
 import threading
 import time
 from contextlib import contextmanager
@@ -222,6 +223,14 @@ def profile(out_dir: Optional[str] = None):
     with torch.profiler.profile(activities=acts) as prof:
         yield out_dir
     prof.export_chrome_trace(os.path.join(out_dir, "trace.json"))
+
+
+def kernel_base(key: str) -> str:
+    """The bare function name of a ``torch.profiler`` kernel key:
+    ``flash_bwd_dq_wgmma`` for "void (anonymous
+    namespace)::flash_bwd_dq_wgmma<128>(CUtensorMap_st, ...)"."""
+    name = key.replace("(anonymous namespace)::", "").removeprefix("void ")
+    return re.split(r"[<(]", name, maxsplit=1)[0].strip().split("::")[-1]
 
 
 def read_jsonl(path: str) -> list[dict]:

@@ -3,10 +3,14 @@
 On the CPU: autograd through the plain version against ``jax.grad`` of the
 reference's ``blocked_attention`` (which the reference trains through), the
 backward kernels' formulas (``flash_attention_bwd_ref``) against autograd,
-and ``FlashAttentionFn``'s plumbing with the plain versions in the
-kernels' place.  On a card (marked ``cuda``, skipped without one): the two
-backward kernels against autograd through the plain version over a grid of
-shapes, the forward's LSE, and the repaired fault -- a backward through
+``FlashAttentionFn``'s plumbing with the plain versions in the kernels'
+place, the bf16 dkdv kernel's GQA split (``dkdv_splits`` and its plain
+version ``flash_bwd_dkdv_split_ref``), and that the kernels' build hash
+covers the headers they include.  On a card (marked ``cuda``, skipped
+without one): the two backward wrappers against autograd through the
+plain version over a grid of shapes, the forward's LSE, a split call,
+bitwise equal repeats, the kernels the profiler sees (``BWD_KERNELS``),
+no spills, and the repaired fault -- a backward through
 ``ops.flash_attention`` reaches the kernels, one through ``ops.ssd_scan``
 raises:
 
@@ -15,12 +19,17 @@ raises:
 The card's machine has no JAX: it is imported inside the tests that use
 it.
 """
+import re
+import shutil
+
 import numpy as np
 import pytest
 import torch
 
+from repro_torch.kernels import _build
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import ops
+from repro_torch.obs.trace import kernel_base
 
 # the reference's kernel tolerances (tests/test_kernels.py) on the CPU;
 # 1e-4 for float32 gradients on the card, whose sums run over up to 4096
@@ -162,6 +171,80 @@ def test_backward_wrappers_refuse_cpu_tensors(fn):
         fn(*args)
 
 
+@pytest.mark.parametrize("b,hkv,group,sk,want", [
+    (2, 2, 6, 2048, 3),     # qwen2-1.5b's training call: 384 blocks
+    (2, 2, 6, 4096, 2),     # its prefill call: 512 blocks
+])
+def test_dkdv_splits_at_qwen2_calls(b, hkv, group, sk, want):
+    assert fa.dkdv_splits(b, hkv, group, sk) == want
+
+
+@pytest.mark.parametrize("b,hkv,group,sk", [
+    (1, 1, 6, 128), (1, 4, 8, 300), (4, 8, 4, 4096), (1, 32, 1, 4096),
+    (2, 1, 12, 64), (1, 2, 16, 1000)])
+def test_dkdv_splits_is_the_least_divisor_that_fills_the_card(b, hkv, group,
+                                                              sk):
+    s = fa.dkdv_splits(b, hkv, group, sk)
+    blocks = b * hkv * -(-sk // fa.BWD_ROWS)
+    least = fa.DKDV_BLOCKS_PER_SM * fa.H100_SMS
+    assert group % s == 0
+    assert s == group or blocks * s >= least
+    assert all(blocks * r < least for r in range(1, s) if group % r == 0)
+
+
+@pytest.mark.parametrize("splits", [1, 2, 3, 6])
+def test_dkdv_split_ref_matches_the_kernel_formulas(splits):
+    """Split float32 partials added in split order give the backward's dk
+    and dv (GQA group 6, a window, Sq > Sk)."""
+    q, k, v, do = map(torch.from_numpy, _arrays(2, 40, 12, 2, 16, seed=10,
+                                                sk=32))
+    out, lse = fa.flash_attention_lse_ref(q, k, v, causal=True, window=12)
+    delta = torch.einsum("bqhd,bqhd->bhq", do, out)
+    got = fa.flash_bwd_dkdv_split_ref(q, k, v, do, lse, delta,
+                                      splits=splits, causal=True, window=12)
+    want = fa.flash_attention_bwd_ref(q, k, v, out, do, lse, causal=True,
+                                      window=12)[1:]
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, **F32_GRAD)
+
+
+def test_library_path_hashes_the_headers_a_source_includes(monkeypatch,
+                                                          tmp_path):
+    """An edited csrc/hopper.cuh names a new library for both attention
+    sources (no stale build loads) and leaves a source that does not
+    include it alone.  Reads files only: no nvcc."""
+    csrc = tmp_path / "csrc"
+    shutil.copytree(_build.CSRC, csrc)
+    monkeypatch.setattr(_build, "CSRC", csrc)
+    names = ("flash_attention", "flash_attention_bwd", "pid_update")
+    before = {n: _build.library_path(n) for n in names}
+    assert csrc / "hopper.cuh" in _build.sources("flash_attention_bwd")
+    with open(csrc / "hopper.cuh", "a") as f:
+        f.write("// edited\n")
+    after = {n: _build.library_path(n) for n in names}
+    assert after["flash_attention"] != before["flash_attention"]
+    assert after["flash_attention_bwd"] != before["flash_attention_bwd"]
+    assert after["pid_update"] == before["pid_update"]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_bwd_kernels_are_defined_in_the_source(dtype):
+    """Every kernel name a backward wrapper launches (the names
+    chip_smoke.py sums device time by) is a __global__ function of the
+    source, and the bf16 names are not the scalar kernels'."""
+    src = (_build.CSRC / "flash_attention_bwd.cu").read_text()
+    defined = set(re.findall(
+        r"__global__\s+void\s+__launch_bounds__\([^)]*\)\s+(flash_bwd_\w+)\(",
+        src))
+    names = [n for group in fa.BWD_KERNELS[dtype].values() for n in group]
+    assert set(names) <= defined
+    assert set(fa.BWD_KERNELS[dtype]) == {"flash_bwd_dq", "flash_bwd_dkdv"}
+    if dtype == torch.bfloat16:
+        assert not set(names) & {n for group in
+                                 fa.BWD_KERNELS[torch.float32].values()
+                                 for n in group}
+
+
 # ---------------------------------------------------------------------------
 # On the card
 # ---------------------------------------------------------------------------
@@ -189,7 +272,8 @@ CARD_CASES = ([((1, 128, 4, 4, 32), dt, 0, None) for dt in (F32, BF16)]
                  ((1, 100, 4, 2, 64), BF16, 16, 160),   # Sk > Sq
                  ((1, 300, 2, 2, 32), BF16, 16, None),
                  ((1, 256, 6, 1, 128), BF16, 0, None),  # GQA group 6
-                 ((2, 1024, 12, 2, 128), BF16, 0, None)])
+                 ((2, 1024, 12, 2, 128), BF16, 0, None),
+                 ((2, 2048, 12, 2, 128), BF16, 0, None)])  # the training call
 
 
 @pytest.mark.cuda
@@ -268,3 +352,87 @@ def test_cuda_ops_ssd_scan_backward_raises(cuda):
     assert y.grad_fn is not None
     with pytest.raises(NotImplementedError, match="A14b"):
         y.sum().backward()
+
+
+def _card_inputs(cuda, shape, dtype, seed, sk=None):
+    q, k, v, do = (torch.from_numpy(a).to(cuda, dtype)
+                   for a in _arrays(*shape, seed=seed, sk=sk))
+    out, lse = fa.flash_attention_with_lse(q, k, v, causal=True)
+    return q, k, v, out, do, lse
+
+
+@pytest.mark.cuda
+def test_cuda_split_dkdv_matches_plain_autograd(cuda):
+    """A bf16 call that splits each GQA group over six blocks (and sums
+    their f32 partials) gives the plain version's gradients."""
+    shape = (1, 192, 6, 1, 64)
+    assert fa.dkdv_splits(1, 1, 6, 192) == 6
+    q, k, v, out, do, lse = _card_inputs(cuda, shape, BF16, seed=12)
+    got = fa.flash_attention_bwd(q, k, v, out, do, lse, causal=True)
+    want = _plain_grads(q, k, v, do, causal=True)[1:]
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g.float(), w.float(), **CARD_TOL[BF16])
+
+
+@pytest.mark.cuda
+def test_cuda_backward_is_bitwise_deterministic(cuda):
+    """No atomics: two runs at the training call (dkdv split 3) give the
+    same bits."""
+    q, k, v, out, do, lse = _card_inputs(cuda, (2, 2048, 12, 2, 128), BF16,
+                                         seed=13)
+    first = fa.flash_attention_bwd(q, k, v, out, do, lse, causal=True)
+    second = fa.flash_attention_bwd(q, k, v, out, do, lse, causal=True)
+    torch.cuda.synchronize()
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("key,want", [
+    ("void (anonymous namespace)::flash_bwd_dq_wgmma<128>(CUtensorMap_st, "
+     "CUtensorMap_st, (anonymous namespace)::BwdArgs, int)",
+     "flash_bwd_dq_wgmma"),
+    ("void (anonymous namespace)::flash_bwd_dkdv_sum(float const*, "
+     "__nv_bfloat16*, __nv_bfloat16*, long long, int)",
+     "flash_bwd_dkdv_sum"),
+    ("void (anonymous namespace)::flash_bwd_dkdv<64, float>(float const*, "
+     "float const*)", "flash_bwd_dkdv"),
+])
+def test_kernel_base_reads_the_name_the_profiler_gives(key, want):
+    """The name a wrapper's device time is summed by: never a substring,
+    so flash_bwd_dkdv_sum is not counted as flash_bwd_dkdv."""
+    assert kernel_base(key) == want
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [F32, BF16])
+def test_cuda_backward_launches_the_named_kernels(cuda, dtype):
+    """The profiler's kernels of one backward are exactly the dtype's
+    BWD_KERNELS: in bf16 the wgmma kernels and, at a split call, the sum;
+    the scalar kernels only for float32."""
+    from torch.profiler import ProfilerActivity, profile
+    q, k, v, out, do, lse = _card_inputs(cuda, (2, 256, 4, 2, 64), dtype,
+                                         seed=14)
+    assert fa.dkdv_splits(2, 2, 2, 256) == 2
+    torch.cuda.synchronize()
+    for _ in range(3):  # CUPTI now and then delivers no device events
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fa.flash_attention_bwd(q, k, v, out, do, lse, causal=True)
+            torch.cuda.synchronize()
+        seen = {kernel_base(e.key) for e in prof.key_averages()
+                if "flash_bwd" in e.key}
+        if seen:
+            break
+    want = {n for group in fa.BWD_KERNELS[dtype].values() for n in group}
+    assert seen == want
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [F32, BF16])
+def test_cuda_bwd_kernel_info_has_no_spills(cuda, dtype):
+    for d in fa.HEAD_DIMS:
+        info = fa.bwd_kernel_info(dtype, d)
+        assert set(info) == {n for group in fa.BWD_KERNELS[dtype].values()
+                             for n in group}
+        for name, x in info.items():
+            assert 0 < x["registers"] <= 255 and x["local_bytes"] == 0, \
+                (d, name, x)

@@ -16,17 +16,16 @@ per launch) and their sum, in two rounds of alternating order.  Compare
 builds only within one run: times move between cards.  Prints one JSON
 line per (call, round, build), then the card's name and power limit.
 """
-import ctypes
 import json
 import math
 import os
 import subprocess
 import sys
-import time
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, os.path.join(ROOT, "src"))
 sys.path.insert(0, ROOT)
+from variants import build_variants  # noqa: E402
 
 
 def main(argv) -> int:
@@ -37,32 +36,11 @@ def main(argv) -> int:
     import chip_smoke as cs
     from repro_torch.kernels import _build
     from repro_torch.kernels import ssd_scan as sk
-    out_dir = os.path.join(ROOT, "build", "variants")
-    os.makedirs(out_dir, exist_ok=True)
-    procs = {}
-    t0 = time.perf_counter()
-    for arg in argv:
-        name, _, spec = arg.partition("=")
-        src, _, flags = spec.partition(":")
-        src = src or str(_build.CSRC / "ssd_scan.cu")
-        lib = os.path.join(out_dir, f"{name}.so")
-        cmd = [_build.find_nvcc(), *_build.NVCC_FLAGS, *flags.split(), "-o",
-               lib, src]
-        procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                        stderr=subprocess.STDOUT, text=True),
-                       lib)
-    libs = {}
-    for name, (proc, lib) in procs.items():
-        log, _ = proc.communicate()
-        if proc.returncode:
-            print(f"build of {name} failed:\n{log}", file=sys.stderr)
-            return 1
-        ptxas = {k: v for k, v in cs.ptxas_by_kernel(log).items()
-                 if k.startswith(sk.KERNELS)
-                 and ("<64, " in k or "<" not in k)}
-        print(json.dumps({"build": name, "ptxas": ptxas}), flush=True)
-        libs[name] = ctypes.CDLL(lib)
-    print(json.dumps({"build_s": time.perf_counter() - t0}), flush=True)
+    libs = build_variants(
+        argv, str(_build.CSRC / "ssd_scan.cu"),
+        lambda k: k.startswith(sk.KERNELS) and ("<64, " in k or "<" not in k))
+    if libs is None:
+        return 1
     g = torch.Generator(device="cuda").manual_seed(4)
     for arch, shape in cs.SSD_PREFILL.items():
         *dims, chunk = shape
