@@ -4,7 +4,8 @@
     python3 chip_smoke.py
     python3 chip_smoke.py --flash-only   # build and flash_attention only
     python3 chip_smoke.py --ssd-only     # build and ssd_scan only
-    python3 chip_smoke.py --train-only   # build, flash_bwd and train only
+    python3 chip_smoke.py --train-only   # build, flash_bwd, train, ssd_bwd,
+                                         # train_ssm and train_hybrid only
 
 Phases, each printing one JSON line; any failure ends the run with a
 nonzero exit and no result line:
@@ -65,7 +66,8 @@ nonzero exit and no result line:
               group is split, flash_bwd_dkdv_sum) against autograd through
               the plain version (f32 1e-4, bf16 2e-2) at qwen2-1.5b's
               prefill call (2, 4096, 12, 2, 128) and training call (2,
-              2048, ...) bf16 causal and at small and odd shapes (head
+              2048, ...) bf16 causal, zamba2-2.7b's training call (1, 2048,
+              32, 32, 80) and at small and odd shapes (head
               dims 64 and 80, windows, S not a multiple of 64, Sq > Sk),
               every case run twice and held to bitwise equality, the
               forward's LSE against the plain one, SDPA's backward's own
@@ -88,9 +90,39 @@ nonzero exit and no result line:
               under "dots") and each backward kernel 28 times; ms per
               step, tokens/s, peak memory, one profiled step's device time,
               busy share and top kernels; a 2-layer cut through the kernels
-              against the plain versions (2e-2 norm-relative per leaf);
+              against the plain versions (bf16: 2e-2 norm-relative per leaf;
+              f32: 1e-4 per leaf; the plain versions in float64 beside
+              them);
               smollm-135m at full width checkpointed after 4 steps and
               restarted to 6 against an unbroken run (1e-5)
+  ssd_bwd     ssd_scan's backward (ssd_scan_bwd: ssd_bwd_chunk_state,
+              _state_pass, _chunk, _sum) against its plain version
+              (ssd_scan_bwd_ref) and autograd through ssd_scan_ref, f32
+              1e-4 of each gradient's scale (its norm and its largest
+              element) and bf16 norm-relative within 1.25x the plain
+              version's own bf16 error from the f32 inputs' gradient, at
+              mamba2-1.3b's and zamba2-2.7b's training calls (1, 2048, 64,
+              64, 128) and (1, 2048, 80, 64, 64), mamba2's prefill call
+              and small and odd shapes (chunks 8-256), every case twice
+              and bitwise equal; the cold-L2 device time per kernel at
+              those three calls beside the bound and the plain version's
+              (no PyTorch call computes the scan or its gradient)
+  train_ssm, train_hybrid
+              the train phase's Trainer at full mamba2-1.3b and zamba2-2.7b
+              width and depth (their plan: remat "dots", 4 microbatches)
+              for 5 steps of (4, 2048) tokens, an FFR trigger after step
+              1: fails unless every loss is finite, steps were shed, and
+              each step launched the scan's forward twice per Mamba-2
+              layer and microbatch, its backward once (and zamba2's shared
+              attention once each way per block and microbatch); ms per
+              step, tokens/s, peak memory, one profiled step's busy share;
+              the train phase's 2-layer cut (the hybrid's with one shared
+              block) on one microbatch; in the hybrid's, a leaf whose bf16
+              gradient is ill-conditioned (the plain versions' bf16
+              gradient more than 2e-2 from float64, and rounding the
+              weights alone to bf16 moving their f32 gradient more than
+              2e-2) may miss 2e-2 if the kernels' bf16 gradient lies no
+              farther from float64 than the plain versions' does
   engine      engine_rollout(reduce="summary") on the full E9 batch (288
               scenarios, 6 countries x 3 seeds x 2 products x 4 bands x 2
               event draws) over 24 h, or the longest whole number of hours
@@ -140,7 +172,7 @@ nonzero exit and no result line:
               under AllocationChurn (printed, not enforced)
   twin        Fig. 4 (benchmarks/cluster_24h.py): 100 hosts x 3 chips on the
               DE grid, seeds 0-2 as one run_twin_batch over 24 h or the
-              longest whole number of hours the phase's 180 s allow
+              longest whole number of hours the phase's 120 s allow
               (printed as a cut): scenario-seconds per wall second, ms per
               tick, one tick's device time and launches, peak memory, seed
               0's summary beside the paper's, the net-CO2 decomposition at
@@ -150,6 +182,13 @@ nonzero exit and no result line:
               batch (288 x 24 h), 8 lanes against the per-event oracle,
               the event counts against the engine phase's, then
               report.sweep_telemetry(fast=True) rendered
+  e8          E8 (benchmarks/e8_multicountry.py, paper Fig. 5 with E9's
+              PUE design axis): the full 144-scenario x 672 h batch on the
+              card in one batched sweep, its median time and scenarios/s,
+              the headline (drag closed, delta per grid and MW, E9's drag
+              per design) beside the paper's 2.5-5.8 pp (not enforced);
+              the fast batch on the CPU and on the card (totals and CFE
+              rtol 1e-3, pp 1e-3, picks equal but for near-ties)
 
 Then a {"kernels": [...]} line, the card's name and power limit as
 nvidia-smi reports them, and the last line
@@ -170,7 +209,7 @@ import numpy as np
 ROOT = os.path.dirname(os.path.abspath(__file__))
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM data sheet
 L2_BYTES = 50 * 2**20              # H100 SXM, where torch does not report it
-ENGINE_BUDGET_S = 240.0            # wall time the 24 h rollout may spend
+ENGINE_BUDGET_S = 150.0            # wall time the 24 h rollout may spend
 KERNEL_TOL = dict(atol=1e-4, rtol=1e-5)
 # E4's closed loop through pid_update against the same loop through its
 # plain version: a 1-ulp change of every tick's PID outputs moves the
@@ -227,7 +266,7 @@ SERVICE_MAX_RSS_GROWTH_MB = 64.0
 PROFILED_STEPS = 8               # opt steps in the bidder's profiled run
 # the paper's experiments (benchmarks/e2, e4, e7, cluster_24h, e9)
 FR_LATENCY_PORT = 47661          # UDP port of fr_latency's island
-TWIN_BUDGET_S = 180.0            # wall time of the whole twin phase
+TWIN_BUDGET_S = 120.0            # wall time of the whole twin phase
 TWIN_SEEDS = (0, 1, 2)
 TWIN_PAPER = {"ar4_mae_norm": 0.036, "ar4_p95_norm": 0.09, "q_ffr": 1.0,
               "mean_mu_green": 0.90, "mean_mu_dirty": 0.40,
@@ -1764,6 +1803,17 @@ TRAIN_TRIGGER_AFTER = 3            # fire_test_trigger after this step
 TRAIN_ISLAND_PORT = 47681          # UDP port of the train phase's island
 TRAIN_CUT_LAYERS = 2               # the kernels-vs-plain check's depth
 TRAIN_CUT_REL = 2e-2               # bf16, norm-relative per leaf
+TRAIN_CUT_F32_REL = 1e-4           # the same cut in f32 compute, per leaf
+# the SSM and hybrid train phases: mamba2-1.3b and zamba2-2.7b under their
+# configs' plan (remat "dots", 4 microbatches), one 2048-token sequence per
+# microbatch
+TRAIN_SSM_SHAPE = (4, 2048)
+TRAIN_SSM_STEPS = 5
+TRAIN_SSM_TRIGGER_AFTER = 1
+# a shed quantum of 2 steps, so the shed skips a step inside so short a run
+# (the trainer's default quantum of 10 would run all of steps 2-4)
+TRAIN_SSM_DUTY_QUANTUM = 2
+TRAIN_SSM_PORTS = {"train_ssm": 47682, "train_hybrid": 47683}
 CKPT_ARCH, CKPT_SHAPE = "smollm-135m", (2, 512)
 CKPT_STEPS, CKPT_RESTART_STEPS = 4, 6
 CKPT_LOSS_RTOL = 1e-5
@@ -1771,11 +1821,13 @@ CKPT_LOSS_RTOL = 1e-5
 
 def flash_bwd_cases():
     """(shape (B, S, H, Hkv, D), dtype name, window, Sk or None) of the
-    backward check: qwen2-1.5b's prefill and training calls, then small
+    backward check: qwen2-1.5b's prefill and training calls and zamba2-2.7b's
+    training call (head dim 80), then small
     and odd shapes in both dtypes -- head dims 64 and 80, windows, S not a
     multiple of the 64-row tiles, Sq > Sk."""
     return ([(PREFILL_SHAPE, "bfloat16", 0, None),
-             (TRAIN_ATTN_SHAPE, "bfloat16", 0, None)]
+             (TRAIN_ATTN_SHAPE, "bfloat16", 0, None),
+             (ZAMBA2_TRAIN_ATTN_SHAPE, "bfloat16", 0, None)]
             + [(shape, dt, w, None)
                for shape, w in (((2, 256, 4, 2, 64), 0),
                                 ((1, 200, 6, 2, 80), 24),
@@ -1914,10 +1966,11 @@ def time_flash_bwd(torch, g, shape, plain_reps):
 def phase_flash_bwd(torch):
     """flash_attention's two backward wrappers against autograd through the
     plain version (f32 1e-4, bf16 2e-2) at qwen2-1.5b's prefill and
-    training calls and at small and odd shapes, each run twice and held
-    to bitwise equality, the forward's LSE against the plain one, SDPA's
-    backward's own error at the prefill call (context, not a gate), the
-    device times at both calls beside the bound and SDPA's backward, and
+    training calls, zamba2-2.7b's training call and at small and odd
+    shapes, each run twice and held to bitwise equality, the forward's LSE
+    against the plain one, SDPA's backward's own error at the prefill call
+    (context, not a gate), the device times at those three calls beside
+    the bound and SDPA's backward, and
     the bf16 kernels' resources from the CUDA runtime (no local memory at
     D = 128); returns the two wrappers' records of the {"kernels": ...}
     line."""
@@ -1970,6 +2023,7 @@ def phase_flash_bwd(torch):
     torch.cuda.empty_cache()
     t = time_flash_bwd(torch, g, PREFILL_SHAPE, plain_reps=4)
     t_train = time_flash_bwd(torch, g, TRAIN_ATTN_SHAPE, plain_reps=0)
+    t_hybrid = time_flash_bwd(torch, g, ZAMBA2_TRAIN_ATTN_SHAPE, plain_reps=0)
     build = {d: fa.bwd_kernel_info(torch.bfloat16, d) for d in (80, 128)}
     spilled = {k: v for k, v in build[128].items() if v["local_bytes"]}
     if spilled:
@@ -1992,9 +2046,11 @@ def phase_flash_bwd(torch):
             "bound_by": k_pre["bound_by"], "library_ms": t["library_ms"],
             "shape": list(PREFILL_SHAPE), "dtype": "bfloat16",
             "kernels_bf16": list(fa.BWD_KERNELS[torch.bfloat16][name]),
-            "splits": t["splits"], "ms_train_call": k_train["ms"]})
+            "splits": t["splits"], "ms_train_call": k_train["ms"],
+            "ms_train_call_d80": t_hybrid["kernels"][name]["ms"]})
     emit({"phase": "flash_bwd", "checks": checks,
           "prefill_call": t, "train_call": t_train,
+          "train_call_hybrid": t_hybrid,
           "sdpa_max_abs_err_dq_dk_dv": sdpa_err,
           "kernels_max_abs_err": worst,
           "prev_ms": FLASH_BWD_PREV_MS,
@@ -2012,64 +2068,492 @@ def phase_flash_bwd(torch):
     return recs
 
 
+# the scan's gradient against its plain version (ssd_scan_bwd_ref) and
+# autograd through ssd_scan_ref.  f32: 1e-4 of each gradient's scale, as
+# ||k - p|| <= 1e-4 ||p|| and max |k - p| <= 1e-4 max |p| (elementwise
+# 1e-4 does not hold even between the plain version and autograd: the
+# gradients reach |g| ~ 1e4 at the training calls, and elements that cancel
+# keep ~1e-3 of rounding; all three sit ~3e-7 from the float64 gradient).
+# bf16: norm-relative per gradient within 1.25x the plain version's own
+# bf16 error from the f32 inputs' gradient (as the bf16 forward is held).
+SSD_BWD_F32 = 1e-4
+SSD_BWD_BF16_VS_PLAIN = 1.25
+SSD_BWD_NAMES = ("dx", "ddt", "dA", "dB", "dC")
+# (b, s, nh, hd, ds, chunk) of the training calls: one sequence of 2048 per
+# microbatch of the (4, 2048) global batch
+SSD_TRAIN = {"mamba2-1.3b": (1, 2048, 64, 64, 128, 256),
+             "zamba2-2.7b": (1, 2048, 80, 64, 64, 256)}
+ZAMBA2_TRAIN_ATTN_SHAPE = (1, 2048, 32, 32, 80)  # its shared block, training
+
+
+def ssd_bwd_cases():
+    """(shape, dtype name) of the backward check: both training calls and
+    mamba2's prefill call, then small and odd shapes (chunks 8-256, hd 16-64,
+    ds 16-128, b 1-2) in both dtypes."""
+    return ([(shape, dt) for shape in SSD_TRAIN.values()
+             for dt in ("bfloat16", "float32")]
+            + [(SSD_PREFILL["mamba2-1.3b"], "bfloat16")]
+            + [(shape, dt) for shape in ((1, 64, 4, 16, 16, 8),
+                                         (2, 128, 8, 16, 32, 16),
+                                         (2, 96, 4, 16, 16, 32),
+                                         (1, 256, 16, 32, 64, 64),
+                                         (2, 48, 3, 32, 128, 16),
+                                         (2, 512, 4, 64, 128, 128),
+                                         (1, 512, 3, 64, 64, 256))
+               for dt in ("float32", "bfloat16")])
+
+
+def ssd_bwd_inputs(torch, g, b, s, nh, hd, ds, dtype):
+    """(x, dt, A, B, C, dy) in ``dtype`` (dt, A float32; B and C halves of
+    one (b, s, 2 ds) projection, as the model passes them) and the same in
+    float32 before the cast."""
+    def n(*shape):
+        return torch.randn(*shape, device="cuda", generator=g)
+    x, dy = n(b, s, nh, hd), n(b, s, nh, hd)
+    dt = torch.nn.functional.softplus(n(b, s, nh))
+    A = -torch.exp(0.5 * n(nh))
+    bc = n(b, s, 2 * ds)
+    f32 = (x, dt, A, *bc.chunk(2, dim=-1), dy)
+    B, C = bc.to(dtype).chunk(2, dim=-1)
+    return (x.to(dtype), dt, A, B, C, dy.to(dtype)), f32
+
+
+def ssd_bwd_bound_ms(shape, dtype):
+    """The least work of the gradient of one call, causal halves counted
+    once: per (b, chunk) C B^T and the dB and dC products over the
+    triangle (B and C are shared by every head, so dC_i = sum_j W_ij B_j
+    and dB_j = sum_i W_ij C_i with W_ij = sum_h L^h_ij dt^h_j dyx^h_ij
+    summed elementwise first); per head dy x^T and the decayed weights
+    into dx (2 products over the triangle), and five (hd x Q) . (Q x ds)
+    products with the states (the chunk state to recompute, its dy-side
+    gradient, the state read into dC, dS into dx and into dB); against
+    reading x, dt, B, C, dy once and writing dx, ddt, dB, dC once.
+    Returns (ms at the dtype's peak, bound_by, flop, bytes)."""
+    b, s, nh, hd, ds, q = shape
+    nc = s // q
+    tri = q * (q + 1) // 2
+    macs = b * nc * (3 * tri * ds + nh * (2 * tri * hd + 5 * q * hd * ds))
+    flops = 2.0 * macs
+    elem = 2 if dtype == "bfloat16" else 4
+    nbytes = elem * (3 * b * s * nh * hd + 4 * b * s * ds) + 4 * (
+        2 * b * s * nh + 2 * nh)
+    peak = TENSOR_CORE_BF16_FLOP_S if dtype == "bfloat16" else FP32_FLOP_S
+    t_ops, t_bytes = flops / peak, nbytes / HBM_BYTES_PER_S
+    return (max(t_ops, t_bytes) * 1e3,
+            "operations" if t_ops >= t_bytes else "bytes", flops, nbytes)
+
+
+def ssd_autograd(torch, args, chunk):
+    """dx, ddt, dA, dB, dC by autograd through ssd_scan_ref."""
+    from repro_torch.kernels import ssd_scan as sk
+    leaves = [t.detach().clone().requires_grad_(True) for t in args[:5]]
+    y = sk.ssd_scan_ref(*leaves, chunk)[0]
+    return torch.autograd.grad(y, leaves, args[5])
+
+
+def rel_err(torch, a, b):
+    return float((a.float() - b.float()).norm()
+                 / b.float().norm().clamp_min(1e-30))
+
+
+def time_ssd_bwd(torch, g, shape):
+    """Cold-L2 device time of one bf16 call of the backward (the sum of its
+    four kernels) and of the plain version's, at ``shape``."""
+    from repro_torch.kernels import ssd_scan as sk
+    *dims, chunk = shape
+    first = ssd_bwd_inputs(torch, g, *dims, torch.bfloat16)[0]
+    set_bytes = sum(x.numel() * x.element_size() for x in first)
+    n_sets = math.ceil(4 * l2_bytes(torch) / set_bytes)
+    sets = [first] + [ssd_bwd_inputs(torch, g, *dims, torch.bfloat16)[0]
+                      for _ in range(n_sets - 1)]
+    kept = []
+    prof_k = profile_calls(torch, cycled(
+        sets, lambda *a: sk.ssd_scan_bwd(*a, chunk=chunk), kept), 10,
+        groups={k: (k,) for k in sk.BWD_KERNELS})
+    kept.clear()
+    prof_p = profile_calls(torch, cycled(
+        sets, lambda *a: sk.ssd_scan_bwd_ref(*a, chunk), kept), 2)
+    kept.clear()
+    del sets, first
+    torch.cuda.empty_cache()
+    # each kernel launches once a call: a dropped event lowers the
+    # launches seen, another kernel (a fill) would raise them
+    per = {k: v / 1e3 for k, v in prof_k["group_us_per_call"].items()}
+    if prof_k["launches_per_call"] > len(sk.BWD_KERNELS) or \
+            not all(per.values()):
+        raise RuntimeError(f"ssd_bwd at {shape}: "
+                           f"{prof_k['launches_per_call']} device launches "
+                           f"per call ({per}), expected one of each of "
+                           f"{sk.BWD_KERNELS}")
+    ms = sum(per.values())
+    bound_ms, bound_by, flops, nbytes = ssd_bwd_bound_ms(shape, "bfloat16")
+    f32_bound_ms = flops / FP32_FLOP_S * 1e3
+    return {"shape": list(shape), "dtype": "bfloat16", "ms": ms,
+            "kernel_ms": per,
+            "device_launches_seen_per_call": prof_k["launches_per_call"],
+            "plain_ms": prof_p["rounded_us_per_call"] / 1e3,
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "bound_share": bound_ms / ms, "gflop": flops / 1e9,
+            "mbytes": nbytes / 1e6, "tflop_s": flops / (ms * 1e-3) / 1e12,
+            "f32_cuda_core_bound_ms": f32_bound_ms,
+            "f32_cuda_core_share": f32_bound_ms / ms, "cold_sets": n_sets}
+
+
+def phase_ssd_bwd(torch):
+    """ssd_scan's backward (four kernels) against its plain version and
+    autograd through ssd_scan_ref at both training calls, mamba2's prefill
+    call and small and odd shapes, f32 and bf16, every case twice and
+    bitwise equal; then the cold-L2 device time at the training calls and
+    the prefill call beside the bound and the plain version's.  Returns the
+    record of the {"kernels": ...} line (mamba2-1.3b's training call)."""
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import ssd_scan as sk
+    t_phase = time.perf_counter()
+    g = torch.Generator(device="cuda").manual_seed(21)
+    checks, worst = [], 0.0
+    for shape, dt in ssd_bwd_cases():
+        *dims, chunk = shape
+        args, f32 = ssd_bwd_inputs(torch, g, *dims, getattr(torch, dt))
+        got = sk.ssd_scan_bwd(*args, chunk=chunk)
+        again = sk.ssd_scan_bwd(*args, chunk=chunk)
+        plain = sk.ssd_scan_bwd_ref(*args, chunk)[:5]
+        auto = ssd_autograd(torch, args, chunk)
+        torch.cuda.synchronize()
+        if not all(torch.equal(a, b) for a, b in zip(got, again)):
+            raise RuntimeError(f"ssd_bwd: two runs at {shape} {dt} differ")
+        row = {"shape": list(shape), "dtype": dt,
+               "bitwise_equal_twice": True}
+        if dt == "float32":
+            for name, k, p, a in zip(SSD_BWD_NAMES, got, plain, auto):
+                for ref, label in ((p, "plain"), (a, "autograd")):
+                    err = float((k - ref).abs().max())
+                    rel = rel_err(torch, k, ref)
+                    if not (rel <= SSD_BWD_F32 and err <= SSD_BWD_F32 *
+                            float(ref.abs().max())):
+                        raise RuntimeError(
+                            f"ssd_bwd f32 at {shape}: {name} against the "
+                            f"{label} version: norm-relative {rel}, max "
+                            f"{err} of {float(ref.abs().max())}")
+            row["max_abs_err"] = {n: float((k - p).abs().max())
+                                  for n, k, p in zip(SSD_BWD_NAMES, got,
+                                                     plain)}
+            row["rel_err"] = {n: rel_err(torch, k, p)
+                              for n, k, p in zip(SSD_BWD_NAMES, got, plain)}
+            row["rel_err_autograd"] = {
+                n: rel_err(torch, k, a)
+                for n, k, a in zip(SSD_BWD_NAMES, got, auto)}
+            worst = max(worst, *row["max_abs_err"].values())
+        else:
+            exact = sk.ssd_scan_bwd_ref(*f32, chunk)[:5]
+            rel = {}
+            for name, k, p, a, e in zip(SSD_BWD_NAMES, got, plain, auto,
+                                        exact):
+                rk, rp, ra = (rel_err(torch, v, e) for v in (k, p, a))
+                if not (rk <= SSD_BWD_BF16_VS_PLAIN * rp
+                        and rk <= SSD_BWD_BF16_VS_PLAIN * ra):
+                    raise RuntimeError(
+                        f"ssd_bwd bf16 at {shape}: {name} is {rk} from the "
+                        f"f32 gradient, the plain version {rp}, autograd "
+                        f"{ra} (limit {SSD_BWD_BF16_VS_PLAIN}x)")
+                rel[name] = {"kernels": rk, "plain": rp, "autograd": ra}
+            row["rel_err_from_f32"] = rel
+            row["max_abs_err"] = {n: float((k.float() - p.float()).abs()
+                                           .max())
+                                  for n, k, p in zip(SSD_BWD_NAMES, got,
+                                                     plain)}
+        checks.append(row)
+        del args, f32, got, again, plain, auto
+        torch.cuda.empty_cache()
+    timed = {arch: time_ssd_bwd(torch, g, shape)
+             for arch, shape in SSD_TRAIN.items()}
+    timed["prefill mamba2-1.3b"] = time_ssd_bwd(torch, g,
+                                                SSD_PREFILL["mamba2-1.3b"])
+    ptxas = {k: v for k, v in ptxas_by_kernel(
+        _build.PTXAS_REPORT.get("ssd_scan_bwd", "")).items()
+        if "<64, " in k or "<" not in k}
+    m = timed["mamba2-1.3b"]
+    rec = {"name": "ssd_scan_bwd", "route": "cuda",
+           "source": "src/repro_torch/kernels/csrc/ssd_scan_bwd.cu",
+           "replaces": "src/repro/kernels/ssd_scan.py:105",
+           "max_abs_err": worst, "ms": m["ms"], "plain_ms": m["plain_ms"],
+           "bound_ms": m["bound_ms"], "bound_by": m["bound_by"],
+           "library_ms": None, "shape": m["shape"], "dtype": "bfloat16",
+           "kernels_bf16": list(sk.BWD_KERNELS),
+           "ms_zamba2_train_call": timed["zamba2-2.7b"]["ms"]}
+    emit({"phase": "ssd_bwd", "checks": checks,
+          "tol": {"float32_scale_rel": SSD_BWD_F32,
+                  "bfloat16_vs_plain": SSD_BWD_BF16_VS_PLAIN},
+          "timed": timed, "ptxas": ptxas,
+          "plain": "ssd_scan_bwd_ref (the explicit chunked backward in "
+                   "torch); autograd through ssd_scan_ref as a second check",
+          "library": "none: no PyTorch call computes the SSD scan or its "
+                     "gradient",
+          "seconds": time.perf_counter() - t_phase})
+    return rec
+
+
 def train_launch_counters():
     from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ssd_scan as sk
     return {"flash_attention": fa.flash_attention,
             "flash_bwd_dq": fa.flash_bwd_dq,
-            "flash_bwd_dkdv": fa.flash_bwd_dkdv}
+            "flash_bwd_dkdv": fa.flash_bwd_dkdv,
+            "ssd_scan": sk.ssd_scan, "ssd_scan_bwd": sk.ssd_scan_bwd}
 
 
-def grads_rel(torch, got, want):
-    """max over leaves of ||got - want|| / ||want||."""
-    from repro_torch._tree import leaves_with_paths
-    worst, leaf = 0.0, None
-    wl = dict(leaves_with_paths(want))
-    for path, g in leaves_with_paths(got):
-        w = wl[path].float()
-        r = float((g.float() - w).norm() / w.norm().clamp_min(1e-30))
-        if r > worst:
-            worst, leaf = r, "/".join(path)
-    return worst, leaf
+def train_launches_expected(cfg, runs, microbatches=None):
+    """Each kernel's launches in ``runs`` training steps of ``cfg``: a
+    forward and a backward per microbatch, and under remat "dots" or
+    "full" each remat layer's forward again in the backward -- every layer
+    of the dense and SSM families, the Mamba-2 layers of the hybrid (its
+    shared attention block is not under remat)."""
+    m = cfg.plan.microbatches if microbatches is None else microbatches
+    again = 2 if cfg.plan.remat in ("dots", "full") else 1
+    ssd = attn = 0
+    if cfg.family == "dense":
+        attn = cfg.num_layers
+        attn_fwd = attn * again
+    else:
+        ssd = cfg.num_layers
+        if cfg.family == "hybrid":
+            attn = cfg.num_layers // cfg.hybrid_period
+        attn_fwd = attn
+    n = runs * m
+    return {"flash_attention": n * attn_fwd, "flash_bwd_dq": n * attn,
+            "flash_bwd_dkdv": n * attn, "ssd_scan": n * ssd * again,
+            "ssd_scan_bwd": n * ssd}
 
 
-def train_cut_check(torch, cfg):
-    """A TRAIN_CUT_LAYERS-layer cut at full width: the first step's loss
-    and gradients through the kernels and through the plain versions."""
-    import dataclasses
-    from repro_torch.data.tokens import TokenPipeline
+def cut_grads(torch, model, params, batch, plain):
+    """loss and gradients of one batch through the kernels or, with
+    ``plain``, through their plain versions."""
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ops
-    from repro_torch.models import build_model
+    from repro_torch.kernels import ssd_scan as sk
     from repro_torch.train.step import loss_and_grads
-    cut = dataclasses.replace(cfg, num_layers=TRAIN_CUT_LAYERS)
+    if not plain:
+        return loss_and_grads(model, params, batch)
+    kernels = ops.flash_attention, ops.ssd_scan
+    ops.flash_attention = fa.flash_attention_ref
+    ops.ssd_scan = (lambda x, dt, A, B, C, *, chunk=256:
+                    sk.ssd_scan_ref(x, dt, A, B, C, chunk)[0])
+    try:
+        return loss_and_grads(model, params, batch)
+    finally:
+        ops.flash_attention, ops.ssd_scan = kernels
+
+
+def leaf_rels(torch, got, want):
+    """{leaf: ||got - want|| / ||want||}."""
+    from repro_torch._tree import leaves_with_paths
+    wl = dict(leaves_with_paths(want))
+    return {"/".join(path): float(
+        (g.float() - wl[path].float()).norm()
+        / wl[path].float().norm().clamp_min(1e-30))
+        for path, g in leaves_with_paths(got)}
+
+
+def cut_readings(torch, cfg, batch_shape):
+    """A TRAIN_CUT_LAYERS-layer cut of ``cfg`` at full width (the hybrid's
+    with one shared block): the first step's loss and gradients on
+    ``batch_shape`` tokens through the kernels and through the plain
+    versions in bf16 (the main path) and in f32, and through the plain
+    versions in float64 (the yardstick no kernel touches).  Returns the
+    losses, each kernel's launches in the bf16 kernels' run, the
+    launches :func:`train_launches_expected` gives, and per leaf the
+    norm-relative distances: kernels from plain in bf16 and in f32, and
+    each of the four from the float64 gradient, and how far rounding the
+    weights to bf16 alone moves the plain versions' f32 gradient."""
+    import dataclasses
+    from repro_torch._tree import tree_map
+    from repro_torch.data.tokens import TokenPipeline
+    from repro_torch.models import build_model
+    over = {"num_layers": TRAIN_CUT_LAYERS}
+    if cfg.family == "hybrid":
+        over["hybrid_period"] = TRAIN_CUT_LAYERS
+    cut = dataclasses.replace(cfg, **over)
     model = build_model(cut, device="cuda")
     params = model.init(0)
-    b, s = TRAIN_SHAPE
+    b, s = batch_shape
     batch = TokenPipeline(b, s, cut.vocab_size, device="cuda").batch_at(0)
     counters = train_launch_counters()
     before = {k: c.launches for k, c in counters.items()}
-    loss_k, _, grads_k = loss_and_grads(model, params, batch)
-    launched = {k: c.launches - before[k] for k, c in counters.items()}
-    kernel = ops.flash_attention
-    ops.flash_attention = fa.flash_attention_ref
-    try:
-        loss_p, _, grads_p = loss_and_grads(model, params, batch)
-    finally:
-        ops.flash_attention = kernel
+    loss_k, _, kb = cut_grads(torch, model, params, batch, False)
     torch.cuda.synchronize()
-    rel, leaf = grads_rel(torch, grads_k, grads_p)
-    loss_rel = abs(float(loss_k) - float(loss_p)) / abs(float(loss_p))
-    if not (rel <= TRAIN_CUT_REL and loss_rel <= TRAIN_CUT_REL):
-        raise RuntimeError(f"train: the {TRAIN_CUT_LAYERS}-layer cut's "
+    launched = {k: c.launches - before[k] for k, c in counters.items()}
+    loss_p, _, pb = cut_grads(torch, model, params, batch, True)
+    m32 = build_model(cut, compute_dtype=torch.float32, device="cuda")
+    m64 = build_model(cut, compute_dtype=torch.float64, device="cuda")
+    grads = {"kernels_bf16": kb, "plain_bf16": pb,
+             "kernels_f32": cut_grads(torch, m32, params, batch, False)[2],
+             "plain_f32": cut_grads(torch, m32, params, batch, True)[2],
+             "plain_f64": cut_grads(torch, m64, params, batch, True)[2],
+             "plain_f32_bf16_weights": cut_grads(
+                 torch, m32, tree_map(lambda p: p.to(torch.bfloat16).float(),
+                                      params), batch, True)[2]}
+    torch.cuda.synchronize()
+    rels = {"bf16": leaf_rels(torch, kb, pb),
+            "f32": leaf_rels(torch, grads["kernels_f32"],
+                             grads["plain_f32"])}
+    for k in ("kernels_bf16", "plain_bf16", "kernels_f32", "plain_f32"):
+        rels[f"{k}_from_f64"] = leaf_rels(torch, grads[k],
+                                          grads["plain_f64"])
+    rels["bf16_weights_move_f32"] = leaf_rels(
+        torch, grads["plain_f32_bf16_weights"], grads["plain_f32"])
+    leaves = {leaf: {k: r[leaf] for k, r in rels.items()}
+              for leaf in rels["bf16"]}
+    del grads, kb, pb
+    return {"loss_kernels": float(loss_k), "loss_plain": float(loss_p),
+            "launches": launched,
+            "launches_expected": train_launches_expected(cut, 1,
+                                                         microbatches=1),
+            "leaves": leaves}
+
+
+def train_cut_check(torch, cfg, phase, batch_shape, conditioned=False):
+    """:func:`cut_readings`, held to: the loss and every leaf's bf16
+    gradient within TRAIN_CUT_REL of the plain versions', every leaf's f32
+    gradient within TRAIN_CUT_F32_REL, and each kernel launched as
+    expected.  With ``conditioned`` (the hybrid, whose bf16 gradient is
+    ill-conditioned) a leaf that misses TRAIN_CUT_REL in bf16 passes only
+    on two witnesses of its conditioning that involve no kernel -- the
+    plain versions' bf16 gradient lies more than TRAIN_CUT_REL from the
+    float64 one, and rounding the weights alone to bf16 moves their f32
+    gradient more than TRAIN_CUT_REL -- and only if the kernels' bf16
+    gradient lies no farther from the float64 gradient than the plain
+    versions' does."""
+    r = cut_readings(torch, cfg, batch_shape)
+    leaves = r["leaves"]
+    loss_rel = abs(r["loss_kernels"] - r["loss_plain"]) / abs(
+        r["loss_plain"])
+    missed = {leaf: v for leaf, v in leaves.items()
+              if not v["bf16"] <= TRAIN_CUT_REL}
+    held = {leaf: v for leaf, v in missed.items() if conditioned
+            and v["plain_bf16_from_f64"] > TRAIN_CUT_REL
+            and v["bf16_weights_move_f32"] > TRAIN_CUT_REL
+            and v["kernels_bf16_from_f64"] <= v["plain_bf16_from_f64"]}
+    bad = [leaf for leaf in missed if leaf not in held]
+    bad += [f"{leaf} (f32)" for leaf, v in leaves.items()
+            if not v["f32"] <= TRAIN_CUT_F32_REL]
+    if bad or not loss_rel <= TRAIN_CUT_REL:
+        raise RuntimeError(f"{phase}: the {TRAIN_CUT_LAYERS}-layer cut's "
                            f"kernels miss the plain versions: loss "
-                           f"{loss_rel}, gradient {rel} at {leaf}")
-    if launched["flash_bwd_dq"] != TRAIN_CUT_LAYERS or \
-            launched["flash_bwd_dkdv"] != TRAIN_CUT_LAYERS:
-        raise RuntimeError(f"train: the cut's backward launched {launched}")
-    return {"layers": TRAIN_CUT_LAYERS, "loss_kernels": float(loss_k),
-            "loss_plain": float(loss_p), "loss_rel_err": loss_rel,
-            "grad_rel_err_max": rel, "grad_rel_err_leaf": leaf,
-            "tol_rel": TRAIN_CUT_REL, "launches": launched}
+                           f"{loss_rel}, leaves {bad}: {leaves}")
+    if r["launches"] != r["launches_expected"]:
+        raise RuntimeError(f"{phase}: the cut launched {r['launches']}, "
+                           f"expected {r['launches_expected']}")
+    worst = max(leaves, key=lambda k: leaves[k]["bf16"])
+    worst_f32 = max(leaves, key=lambda k: leaves[k]["f32"])
+    return {"layers": TRAIN_CUT_LAYERS, "batch_x_seq": list(batch_shape),
+            "loss_kernels": r["loss_kernels"], "loss_plain": r["loss_plain"],
+            "loss_rel_err": loss_rel,
+            "grad_rel_err_max": leaves[worst]["bf16"],
+            "grad_rel_err_leaf": worst, "tol_rel": TRAIN_CUT_REL,
+            "held_by_conditioning": held,
+            "f32_grad_rel_err_max": leaves[worst_f32]["f32"],
+            "f32_grad_rel_err_leaf": worst_f32,
+            "f32_worst_leaf_from_f64": {
+                k: leaves[worst_f32][k]
+                for k in ("kernels_f32_from_f64", "plain_f32_from_f64")},
+            "f32_tol_rel": TRAIN_CUT_F32_REL, "launches": r["launches"]}
+
+
+def run_trainer(torch, phase, cfg, batch_shape, steps, trigger_after, port,
+                duty_quantum_steps=10):
+    """The Trainer at full width and depth (bf16 compute over f32
+    parameters, the config's remat and microbatches, random weights from
+    seed 0, AdamW state on the card) for ``steps`` steps of ``batch_shape``
+    tokens with a port GridPilot attached and an FFR trigger fired after
+    step ``trigger_after`` (the shed runs the first duty x
+    ``duty_quantum_steps`` steps of each quantum); fails unless every loss
+    is finite, steps were shed with an ffr_shed event and each kernel
+    launched as
+    :func:`train_launches_expected` says.  Then one more step under the
+    profiler.  Returns the run's numbers and launches."""
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.core.controller import GridPilot
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ssd_scan as sk
+    from repro_torch.grid.signals import make_grid
+    from repro_torch.train.trainer import Trainer, TrainerConfig
+    b, s = batch_shape
+    shape = ShapeConfig(f"smoke_{phase}", s, b, "train")
+    gp = GridPilot(n_hosts=1, chips_per_host=1, island_port=port,
+                   device="cuda")
+    try:
+        grid = make_grid("DE", 24)
+        plan = gp.hourly_plan(grid.ci, grid.t_amb)
+        trainer = Trainer(cfg, shape, TrainerConfig(
+            steps=steps, log_every=0, duty_quantum_steps=duty_quantum_steps),
+            gridpilot=gp, device="cuda")
+        params, opt = trainer.init_state()
+        torch.cuda.synchronize()
+
+        def on_step(step, metrics):
+            if step == trigger_after:
+                gp.fire_test_trigger()
+                time.sleep(0.05)  # the UDP trigger reaches the island
+
+        counters = train_launch_counters()
+        torch.cuda.reset_peak_memory_stats()
+        for c in counters.values():
+            c.launches = 0
+        t0 = time.perf_counter()
+        out = trainer.train(params, opt, on_step=on_step)
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t0
+        launches = {k: c.launches for k, c in counters.items()}
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        params, opt = out["params"], out["opt"]
+        hist, skipped = out["history"], out["skipped"]
+        losses = [h["loss"] for h in hist]
+        runs = len(hist)
+        want = train_launches_expected(cfg, runs)
+        shed = any(e["event"] == "ffr_shed" for e in out["events"])
+        if not all(np.isfinite(losses)) or not skipped > 0 or \
+                not shed or launches != want:
+            raise RuntimeError(
+                f"{phase}: losses {losses}, skipped {skipped}, "
+                f"ffr_shed {shed}, launches {launches} (expected {want})")
+        # where a step's time goes: one more step under the profiler
+        batch = trainer._pipeline().batch_at(steps)
+        step_fn = trainer.bundle.step_fn
+        t1 = time.perf_counter()
+        step_fn(params, opt, batch, steps)
+        torch.cuda.synchronize()
+        step_wall_ms = (time.perf_counter() - t1) * 1e3
+        groups = {**fa.BWD_KERNELS[torch.bfloat16],
+                  "ssd_scan_bwd": sk.BWD_KERNELS}
+        prof = profile_calls(
+            torch, lambda i=0: step_fn(params, opt, batch, steps + 1), 1,
+            match=("flash_fwd", "ssd_scan"), groups=groups)
+    finally:
+        gp.close()
+    del params, opt, out, trainer
+    torch.cuda.empty_cache()
+    dts = [h["dt"] for h in hist]
+    ms = statistics.median(dts[1:]) * 1e3
+    return {"arch": cfg.name, "params": cfg.param_count(), "batch": b,
+            "seq": s, "steps": steps, "run_steps": runs, "skipped": skipped,
+            "microbatches": cfg.plan.microbatches,
+            "duty_quantum_steps": duty_quantum_steps,
+            "compute_dtype": "bfloat16", "param_dtype": "float32",
+            "remat": cfg.plan.remat,
+            "plan": {"mu": plan.mu, "rho": plan.rho},
+            "losses": losses, "ms_per_step": ms,
+            "step_ms": [d * 1e3 for d in dts], "wall_s": wall_s,
+            "tokens_per_s": b * s / (ms * 1e-3), "peak_gb": peak_gb,
+            "launches": launches, "launches_expected": want,
+            "launches_per_step": {k: v / runs for k, v in launches.items()},
+            "profiled_step_wall_ms": step_wall_ms,
+            "device_ms_per_step": prof["device_us_per_call"] / 1e3,
+            "busy_share": prof["device_us_per_call"] / 1e3 / step_wall_ms,
+            "kernel_device_ms": {k: v / 1e3 for k, v in
+                                 {**prof["matched_us_per_call"],
+                                  **prof["group_us_per_call"]}.items()},
+            "bwd_kernels": prof["group_kernels"],
+            "launches_per_profiled_step": prof["launches_per_call"],
+            "top_kernels_us": prof["kernels"]}
 
 
 def ckpt_restart_check(torch):
@@ -2112,110 +2596,155 @@ def ckpt_restart_check(torch):
 
 
 def phase_train(torch):
-    """The Trainer at full qwen2-1.5b width and depth (bf16 compute over
-    f32 parameters, remat "dots", random weights from seed 0, AdamW state
-    on the card) for TRAIN_STEPS steps of TRAIN_SHAPE tokens with a port
-    GridPilot attached and an FFR trigger fired mid-run; then the
+    """:func:`run_trainer` at full qwen2-1.5b width and depth for
+    TRAIN_STEPS steps of TRAIN_SHAPE tokens (the attention forward 56
+    times a step under remat "dots", each backward kernel 28); then the
     2-layer kernels-vs-plain check and the smollm-135m restart check.
     Returns each kernel's launches in the trainer's run."""
-    from repro_torch.configs.base import ShapeConfig
-    from repro_torch.core.controller import GridPilot
     from repro_torch.core.plant import train_step_cost
-    from repro_torch.kernels import flash_attention as fa
-    from repro_torch.grid.signals import make_grid
-    from repro_torch.train.trainer import Trainer, TrainerConfig
     t_phase = time.perf_counter()
     cfg = get_cfg("qwen2-1.5b")
     b, s = TRAIN_SHAPE
-    shape = ShapeConfig("smoke_train", s, b, "train")
-    gp = GridPilot(n_hosts=1, chips_per_host=1,
-                   island_port=TRAIN_ISLAND_PORT, device="cuda")
-    try:
-        grid = make_grid("DE", 24)
-        plan = gp.hourly_plan(grid.ci, grid.t_amb)
-        trainer = Trainer(cfg, shape, TrainerConfig(
-            steps=TRAIN_STEPS, log_every=0), gridpilot=gp, device="cuda")
-        params, opt = trainer.init_state()
-        torch.cuda.synchronize()
-
-        def on_step(step, metrics):
-            if step == TRAIN_TRIGGER_AFTER:
-                gp.fire_test_trigger()
-                time.sleep(0.05)  # the UDP trigger reaches the island
-
-        counters = train_launch_counters()
-        torch.cuda.reset_peak_memory_stats()
-        for c in counters.values():
-            c.launches = 0
-        t0 = time.perf_counter()
-        out = trainer.train(params, opt, on_step=on_step)
-        torch.cuda.synchronize()
-        wall_s = time.perf_counter() - t0
-        launches = {k: c.launches for k, c in counters.items()}
-        peak_gb = torch.cuda.max_memory_allocated() / 1e9
-        params, opt = out["params"], out["opt"]
-        hist, skipped = out["history"], out["skipped"]
-        losses = [h["loss"] for h in hist]
-        runs = len(hist)
-        per_fwd = 2 if cfg.plan.remat in ("dots", "full") else 1
-        want = {"flash_attention": runs * cfg.num_layers * per_fwd,
-                "flash_bwd_dq": runs * cfg.num_layers,
-                "flash_bwd_dkdv": runs * cfg.num_layers}
-        shed = any(e["event"] == "ffr_shed" for e in out["events"])
-        if not all(np.isfinite(losses)) or not out["skipped"] > 0 or \
-                not shed or launches != want:
-            raise RuntimeError(
-                f"train: losses {losses}, skipped {out['skipped']}, "
-                f"ffr_shed {shed}, launches {launches} (expected {want})")
-        # where a step's time goes: one more step under the profiler
-        batch = trainer._pipeline().batch_at(TRAIN_STEPS)
-        step_fn = trainer.bundle.step_fn
-        t1 = time.perf_counter()
-        step_fn(params, opt, batch, TRAIN_STEPS)
-        torch.cuda.synchronize()
-        step_wall_ms = (time.perf_counter() - t1) * 1e3
-        prof = profile_calls(
-            torch, lambda i=0: step_fn(params, opt, batch, TRAIN_STEPS + 1),
-            1, match=("flash_fwd",),
-            groups=fa.BWD_KERNELS[torch.bfloat16])
-    finally:
-        gp.close()
-    del params, opt, out, trainer
-    torch.cuda.empty_cache()
-    flops, nbytes = train_step_cost(cfg, b, s)
-    dts = [h["dt"] for h in hist]
-    ms = statistics.median(dts[1:]) * 1e3
-    cut = train_cut_check(torch, cfg)
+    res = run_trainer(torch, "train", cfg, TRAIN_SHAPE, TRAIN_STEPS,
+                      TRAIN_TRIGGER_AFTER, TRAIN_ISLAND_PORT)
+    flops, _ = train_step_cost(cfg, b, s)
+    ms = res["ms_per_step"]
+    cut = train_cut_check(torch, cfg, "train", TRAIN_SHAPE)
     torch.cuda.empty_cache()
     restart = ckpt_restart_check(torch)
-    emit({"phase": "train", "arch": cfg.name, "params": cfg.param_count(),
-          "batch": b, "seq": s, "steps": TRAIN_STEPS, "run_steps": runs,
-          "skipped": skipped,
+    emit({"phase": "train", **res,
           "cut": {"batch_x_seq": [b, s], "reference_train_4k": [256, 4096],
                   "why": "one card; the reference's train_4k is 256 x "
                          "4096 on a pod"},
-          "compute_dtype": "bfloat16", "param_dtype": "float32",
-          "remat": cfg.plan.remat, "plan": {"mu": plan.mu, "rho": plan.rho},
-          "losses": losses, "ms_per_step": ms,
-          "step_ms": [d * 1e3 for d in dts], "wall_s": wall_s,
-          "tokens_per_s": b * s / (ms * 1e-3), "peak_gb": peak_gb,
-          "launches": launches, "launches_expected": want,
-          "launches_per_step": {k: v / runs for k, v in launches.items()},
-          "profiled_step_wall_ms": step_wall_ms,
-          "device_ms_per_step": prof["device_us_per_call"] / 1e3,
-          "busy_share": prof["device_us_per_call"] / 1e3 / step_wall_ms,
-          "kernel_device_ms": {k: v / 1e3 for k, v in
-                               {**prof["matched_us_per_call"],
-                                **prof["group_us_per_call"]}.items()},
-          "bwd_kernels": prof["group_kernels"],
-          "launches_per_profiled_step": prof["launches_per_call"],
-          "top_kernels_us": prof["kernels"],
           "model_tflop_per_step": flops / 1e12,
           "model_tflop_s": flops / (ms * 1e-3) / 1e12,
           "mfu_vs_989": flops / (ms * 1e-3) / TENSOR_CORE_BF16_FLOP_S,
           "cut_check": cut, "restart_check": restart,
           "seconds": time.perf_counter() - t_phase})
-    return launches
+    return res["launches"]
+
+
+def phase_train_ssm(torch, phase, arch):
+    """:func:`run_trainer` at full width and depth of an SSM or hybrid
+    config (mamba2-1.3b, zamba2-2.7b: remat "dots", 4 microbatches of one
+    2048-token sequence) for TRAIN_SSM_STEPS steps of TRAIN_SSM_SHAPE
+    tokens, every scan's gradient through ssd_scan_bwd (and the hybrid's
+    shared attention through the attention backward); then the 2-layer
+    kernels-vs-plain check on one microbatch.  Returns each kernel's
+    launches in the trainer's run."""
+    t_phase = time.perf_counter()
+    cfg = get_cfg(arch)
+    b, s = TRAIN_SSM_SHAPE
+    res = run_trainer(torch, phase, cfg, TRAIN_SSM_SHAPE, TRAIN_SSM_STEPS,
+                      TRAIN_SSM_TRIGGER_AFTER, TRAIN_SSM_PORTS[phase],
+                      TRAIN_SSM_DUTY_QUANTUM)
+    cut = train_cut_check(torch, cfg, phase,
+                          (b // cfg.plan.microbatches, s),
+                          conditioned=cfg.family == "hybrid")
+    torch.cuda.empty_cache()
+    emit({"phase": phase, **res,
+          "cut": {"batch_x_seq": [b, s], "reference_train_4k": [256, 4096],
+                  "why": "one card; the reference's train_4k is 256 x "
+                         "4096 on a pod"},
+          "cut_check": cut, "seconds": time.perf_counter() - t_phase})
+    return res["launches"]
+
+
+E8_REPS = 20                 # timed sweeps of the full batch
+E8_PP_ATOL = 1e-3            # CPU against card, pp metrics
+E8_RTOL = 1e-3               # CPU against card, replay totals and CFE
+E8_TIE_REL = 1e-5            # a pick may differ only on such a near-tie
+
+
+def e8_compare(torch, ex, cpu, gpu, batch_gpu, noise_gpu):
+    """The card's E8 metrics against the CPU's on the same batch: totals
+    and CFE at rtol 1e-3, pp metrics at 1e-3 pp, shed-depth picks equal
+    unless the CPU's two candidates tie within 1e-5 (then the card's run
+    is repeated with the CPU's picks, as the tests pin them)."""
+    n_lo = len(ex.LO_LEVELS)
+    cols = {"shed_depth_blind": ("co2_it_candidates", 0),
+            "shed_depth_aware": ("co2_candidates", n_lo)}
+    los = torch.tensor(ex.LO_LEVELS)
+    picks, flipped = [], 0
+    for key, (tot, off) in cols.items():
+        pc = torch.bucketize(cpu[key], los)
+        pg = torch.bucketize(gpu[key].cpu(), los)
+        t = cpu[tot][:, off:off + n_lo]
+        rows = torch.arange(len(pc))
+        diff = pc != pg
+        a, b = t[rows, pg][diff], t[rows, pc][diff]
+        if not bool(((a - b).abs() <= E8_TIE_REL * b.abs()).all()):
+            raise RuntimeError(f"e8: the card's {key} differs from the "
+                               f"CPU's beyond a near-tie")
+        flipped += int(diff.sum())
+        picks.append(pc.cuda())
+    pinned = ex.e8_metrics(batch_gpu, noise_gpu, picks=tuple(picks))
+    worst = {}
+    for k in (*ex.METRIC_KEYS, "co2_candidates", "co2_it_candidates"):
+        got, want = pinned[k].cpu().double(), cpu[k].double()
+        err = float((got - want).abs().max())
+        if k.endswith("_pp"):
+            ok = err <= E8_PP_ATOL
+        elif k.startswith("shed_depth"):
+            ok = err == 0.0
+        else:
+            ok = bool(((got - want).abs() <= E8_RTOL * want.abs()).all())
+        if not ok:
+            raise RuntimeError(f"e8: CPU against card, {k} off by {err}")
+        worst[k] = err
+    return {"max_abs_err": worst, "picks_pinned_on_near_ties": flipped}
+
+
+def phase_e8(torch):
+    """E8 (benchmarks/e8_multicountry.py, paper Fig. 5, with E9's PUE
+    design axis): the full 144-scenario x 672 h batch built on the card and
+    swept in one batched call: the median time of E8_REPS sweeps,
+    scenarios per second, one sweep's device time and launches, the
+    headline rows beside the paper's 2.5-5.8 pp (printed, not enforced, as
+    the reference enforces nothing); then the fast batch (26 scenarios) on
+    the CPU and on the card."""
+    import repro_torch.experiments as ex
+    t_phase = time.perf_counter()
+    t0 = time.perf_counter()
+    batch, groups = ex.build_e8_batch(False, device="cuda")
+    noise = ex.e8_noise(batch)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    metrics = ex.e8_metrics(batch, noise)
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(E8_REPS):
+        t0 = time.perf_counter()
+        metrics = ex.e8_metrics(batch, noise)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    prof = profile_calls(torch, lambda i=0: ex.e8_metrics(batch, noise), 3)
+    if not all_finite(torch, metrics):
+        raise RuntimeError("e8: the sweep's metrics are not finite")
+    rows = ex.e8_group_rows(metrics, groups)
+    head = ex.e8_summary(rows)
+    fast_cpu, _ = ex.build_e8_batch(True, device="cpu")
+    fast_gpu, _ = ex.build_e8_batch(True, device="cuda")
+    cpu = ex.e8_metrics(fast_cpu, ex.e8_noise(fast_cpu))
+    gpu_noise = ex.e8_noise(fast_gpu)
+    gpu = ex.e8_metrics(fast_gpu, gpu_noise)
+    check = e8_compare(torch, ex, cpu, gpu, fast_gpu, gpu_noise)
+    ms = statistics.median(times)
+    emit({"phase": "e8", "scenarios": batch.n, "hours": batch.h_max,
+          "groups": len(groups), "build_s": build_s,
+          "ms_per_sweep": ms, "sweeps_ms": times,
+          "scenarios_per_s": batch.n / (ms * 1e-3),
+          "device_ms_per_sweep": prof["device_us_per_call"] / 1e3,
+          "launches_per_sweep": prof["launches_per_call"],
+          "busy_share": prof["device_us_per_call"] / 1e3 / ms,
+          "headline": head, "rows": rows,
+          "paper_envelope_pp": list(ex.E8_PAPER_PP),
+          "enforced": "no: the reference bench prints its headline",
+          "cpu_vs_gpu_fast": {"scenarios": fast_cpu.n, **check,
+                              "tol": {"pp_atol": E8_PP_ATOL,
+                                      "rtol": E8_RTOL,
+                                      "tie_rel": E8_TIE_REL}},
+          "seconds": time.perf_counter() - t_phase})
 
 
 def main() -> int:
@@ -2240,10 +2769,13 @@ def main() -> int:
         phase_ssd_kernel(torch)
         return 0
     if "--train-only" in sys.argv[1:]:
-        # the build, the backward kernels' phase and the train phase
-        # alone; no result line
+        # the build, the backward kernels' phases and the three train
+        # phases alone; no result line
         phase_flash_bwd(torch)
         phase_train(torch)
+        phase_ssd_bwd(torch)
+        phase_train_ssm(torch, "train_ssm", "mamba2-1.3b")
+        phase_train_ssm(torch, "train_hybrid", "zamba2-2.7b")
         return 0
     pid_rec = phase_kernel(torch)
     flash_rec = phase_flash_kernel(torch)
@@ -2285,10 +2817,22 @@ def main() -> int:
     bwd_recs = phase_flash_bwd(torch)
     free()
     train_launches = phase_train(torch)
+    free()
+    ssd_bwd_rec = phase_ssd_bwd(torch)
+    free()
+    ssm = phase_train_ssm(torch, "train_ssm", "mamba2-1.3b")
+    free()
+    hybrid = phase_train_ssm(torch, "train_hybrid", "zamba2-2.7b")
+    free()
     for rec in bwd_recs:
         rec["launches"] = train_launches[rec["name"]]
+        rec["launches_train_hybrid"] = hybrid[rec["name"]]
     flash_rec["launches_train"] = train_launches["flash_attention"]
-    free()
+    flash_rec["launches_train_hybrid"] = hybrid["flash_attention"]
+    ssd_rec["launches_train_ssm"] = ssm["ssd_scan"]
+    ssd_rec["launches_train_hybrid"] = hybrid["ssd_scan"]
+    ssd_bwd_rec["launches"] = ssm["ssd_scan_bwd"]
+    ssd_bwd_rec["launches_train_hybrid"] = hybrid["ssd_scan_bwd"]
     engine = phase_engine(torch)
     phase_cpu_vs_gpu(torch)
     phase_sweep(torch)
@@ -2298,7 +2842,8 @@ def main() -> int:
     phase_fr_latency(torch)
     phase_twin(torch)
     phase_reserve(torch, engine)
-    emit({"kernels": [pid_rec, flash_rec, ssd_rec, *bwd_recs]})
+    phase_e8(torch)
+    emit({"kernels": [pid_rec, flash_rec, ssd_rec, *bwd_recs, ssd_bwd_rec]})
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,

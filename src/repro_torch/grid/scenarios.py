@@ -195,16 +195,28 @@ def bidding_seeds(batch: ScenarioBatch) -> torch.Tensor:
     return (batch.event_seed * 1_000_003 + batch.seed * 97 + 7) & MASK32
 
 
+def masked_quantile_sorted(xs: torch.Tensor, n_valid,
+                           q: float) -> torch.Tensor:
+    """Quantile along the last axis of an ascending-sorted ``xs`` whose
+    first ``n_valid`` entries are the valid ones (invalid sorted to
+    +inf), with linear interpolation at q * (n_valid - 1).  ``n_valid``
+    is a number or a tensor of ``xs``' leading shape; the result has that
+    shape.  Lets a sort paid for elsewhere (E8's schedule thresholds over
+    the same signal) be reused."""
+    n_valid = torch.as_tensor(n_valid, device=xs.device).unsqueeze(-1)
+    pos = q / 100.0 * (n_valid.to(torch.float32) - 1.0)
+    i0 = torch.clamp(torch.floor(pos).long(), 0, xs.shape[-1] - 1)
+    i1 = torch.minimum(torch.clamp(i0 + 1, min=0), n_valid.long() - 1)
+    i1 = torch.clamp(i1, min=0)
+    w = pos - i0.to(torch.float32)
+    xs = xs.expand(*n_valid.shape[:-1], xs.shape[-1])
+    out = torch.gather(xs, -1, i0) * (1.0 - w) + torch.gather(xs, -1, i1) * w
+    return out.squeeze(-1)
+
+
 def masked_quantile(x: torch.Tensor, mask: torch.Tensor,
                     q: float) -> torch.Tensor:
     """Quantile of the masked entries of ``x`` along the last axis, with
     linear interpolation at q * (n_valid - 1)."""
     xs = torch.sort(torch.where(mask > 0, x, torch.inf), dim=-1).values
-    n_valid = (mask > 0).sum(-1, keepdim=True)
-    pos = q / 100.0 * (n_valid.to(torch.float32) - 1.0)
-    i0 = torch.clamp(torch.floor(pos).long(), 0, xs.shape[-1] - 1)
-    i1 = torch.minimum(torch.clamp(i0 + 1, min=0), n_valid - 1)
-    i1 = torch.clamp(i1, min=0)
-    w = pos - i0.to(torch.float32)
-    out = torch.gather(xs, -1, i0) * (1.0 - w) + torch.gather(xs, -1, i1) * w
-    return out.squeeze(-1)
+    return masked_quantile_sorted(xs, (mask > 0).sum(-1), q)

@@ -7,10 +7,10 @@ back from one to the other.
 On the card the model kernels' outputs carry autograd through a
 ``torch.autograd.Function`` each: ``FlashAttentionFn``, whose backward
 is the two hand-written backward kernels, and ``SsdScanFn``, whose
-backward raises until the scan's backward kernel exists (ROADMAP A14b).
+backward is the scan's four backward kernels (``csrc/ssd_scan_bwd.cu``).
 Under ``no_grad``, or when no input needs a gradient, the forward is the
-same single launch as before, and the forward kernel writes no LSE.  On
-the CPU autograd differentiates the plain versions as they are.
+same launch as before, and the attention kernel writes no LSE.  On the
+CPU autograd differentiates the plain versions as they are.
 """
 from __future__ import annotations
 

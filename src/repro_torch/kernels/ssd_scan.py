@@ -119,12 +119,121 @@ def ssd_scan_ref(x, dt, A, B, C, chunk: int, initial_state=None):
     return y.to(x.dtype), carry
 
 
-def ssd_ref(x, dt, A, B, C):
-    """Sequential (non-chunked) recurrence in float32, the exact oracle:
-    h_t = h_{t-1} exp(dt_t A) + dt_t B_t x_t, y_t = C_t . h_t.  Returns y
-    in x's dtype."""
+def ssd_scan_bwd_ref(x, dt, A, B, C, dy, chunk: int, initial_state=None):
+    """The scan's gradient, written out in float32 with the decomposition
+    the CUDA kernels use (not autograd through :func:`ssd_scan_ref`).
+
+    Given dy = dL/dy (b, s, nh, hd), returns (dx in x's dtype, ddt and dA
+    in float32, dB and dC in B's dtype, d_initial_state in float32 or
+    None when ``initial_state`` is None).  With P_c the state entering
+    chunk c and seg(j, i] the same-sign segment sums of :func:`segsum`:
+
+    1. recompute the forward's chunk states and P_c in float32;
+    2. G_c = sum_i exp(seg(-1, i]) dy_i C_i^T, the chunk's dy-side state
+       gradient, and the reverse pass over chunks D_c = G_c
+       + exp(seg(-1, Q-1]) D_{c+1} (D of the state entering chunk c; the
+       chunk's end state gets D_{c+1});
+    3. per chunk and head: dx, ddt and dA through the diagonal block
+       (weights exp(seg) (C_i . B_j) dt_j), the off-diagonal read
+       exp(seg(-1, i]) C_i . P_c and the end state's share
+       exp(seg(j, Q-1]) dt_j x_j B_j^T; per-head dB and dC;
+    4. dB, dC summed over heads (``ngroups = 1``), dA over b and s.
+
+    A step k's exponent gradient collects dL_ij L_ij over every segment
+    (j, i] that holds it -- j < k <= i -- as a sum over i >= k of the
+    prefix sums over j < k of each row, never as a difference of running
+    sums; masked entries (above the diagonal) carry no gradient.
+    """
+    check_args(x, dt, A, B, C, chunk)
     b, s, nh, hd = x.shape
+    ds = B.shape[-1]
+    nc = s // chunk
+    q = chunk
     f32 = torch.float32
+    xc = x.reshape(b, nc, q, nh, hd).to(f32)
+    dyc = dy.reshape(b, nc, q, nh, hd).to(f32)
+    dtc = dt.reshape(b, nc, q, nh).to(f32)
+    Bc = B.reshape(b, nc, q, ds).to(f32)
+    Cc = C.reshape(b, nc, q, ds).to(f32)
+    Af = A.to(f32)
+    dA = dtc * Af                                          # (b,nc,q,nh)
+    seg = segsum(dA.transpose(2, 3))                       # (b,nc,nh,q,q)
+    L = torch.exp(seg)
+    e_in = torch.exp(torch.cumsum(dA, dim=2))              # exp seg(-1, i]
+    u_end = torch.exp(seg[..., -1, :]).transpose(2, 3)     # exp seg(j, Q-1]
+    dec = e_in[:, :, -1, :]                                # (b,nc,nh)
+
+    # 1. the forward's chunk states and the state entering each chunk
+    states = torch.einsum("bcjn,bcjhp->bchpn", Bc,
+                          (u_end * dtc)[..., None] * xc)
+    carry = (torch.zeros(b, nh, hd, ds, dtype=f32, device=x.device)
+             if initial_state is None else initial_state.to(f32))
+    prev = []
+    for c in range(nc):
+        prev.append(carry)
+        carry = carry * dec[:, c, :, None, None] + states[:, c]
+    P = torch.stack(prev, 1)                               # (b,nc,nh,hd,ds)
+
+    # 2. the dy-side state gradient and the reverse pass over chunks
+    G = torch.einsum("bcihp,bcin->bchpn", e_in[..., None] * dyc, Cc)
+    D = torch.zeros(b, nh, hd, ds, dtype=f32, device=x.device)
+    dS = [None] * nc                     # gradient of each chunk's end state
+    for c in reversed(range(nc)):
+        dS[c] = D
+        D = G[:, c] + dec[:, c, :, None, None] * D
+    dS = torch.stack(dS, 1)
+
+    # 3. per chunk and head
+    scores = torch.einsum("bcin,bcjn->bcij", Cc, Bc)       # (b,nc,q,q)
+    dyx = torch.einsum("bcihp,bcjhp->bchij", dyc, xc)      # (b,nc,nh,q,q)
+    dt_j = dtc.transpose(2, 3)[..., None, :]               # (b,nc,nh,1,q)
+    Lds = L * dyx                                          # dL/ds / dt_j
+    N = Lds * scores[:, :, None]                           # dL/d(dt_j) part
+    W = L * scores[:, :, None] * dt_j                      # forward weights
+    dsc = Lds * dt_j                                       # dL/d(scores)
+    dx = torch.einsum("bchij,bcihp->bcjhp", W, dyc)
+    ddt = N.sum(-2).transpose(2, 3)                        # (b,nc,q,nh)
+    dC = torch.einsum("bchij,bcjn->bcin", dsc, Bc)
+    dB = torch.einsum("bchij,bcin->bcjn", dsc, Cc)
+    # off-diagonal read: y_i += e_i C_i . P_c
+    dyP = torch.einsum("bcihp,bchpn->bcihn", dyc, P)
+    dC = dC + torch.einsum("bcih,bcihn->bcin", e_in, dyP)
+    de = torch.einsum("bcihn,bcin->bcih", dyP, Cc)
+    # the end state's share: u_j dt_j x_j B_j^T, and its decay of P_c
+    BdS = torch.einsum("bcjn,bchpn->bcjhp", Bc, dS)
+    xBdS = (xc * BdS).sum(-1)                              # (b,nc,q,nh)
+    dx = dx + (u_end * dtc)[..., None] * BdS
+    ddt = ddt + u_end * xBdS
+    dB = dB + torch.einsum("bcjhp,bchpn->bcjn",
+                           (u_end * dtc)[..., None] * xc, dS)
+    dE = (dS * P).sum((-1, -2))                            # (b,nc,nh)
+
+    # exponent gradients: step k lies in (j, i] for j < k <= i
+    M = N * dt_j                                           # dL_ij L_ij
+    pre = torch.cumsum(M, dim=-1)                          # sum_{j'<=j}
+    T = torch.zeros_like(M)
+    T[..., 1:] = pre[..., :-1]                             # sum_{j<k}
+    ones = torch.ones(q, q, dtype=torch.bool, device=x.device)
+    da = T.masked_fill(~ones.tril(), 0.0).sum(-2).transpose(2, 3)
+    da = da + torch.flip(torch.cumsum(torch.flip(de * e_in, [2]), 2), [2])
+    da = da + (dE * dec)[:, :, None, :]
+    du = dtc * xBdS * u_end
+    da = da + torch.cumsum(du, 2) - du                     # sum_{j<k}
+    ddt = ddt + da * Af
+    dA_out = (da * dtc).sum((0, 1, 2))
+
+    d_init = D if initial_state is not None else None
+    return (dx.reshape(b, s, nh, hd).to(x.dtype), ddt.reshape(b, s, nh),
+            dA_out, dB.reshape(b, s, ds).to(B.dtype),
+            dC.reshape(b, s, ds).to(C.dtype), d_init)
+
+
+def ssd_ref(x, dt, A, B, C):
+    """Sequential (non-chunked) recurrence, the exact oracle:
+    h_t = h_{t-1} exp(dt_t A) + dt_t B_t x_t, y_t = C_t . h_t, in float32
+    (float64 when x is float64).  Returns y in x's dtype."""
+    b, s, nh, hd = x.shape
+    f32 = torch.float64 if x.dtype == torch.float64 else torch.float32
     xf, dtf, Af = x.to(f32), dt.to(f32), A.to(f32)
     Bf, Cf = B.to(f32), C.to(f32)
     h = torch.zeros(b, nh, hd, B.shape[-1], dtype=f32, device=x.device)
@@ -167,6 +276,37 @@ def check_bf16_layout(x, B, C) -> None:
                 f"{t.data_ptr()} and strides {t.stride()}")
 
 
+def check_cuda_args(x, dt, A, B, C, chunk: int) -> None:
+    """What every CUDA kernel of the scan takes: the shapes of
+    :func:`check_args`, one CUDA device, x and B/C float32 or bfloat16 (B
+    and C alike), dt and A float32, the last dim of x, B and C contiguous,
+    chunk, hd and ds from CHUNKS, HEAD_DIMS and STATE_DIMS.  Raises
+    ``ValueError`` otherwise."""
+    dev = x.device
+    if dev.type != "cuda":
+        raise ValueError(f"ssd_scan launches on CUDA tensors, got {dev}")
+    check_args(x, dt, A, B, C, chunk)
+    for t, name in ((dt, "dt"), (A, "A"), (B, "B"), (C, "C")):
+        if t.device != dev:
+            raise ValueError(f"{name} is on {t.device}, x on {dev}")
+    if x.dtype not in DTYPES or B.dtype not in DTYPES or B.dtype != C.dtype:
+        raise ValueError("ssd_scan takes x and B/C in float32 or bfloat16 "
+                         f"(B and C alike), got {x.dtype}, {B.dtype}, "
+                         f"{C.dtype}")
+    if dt.dtype != torch.float32 or A.dtype != torch.float32:
+        raise ValueError(f"dt and A must be float32, got {dt.dtype}, "
+                         f"{A.dtype}")
+    _, _, _, hd = x.shape
+    ds = B.shape[-1]
+    if chunk not in CHUNKS or hd not in HEAD_DIMS or ds not in STATE_DIMS:
+        raise ValueError(f"chunk {chunk}, hd {hd}, ds {ds}: the kernel "
+                         f"takes chunk in {CHUNKS}, hd in {HEAD_DIMS}, ds "
+                         f"in {STATE_DIMS}")
+    if x.stride(3) != 1 or B.stride(2) != 1 or C.stride(2) != 1:
+        raise ValueError("ssd_scan reads the last dim of x, B and C "
+                         "contiguously")
+
+
 def ssd_scan(x, dt, A, B, C, *, chunk: int = 256):
     """Launch the CUDA kernels; returns y (b, s, nh, hd) in x's dtype.
 
@@ -183,29 +323,10 @@ def ssd_scan(x, dt, A, B, C, *, chunk: int = 256):
     tensor, another dtype, size or layout, or a launch the runtime
     refuses.
     """
+    check_cuda_args(x, dt, A, B, C, chunk)
     dev = x.device
-    if dev.type != "cuda":
-        raise ValueError(f"ssd_scan launches on CUDA tensors, got {dev}")
-    check_args(x, dt, A, B, C, chunk)
-    for t, name in ((dt, "dt"), (A, "A"), (B, "B"), (C, "C")):
-        if t.device != dev:
-            raise ValueError(f"{name} is on {t.device}, x on {dev}")
-    if x.dtype not in DTYPES or B.dtype not in DTYPES or B.dtype != C.dtype:
-        raise ValueError("ssd_scan takes x and B/C in float32 or bfloat16 "
-                         f"(B and C alike), got {x.dtype}, {B.dtype}, "
-                         f"{C.dtype}")
-    if dt.dtype != torch.float32 or A.dtype != torch.float32:
-        raise ValueError(f"dt and A must be float32, got {dt.dtype}, "
-                         f"{A.dtype}")
     b, s, nh, hd = x.shape
     ds = B.shape[-1]
-    if chunk not in CHUNKS or hd not in HEAD_DIMS or ds not in STATE_DIMS:
-        raise ValueError(f"chunk {chunk}, hd {hd}, ds {ds}: the kernel "
-                         f"takes chunk in {CHUNKS}, hd in {HEAD_DIMS}, ds "
-                         f"in {STATE_DIMS}")
-    if x.stride(3) != 1 or B.stride(2) != 1 or C.stride(2) != 1:
-        raise ValueError("ssd_scan reads the last dim of x, B and C "
-                         "contiguously")
     bf16 = x.dtype == B.dtype == torch.bfloat16
     if bf16:
         check_bf16_layout(x, B, C)
@@ -252,21 +373,101 @@ def ssd_scan(x, dt, A, B, C, *, chunk: int = 256):
 ssd_scan.launches = 0
 
 
+_BWD_ARGTYPES = ([ctypes.c_void_p] * 17 + [ctypes.c_int] * 9
+                 + [ctypes.c_longlong] * 13 + [ctypes.c_void_p] * 2)
+# the backward's device kernels, in launch order (csrc/ssd_scan_bwd.cu)
+BWD_KERNELS = ("ssd_bwd_chunk_state", "ssd_bwd_state_pass", "ssd_bwd_chunk",
+               "ssd_bwd_sum")
+
+
+def _bwd_launcher():
+    lib = _build.load("ssd_scan_bwd")
+    fn = lib.ssd_scan_bwd_launch
+    fn.argtypes, fn.restype = _BWD_ARGTYPES, ctypes.c_int
+    return fn
+
+
+def ssd_scan_bwd(x, dt, A, B, C, dy, *, chunk: int = 256):
+    """Launch the backward's CUDA kernels (``csrc/ssd_scan_bwd.cu``);
+    returns (dx in x's dtype, ddt and dA in float32, dB and dC in B's
+    dtype) for dy = dL/dy of :func:`ssd_scan` on the same inputs.
+
+    Takes what :func:`ssd_scan` takes (either dtype path: the backward
+    reads x, B, C and dy as float32 or bfloat16 through strides, with no
+    alignment rule) and dy of x's shape, float32 or bfloat16, on the same
+    device (copied when its last dim is not contiguous).  The state
+    entering each chunk is recomputed in float32.  Adds one to
+    ``ssd_scan_bwd.launches`` for each call (its four device kernels
+    count as one).  Raises on a CPU tensor, another dtype, size or
+    layout, or a launch the runtime refuses.
+    """
+    check_cuda_args(x, dt, A, B, C, chunk)
+    dev = x.device
+    if dy.shape != x.shape or dy.device != dev or dy.dtype not in DTYPES:
+        raise ValueError(f"dy must be float32 or bfloat16 of x's shape "
+                         f"{tuple(x.shape)} on {dev}, got {dy.dtype} "
+                         f"{tuple(dy.shape)} on {dy.device}")
+    if dy.stride(3) != 1:
+        dy = dy.contiguous()
+    b, s, nh, hd = x.shape
+    ds = B.shape[-1]
+    f32 = torch.float32
+    # every element of every output is written by the kernels
+    out = (torch.empty(x.shape, dtype=x.dtype, device=dev),
+           torch.empty(b, s, nh, dtype=f32, device=dev),
+           torch.empty(nh, dtype=f32, device=dev),
+           torch.empty(b, s, ds, dtype=B.dtype, device=dev),
+           torch.empty(b, s, ds, dtype=C.dtype, device=dev))
+    if b == 0 or s == 0 or nh == 0:
+        return tuple(t.zero_() for t in out)
+    dx, ddt, dA, dB, dC = out
+    nc = s // chunk
+    # scratch: the chunk states then the states entering each chunk, their
+    # dy-side gradients then the end states' gradients, the chunk decays,
+    # each head's dB and dC and each block's share of dA
+    st = torch.empty(b, nc, nh, hd, ds, dtype=f32, device=dev)
+    gs = torch.empty_like(st)
+    dec = torch.empty(b, nc, nh, dtype=f32, device=dev)
+    dbp = torch.empty(nh, b, s, ds, dtype=f32, device=dev)
+    dcp = torch.empty_like(dbp)
+    dap = torch.empty(b, nc, nh, dtype=f32, device=dev)
+    strides = (*x.stride()[:3], *dy.stride()[:3], *dt.stride(),
+               *B.stride()[:2], *C.stride()[:2])
+    errs = (ctypes.c_int * 4)()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        _bwd_launcher()(
+            x.data_ptr(), dt.data_ptr(), A.contiguous().data_ptr(),
+            B.data_ptr(), C.data_ptr(), dy.data_ptr(), dx.data_ptr(),
+            ddt.data_ptr(), dA.data_ptr(), dB.data_ptr(), dC.data_ptr(),
+            st.data_ptr(), gs.data_ptr(), dec.data_ptr(), dbp.data_ptr(),
+            dcp.data_ptr(), dap.data_ptr(), DTYPES[x.dtype], DTYPES[dy.dtype],
+            DTYPES[B.dtype], b, s, nh, hd, ds, chunk, *strides, stream, errs)
+    failed = {k: e for k, e in zip(BWD_KERNELS, errs) if e}
+    if failed:
+        raise RuntimeError(f"ssd_scan_bwd launch failed: cudaError by "
+                           f"kernel {failed}")
+    ssd_scan_bwd.launches += 1
+    return out
+
+
+ssd_scan_bwd.launches = 0
+
+
 class SsdScanFn(torch.autograd.Function):
-    """``ssd_scan`` as an autograd node: its forward is the kernel, and its
-    backward raises, because the scan's backward kernel is a later slice
-    of the port.  Without it a backward through the card path would give
-    x, dt, B and C a zero gradient with no error (the kernel fills a
-    ``torch.empty``, which has no ``grad_fn``).  ``ops.ssd_scan`` routes
-    every CUDA call through it; on the CPU the plain version is
-    differentiated as it is."""
+    """``ssd_scan`` as an autograd node: its forward is the kernel, its
+    backward the four backward kernels (:func:`ssd_scan_bwd`), which
+    recompute what they need from the saved inputs.  ``ops.ssd_scan``
+    routes every CUDA call that records a gradient through it; on the CPU
+    the plain version is differentiated as it is."""
 
     @staticmethod
     def forward(ctx, x, dt, A, B, C, chunk: int):
+        ctx.chunk = chunk
+        ctx.save_for_backward(x, dt, A, B, C)
         return ssd_scan(x, dt, A, B, C, chunk=chunk)
 
     @staticmethod
     def backward(ctx, dy):
-        raise NotImplementedError(
-            "ssd_scan has no backward kernel yet: training the SSM and "
-            "hybrid families on a card waits for ROADMAP A14b")
+        x, dt, A, B, C = ctx.saved_tensors
+        return (*ssd_scan_bwd(x, dt, A, B, C, dy, chunk=ctx.chunk), None)

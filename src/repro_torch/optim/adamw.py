@@ -6,9 +6,12 @@ nested dicts of the parameters' shape, and the step count as a 0-d int32
 tensor.  Where the reference returns new pytrees, the port updates the
 parameters and both moments in place (under ``no_grad``) and returns
 them: a step at full qwen2-1.5b width then needs no second copy of its
-~25 GB of parameters, gradients and moments.  The numbers are the
-reference's: moments in float32, the update computed in float32 and cast
-back to each parameter's dtype.
+~25 GB of parameters, gradients and moments.  A large leaf is updated in
+slices of ``UPDATE_SLICE`` elements, so the update's temporaries stay
+small (zamba2-2.7b's largest leaf is 5.7 GB; whole, its temporaries
+would take several times that); every element's arithmetic is the same.
+The numbers are the reference's: moments in float32, the update computed
+in float32 and cast back to each parameter's dtype.
 """
 from __future__ import annotations
 
@@ -17,6 +20,9 @@ from typing import NamedTuple
 import torch
 
 from repro_torch._tree import leaves, tree_map
+
+
+UPDATE_SLICE = 1 << 26    # elements of one slice of a leaf's update
 
 
 class AdamWState(NamedTuple):
@@ -56,13 +62,22 @@ def adamw_update(grads, state: AdamWState, params, *, lr,
     b1c = 1.0 - b1 ** step.float()
     b2c = 1.0 - b2 ** step.float()
 
-    def upd(p, g, m, v):
+    def upd_slice(p, g, m, v):
         g = g.float() * scale
         m.mul_(b1).add_(g, alpha=1 - b1)
         v.mul_(b2).addcmul_(g, g, value=1 - b2)
         pf = p.float()
         delta = (m / b1c) / (torch.sqrt(v / b2c) + eps) + weight_decay * pf
         p.copy_(pf - lr * delta)
+
+    def upd(p, g, m, v):
+        if not (p.is_contiguous() and m.is_contiguous()
+                and v.is_contiguous()):
+            upd_slice(p, g, m, v)
+            return p
+        flat = p.view(-1), g.reshape(-1), m.view(-1), v.view(-1)
+        for i in range(0, p.numel(), UPDATE_SLICE):
+            upd_slice(*(t[i:i + UPDATE_SLICE] for t in flat))
         return p
 
     tree_map(upd, params, grads, state.mu, state.nu)

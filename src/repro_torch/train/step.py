@@ -68,6 +68,8 @@ def make_train_step(model: Model, *, lr_kw: Optional[dict] = None,
                 loss = loss + li
                 metrics = {k: metrics[k] + mi[k] for k in METRICS}
                 tree_map(lambda g, x: g.add_(x), grads, gi)
+                # the next microbatch's gradients form without this set
+                del gi
             inv = 1.0 / microbatches
             loss = loss * inv
             grads = tree_map(lambda g: g.mul_(inv), grads)

@@ -11,8 +11,8 @@ without one): the two backward wrappers against autograd through the
 plain version over a grid of shapes, the forward's LSE, a split call,
 bitwise equal repeats, the kernels the profiler sees (``BWD_KERNELS``),
 no spills, and the repaired fault -- a backward through
-``ops.flash_attention`` reaches the kernels, one through ``ops.ssd_scan``
-raises:
+``ops.flash_attention`` reaches the kernels, and one through
+``ops.ssd_scan`` reaches the scan's backward kernels:
 
     python -m pytest -q -m cuda tests/test_torch_flash_bwd.py
 
@@ -340,18 +340,33 @@ def test_cuda_ops_flash_attention_carries_autograd(cuda):
 
 
 @pytest.mark.cuda
-def test_cuda_ops_ssd_scan_backward_raises(cuda):
+def test_cuda_ops_ssd_scan_carries_autograd(cuda):
+    """A backward through ops.ssd_scan on the card reaches the scan's
+    backward kernels and gives the plain version's gradients; under
+    no_grad the forward is one launch with no autograd node."""
+    from repro_torch.kernels import ssd_scan as sk
     g = torch.Generator(device="cuda").manual_seed(9)
-    x = torch.randn(1, 64, 2, 16, device=cuda, generator=g,
-                    requires_grad=True)
+    x = torch.randn(1, 64, 2, 16, device=cuda, generator=g)
     dt = torch.nn.functional.softplus(
         torch.randn(1, 64, 2, device=cuda, generator=g))
     A = -torch.exp(torch.randn(2, device=cuda, generator=g))
     B, C = torch.randn(2, 1, 64, 16, device=cuda, generator=g)
-    y = ops.ssd_scan(x, dt, A, B, C, chunk=16)
+    dy = torch.randn(x.shape, device=cuda, generator=g)
+    leaves = [t.clone().requires_grad_(True) for t in (x, dt, A, B, C)]
+    before = (sk.ssd_scan.launches, sk.ssd_scan_bwd.launches)
+    y = ops.ssd_scan(*leaves, chunk=16)
     assert y.grad_fn is not None
-    with pytest.raises(NotImplementedError, match="A14b"):
-        y.sum().backward()
+    got = torch.autograd.grad(y, leaves, dy)
+    torch.cuda.synchronize()
+    assert (sk.ssd_scan.launches, sk.ssd_scan_bwd.launches) == \
+        (before[0] + 1, before[1] + 1)
+    want = sk.ssd_scan_bwd_ref(x, dt, A, B, C, dy, 16)[:5]
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a, b, atol=1e-4, rtol=1e-4)
+    with torch.no_grad():
+        served = ops.ssd_scan(*leaves, chunk=16)
+    assert served.grad_fn is None
+    assert sk.ssd_scan_bwd.launches == before[1] + 1
 
 
 def _card_inputs(cuda, shape, dtype, seed, sk=None):

@@ -151,3 +151,32 @@ def test_quantize_and_ef_compress_match_reference():
         assert float(get(ps)) == float(get(rs))
         np.testing.assert_allclose(get(pst.residual), get(rst.residual),
                                    rtol=0, atol=1e-7)
+
+
+def test_adamw_update_in_slices_is_bitwise_the_whole_update(monkeypatch):
+    """A leaf larger than UPDATE_SLICE is updated slice by slice: the
+    parameters and both moments equal the whole-leaf update bit for bit,
+    a non-contiguous leaf included."""
+    import repro_torch.optim.adamw as adamw_lib
+    rng = np.random.default_rng(7)
+
+    def tree():
+        big = torch.from_numpy(rng.standard_normal((5, 333)).astype(
+            np.float32))
+        return {"big": big, "small": torch.from_numpy(
+            rng.standard_normal(6).astype(np.float32)), "strided": big.T}
+    params, grads = tree(), tree()
+
+    def run(n_slice):
+        monkeypatch.setattr(adamw_lib, "UPDATE_SLICE", n_slice)
+        p = {k: v.clone() for k, v in params.items()}
+        state = adamw_init(p)
+        for _ in range(3):
+            p, state, _ = adamw_update(grads, state, p, lr=1e-2)
+        return p, state
+    whole, s_whole = run(1 << 30)
+    sliced, s_sliced = run(100)
+    for k in params:
+        assert torch.equal(whole[k], sliced[k]), k
+        assert torch.equal(s_whole.mu[k], s_sliced.mu[k]), k
+        assert torch.equal(s_whole.nu[k], s_sliced.nu[k]), k

@@ -34,6 +34,9 @@ from repro_torch.models import build_model as p_build
 from repro_torch.train.step import loss_and_grads, make_train_step
 
 DENSE = ["smollm-135m", "qwen2-1.5b"]
+# the SSM and hybrid families: every Mamba-2 layer's scan differentiated
+# (on the CPU, autograd through the scan's plain version)
+SSM = ["mamba2-1.3b", "zamba2-2.7b"]
 LOSS_F32 = dict(rtol=1e-5, atol=0.0)
 GRAD_F32 = dict(rtol=1e-4, atol=1e-6)
 STEP_F32 = dict(rtol=1e-4, atol=1e-7)
@@ -66,7 +69,7 @@ def _batch(cfg, b=2, s=16, seed=0):
     return {"tokens": jnp.asarray(tok)}, {"tokens": torch.from_numpy(tok)}
 
 
-@pytest.mark.parametrize("arch", DENSE)
+@pytest.mark.parametrize("arch", DENSE + SSM)
 def test_loss_matches_reference(arch):
     rc, pc, rp, pp, rm, pm = _models(arch)
     rb, pb = _batch(rc)
@@ -78,7 +81,7 @@ def test_loss_matches_reference(arch):
                                    **LOSS_F32, err_msg=k)
 
 
-@pytest.mark.parametrize("arch", DENSE)
+@pytest.mark.parametrize("arch", DENSE + SSM)
 def test_gradients_match_jax_grad(arch):
     rc, pc, rp, pp, rm, pm = _models(arch)
     rb, pb = _batch(rc, seed=1)
@@ -91,7 +94,7 @@ def test_gradients_match_jax_grad(arch):
         np.testing.assert_allclose(got[k], want[k], **GRAD_F32, err_msg=k)
 
 
-@pytest.mark.parametrize("arch", DENSE)
+@pytest.mark.parametrize("arch", DENSE + SSM)
 def test_bf16_loss_matches_reference(arch):
     rc, pc, rp, pp, rm, pm = _models(arch, "bfloat16")
     rb, pb = _batch(rc, seed=2)
@@ -130,7 +133,8 @@ def _step_both(arch, microbatches, batch=2):
 
 @pytest.mark.parametrize("arch,microbatches", [("smollm-135m", 1),
                                                ("qwen2-1.5b", 1),
-                                               ("qwen2-1.5b", 2)])
+                                               ("qwen2-1.5b", 2),
+                                               ("mamba2-1.3b", 2)])
 def test_train_step_matches_reference(arch, microbatches):
     (rp, ro, rm), (pp, po, pm) = _step_both(arch, microbatches, batch=4)
     for name, want, got in (("params", rp, pp), ("mu", ro.mu, po.mu),

@@ -203,3 +203,18 @@ def test_launcher_cli(capsys):
                  "--device", "cpu"]) == 0
     out = capsys.readouterr().out
     assert "done: 3 steps" in out and "skipped 0" in out
+
+
+@pytest.mark.parametrize("arch", ["mamba2-1.3b", "zamba2-2.7b"])
+def test_launcher_cli_trains_ssm_and_hybrid(arch, capsys):
+    """The SSM and hybrid families through the launcher (reduced, on the
+    CPU): every step runs, the first and last losses finite."""
+    from repro_torch.launch.train import main
+    assert main(["--arch", arch, "--steps", "6", "--batch", "2", "--seq",
+                 "32", "--device", "cpu"]) == 0
+    out = capsys.readouterr().out
+    assert "done: 6 steps" in out and "skipped 0" in out
+    done = out[out.index("done:"):]
+    first, last = (float(v) for v in
+                   done.split("loss ")[1].split(",")[0].split(" -> "))
+    assert np.isfinite(first) and np.isfinite(last)
