@@ -95,8 +95,10 @@ nonzero exit and no result line:
               them);
               smollm-135m at full width checkpointed after 4 steps and
               restarted to 6 against an unbroken run (1e-5)
-  ssd_bwd     ssd_scan's backward (ssd_scan_bwd: ssd_bwd_chunk_state,
-              _state_pass, _chunk, _sum) against its plain version
+  ssd_bwd     ssd_scan's backward (ssd_scan_bwd: bf16 ssd_bwd_tc_states,
+              _pass, _chunk, _bc, _sum on the tensor cores; f32
+              ssd_bwd_chunk_state, _state_pass, _chunk, _sum) against its
+              plain version
               (ssd_scan_bwd_ref) and autograd through ssd_scan_ref, f32
               1e-4 of each gradient's scale (its norm and its largest
               element) and bf16 norm-relative within 1.25x the plain
@@ -104,9 +106,12 @@ nonzero exit and no result line:
               mamba2-1.3b's and zamba2-2.7b's training calls (1, 2048, 64,
               64, 128) and (1, 2048, 80, 64, 64), mamba2's prefill call
               and small and odd shapes (chunks 8-256), every case twice
-              and bitwise equal; the cold-L2 device time per kernel at
-              those three calls beside the bound and the plain version's
-              (no PyTorch call computes the scan or its gradient)
+              and bitwise equal; the tensor-core kernels' registers and
+              local memory from the CUDA runtime (fails on a spill or on
+              fewer than two blocks an SM at ds 128); the cold-L2 device
+              time per kernel at those three calls beside the bound, the
+              plain version's and the earlier f32-FMA kernels' (no
+              PyTorch call computes the scan or its gradient)
   train_ssm, train_hybrid
               the train phase's Trainer at full mamba2-1.3b and zamba2-2.7b
               width and depth (their plan: remat "dots", 4 microbatches)
@@ -2083,6 +2088,12 @@ SSD_BWD_NAMES = ("dx", "ddt", "dA", "dB", "dC")
 # microbatch of the (4, 2048) global batch
 SSD_TRAIN = {"mamba2-1.3b": (1, 2048, 64, 64, 128, 256),
              "zamba2-2.7b": (1, 2048, 80, 64, 64, 256)}
+# the bf16 backward's time at those calls and mamba2's prefill call before
+# its tensor-core kernels (the four f32-FMA kernels, from an earlier call
+# of this script on another card; tools/ssd_bwd_variants.py times both in
+# one call)
+SSD_BWD_PREV_MS = {"mamba2-1.3b": 3.118, "zamba2-2.7b": 2.236,
+                   "prefill mamba2-1.3b": 13.11}
 ZAMBA2_TRAIN_ATTN_SHAPE = (1, 2048, 32, 32, 80)  # its shared block, training
 
 
@@ -2158,7 +2169,7 @@ def rel_err(torch, a, b):
 
 def time_ssd_bwd(torch, g, shape):
     """Cold-L2 device time of one bf16 call of the backward (the sum of its
-    four kernels) and of the plain version's, at ``shape``."""
+    five kernels) and of the plain version's, at ``shape``."""
     from repro_torch.kernels import ssd_scan as sk
     *dims, chunk = shape
     first = ssd_bwd_inputs(torch, g, *dims, torch.bfloat16)[0]
@@ -2169,7 +2180,7 @@ def time_ssd_bwd(torch, g, shape):
     kept = []
     prof_k = profile_calls(torch, cycled(
         sets, lambda *a: sk.ssd_scan_bwd(*a, chunk=chunk), kept), 10,
-        groups={k: (k,) for k in sk.BWD_KERNELS})
+        groups={k: (k,) for k in sk.BWD_KERNELS[torch.bfloat16]})
     kept.clear()
     prof_p = profile_calls(torch, cycled(
         sets, lambda *a: sk.ssd_scan_bwd_ref(*a, chunk), kept), 2)
@@ -2179,13 +2190,14 @@ def time_ssd_bwd(torch, g, shape):
     # each kernel launches once a call: a dropped event lowers the
     # launches seen, another kernel (a fill) would raise them
     per = {k: v / 1e3 for k, v in prof_k["group_us_per_call"].items()}
-    if prof_k["launches_per_call"] > len(sk.BWD_KERNELS) or \
-            not all(per.values()):
+    names = sk.BWD_KERNELS[torch.bfloat16]
+    if prof_k["launches_per_call"] > len(names) or not all(per.values()):
         raise RuntimeError(f"ssd_bwd at {shape}: "
                            f"{prof_k['launches_per_call']} device launches "
                            f"per call ({per}), expected one of each of "
-                           f"{sk.BWD_KERNELS}")
+                           f"{names}")
     ms = sum(per.values())
+    plan = sk.bwd_plan(*shape, sk.sm_count(torch.device("cuda")))
     bound_ms, bound_by, flops, nbytes = ssd_bwd_bound_ms(shape, "bfloat16")
     f32_bound_ms = flops / FP32_FLOP_S * 1e3
     return {"shape": list(shape), "dtype": "bfloat16", "ms": ms,
@@ -2196,22 +2208,24 @@ def time_ssd_bwd(torch, g, shape):
             "bound_share": bound_ms / ms, "gflop": flops / 1e9,
             "mbytes": nbytes / 1e6, "tflop_s": flops / (ms * 1e-3) / 1e12,
             "f32_cuda_core_bound_ms": f32_bound_ms,
-            "f32_cuda_core_share": f32_bound_ms / ms, "cold_sets": n_sets}
+            "f32_cuda_core_share": f32_bound_ms / ms, "cold_sets": n_sets,
+            "plan": {k: plan[k] for k in ("heads_per_group", "groups",
+                                          "ksplits", "chunk_blocks",
+                                          "bc_blocks", "partial_bytes")}}
 
 
-def phase_ssd_bwd(torch):
-    """ssd_scan's backward (four kernels) against its plain version and
-    autograd through ssd_scan_ref at both training calls, mamba2's prefill
-    call and small and odd shapes, f32 and bf16, every case twice and
-    bitwise equal; then the cold-L2 device time at the training calls and
-    the prefill call beside the bound and the plain version's.  Returns the
-    record of the {"kernels": ...} line (mamba2-1.3b's training call)."""
-    from repro_torch.kernels import _build
+def ssd_bwd_checks(torch, cases):
+    """Each (shape, dtype name) case of the backward twice through the
+    kernels, against its plain version and autograd through ssd_scan_ref:
+    bitwise equal twice; f32 within SSD_BWD_F32 of each gradient's scale;
+    bf16 within SSD_BWD_BF16_VS_PLAIN x the plain version's (and
+    autograd's) error from the f32 inputs' gradient.  Raises on a miss;
+    returns (one row per case, the worst f32 error against the plain
+    version)."""
     from repro_torch.kernels import ssd_scan as sk
-    t_phase = time.perf_counter()
     g = torch.Generator(device="cuda").manual_seed(21)
     checks, worst = [], 0.0
-    for shape, dt in ssd_bwd_cases():
+    for shape, dt in cases:
         *dims, chunk = shape
         args, f32 = ssd_bwd_inputs(torch, g, *dims, getattr(torch, dt))
         got = sk.ssd_scan_bwd(*args, chunk=chunk)
@@ -2264,13 +2278,52 @@ def phase_ssd_bwd(torch):
         checks.append(row)
         del args, f32, got, again, plain, auto
         torch.cuda.empty_cache()
+    return checks, worst
+
+
+def ssd_bwd_build_check(torch):
+    """The tensor-core kernels' registers, shared memory, local memory
+    and resident blocks an SM at the training calls' widths (hd 64, ds 128
+    and 64), from the CUDA runtime; fails on local memory (a spill) or, at
+    ds 128, on a chunk or dB/dC kernel with fewer than two blocks an
+    SM."""
+    from repro_torch.kernels import ssd_scan as sk
+    info = {f"64x{ds}": sk.bwd_kernel_info(64, ds) for ds in (128, 64)}
+    for dims, kernels in info.items():
+        for name, k in kernels.items():
+            if k["local_bytes"]:
+                raise RuntimeError(f"ssd_bwd: {name} at {dims} uses "
+                                   f"{k['local_bytes']} bytes of local "
+                                   f"memory (a spill): {k}")
+    for name in ("ssd_bwd_tc_chunk", "ssd_bwd_tc_bc"):
+        k = info["64x128"][name]
+        if k["blocks_per_sm"] < 2:
+            raise RuntimeError(f"ssd_bwd: {name} has {k['blocks_per_sm']} "
+                               f"block an SM at ds 128: {k}")
+    return info
+
+
+def phase_ssd_bwd(torch):
+    """ssd_scan's backward against its plain version and autograd through
+    ssd_scan_ref at both training calls, mamba2's prefill call and small
+    and odd shapes, f32 and bf16, every case twice and bitwise equal
+    (:func:`ssd_bwd_checks`); the tensor-core kernels' registers and
+    spills (:func:`ssd_bwd_build_check`); then the cold-L2 device time at
+    the training calls and the prefill call beside the bound, the plain
+    version's and the earlier f32-FMA kernels'.  Returns the record of the
+    {"kernels": ...}
+    line (mamba2-1.3b's training call)."""
+    from repro_torch.kernels import ssd_scan as sk
+    t_phase = time.perf_counter()
+    checks, worst = ssd_bwd_checks(torch, ssd_bwd_cases())
+    build = ssd_bwd_build_check(torch)
+    g = torch.Generator(device="cuda").manual_seed(22)
     timed = {arch: time_ssd_bwd(torch, g, shape)
              for arch, shape in SSD_TRAIN.items()}
     timed["prefill mamba2-1.3b"] = time_ssd_bwd(torch, g,
                                                 SSD_PREFILL["mamba2-1.3b"])
-    ptxas = {k: v for k, v in ptxas_by_kernel(
-        _build.PTXAS_REPORT.get("ssd_scan_bwd", "")).items()
-        if "<64, " in k or "<" not in k}
+    for call, t in timed.items():
+        t["prev_ms"] = SSD_BWD_PREV_MS[call]
     m = timed["mamba2-1.3b"]
     rec = {"name": "ssd_scan_bwd", "route": "cuda",
            "source": "src/repro_torch/kernels/csrc/ssd_scan_bwd.cu",
@@ -2278,12 +2331,15 @@ def phase_ssd_bwd(torch):
            "max_abs_err": worst, "ms": m["ms"], "plain_ms": m["plain_ms"],
            "bound_ms": m["bound_ms"], "bound_by": m["bound_by"],
            "library_ms": None, "shape": m["shape"], "dtype": "bfloat16",
-           "kernels_bf16": list(sk.BWD_KERNELS),
+           "kernels_bf16": list(sk.BWD_KERNELS[torch.bfloat16]),
            "ms_zamba2_train_call": timed["zamba2-2.7b"]["ms"]}
     emit({"phase": "ssd_bwd", "checks": checks,
           "tol": {"float32_scale_rel": SSD_BWD_F32,
                   "bfloat16_vs_plain": SSD_BWD_BF16_VS_PLAIN},
-          "timed": timed, "ptxas": ptxas,
+          "timed": timed, "build": build,
+          "prev_ms_from": "the f32-FMA kernels that ran the bf16 path "
+                          "before the tensor-core ones, in an earlier call "
+                          "of this script on another card",
           "plain": "ssd_scan_bwd_ref (the explicit chunked backward in "
                    "torch); autograd through ssd_scan_ref as a second check",
           "library": "none: no PyTorch call computes the SSD scan or its "
@@ -2523,7 +2579,7 @@ def run_trainer(torch, phase, cfg, batch_shape, steps, trigger_after, port,
         torch.cuda.synchronize()
         step_wall_ms = (time.perf_counter() - t1) * 1e3
         groups = {**fa.BWD_KERNELS[torch.bfloat16],
-                  "ssd_scan_bwd": sk.BWD_KERNELS}
+                  "ssd_scan_bwd": sk.BWD_KERNELS[torch.bfloat16]}
         prof = profile_calls(
             torch, lambda i=0: step_fn(params, opt, batch, steps + 1), 1,
             match=("flash_fwd", "ssd_scan"), groups=groups)

@@ -296,7 +296,9 @@ def e7_supervisor_trials(rng, n: int = 90, *,
     try:
         for _ in range(n):
             t0 = sup.send_trigger(op_index=E7_OP_INDEX, freq_hz=E7_FREQ_HZ)
-            lat.append((sup.wait_done() - t0) / 1e6)
+            # a collection pause of seconds on a loaded host is what this
+            # arm measures: wait it out rather than stop at 2 s
+            lat.append((sup.wait_done(timeout_s=60.0) - t0) / 1e6)
             time.sleep(float(rng.uniform(0.002, 0.01)))
     finally:
         churn.stop()

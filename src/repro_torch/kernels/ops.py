@@ -7,7 +7,8 @@ back from one to the other.
 On the card the model kernels' outputs carry autograd through a
 ``torch.autograd.Function`` each: ``FlashAttentionFn``, whose backward
 is the two hand-written backward kernels, and ``SsdScanFn``, whose
-backward is the scan's four backward kernels (``csrc/ssd_scan_bwd.cu``).
+backward is the scan's backward kernels (``csrc/ssd_scan_bwd.cu``: five
+on the tensor cores for bf16 inputs, four f32 ones otherwise).
 Under ``no_grad``, or when no input needs a gradient, the forward is the
 same launch as before, and the attention kernel writes no LSE.  On the
 CPU autograd differentiates the plain versions as they are.

@@ -268,7 +268,7 @@ def check_bf16_layout(x, B, C) -> None:
     start on 16 bytes, with strides over (b, s[, h]) that are multiples of
     8 elements.  Raises ``ValueError`` otherwise (no copy, no fallback)."""
     for t, name in ((x, "x"), (B, "B"), (C, "C")):
-        if t.data_ptr() % 16 or any(st % 8 for st in t.stride()[:-1]):
+        if not fits_bf16_layout(t):
             raise ValueError(
                 f"ssd_scan in bf16 reads {name} in 16-byte pieces: it must "
                 f"start on 16 bytes with strides over its leading dims that "
@@ -375,16 +375,139 @@ ssd_scan.launches = 0
 
 _BWD_ARGTYPES = ([ctypes.c_void_p] * 17 + [ctypes.c_int] * 9
                  + [ctypes.c_longlong] * 13 + [ctypes.c_void_p] * 2)
-# the backward's device kernels, in launch order (csrc/ssd_scan_bwd.cu)
-BWD_KERNELS = ("ssd_bwd_chunk_state", "ssd_bwd_state_pass", "ssd_bwd_chunk",
-               "ssd_bwd_sum")
+_BWD_TC_ARGTYPES = ([ctypes.c_void_p] * 13 + [ctypes.c_longlong] * 2
+                    + [ctypes.c_int] * 9 + [ctypes.c_longlong] * 13
+                    + [ctypes.c_void_p] * 2)
+# the backward's device kernels by path, in launch order
+# (csrc/ssd_scan_bwd.cu): x, B and C bfloat16 take the tensor-core kernels
+BWD_KERNELS = {
+    torch.bfloat16: ("ssd_bwd_tc_states", "ssd_bwd_tc_pass",
+                     "ssd_bwd_tc_chunk", "ssd_bwd_tc_bc", "ssd_bwd_tc_sum"),
+    torch.float32: ("ssd_bwd_chunk_state", "ssd_bwd_state_pass",
+                    "ssd_bwd_chunk", "ssd_bwd_sum"),
+}
+_TILE = 64
 
 
-def _bwd_launcher():
+def bwd_plan(b: int, s: int, nh: int, hd: int, ds: int, chunk: int,
+             sms: int) -> dict:
+    """The tensor-core backward's grid for one call on a card of ``sms``
+    SMs.
+
+    ``heads_per_group``: the chunk kernel's block takes one 64-row column
+    tile of one chunk for a group of heads, adding the group's W in head
+    order; the largest power of two up to 8 whose grid (``chunk_blocks``)
+    still gives three blocks per SM (fewer groups, less W written).
+    ``ksplits``: the dB/dC kernel splits the heads into this many parts
+    (each a float32 partial of dB and dC), the least power of two up to 8
+    and nh giving two blocks per SM (``bc_blocks``, beside the b x nc x nh
+    blocks of the exponent gradient).  ``partial_bytes``: the float32
+    partials of W and of dB and dC written once.  The scratch that holds
+    them is sized by the library (:func:`bwd_scratch`)."""
+    nc = s // chunk
+    t = min(chunk, _TILE)
+    nt = chunk // t
+    g = 8
+    while g > 1 and b * nc * -(-nh // g) * nt < 3 * sms:
+        g //= 2
+    groups = -(-nh // g)
+    ks = 1
+    while 2 * ks <= min(8, nh) and b * nc * nt * 2 * ks < 2 * sms:
+        ks *= 2
+    pairs = nt * (nt + 1) // 2
+    return {"tile": t, "tiles": nt, "heads_per_group": g, "groups": groups,
+            "ksplits": ks, "chunk_blocks": b * nc * groups * nt,
+            "bc_blocks": b * nc * nt * 2 * ks,
+            "partial_bytes": 4 * (groups * b * nc * pairs * t * t
+                                  + ks * 2 * b * s * ds)}
+
+
+def bwd_scratch(b: int, s: int, nh: int, hd: int, ds: int, chunk: int,
+                heads_per_group: int, ksplits: int,
+                dy_f32: bool = False) -> tuple[int, int]:
+    """The float32 floats and bfloat16 elements of the tensor-core
+    backward's scratch for one call, as its launcher carves them (builds
+    the library).  Raises ``ValueError`` for arguments it does not take."""
+    fn = _build.load("ssd_scan_bwd").ssd_bwd_scratch
+    fn.argtypes = [ctypes.c_int] * 9 + [ctypes.POINTER(ctypes.c_longlong)]
+    fn.restype = ctypes.c_int
+    sizes = (ctypes.c_longlong * 2)()
+    args = (b, s, nh, hd, ds, chunk, heads_per_group, ksplits)
+    if fn(*args, 0 if dy_f32 else 1, sizes):
+        raise ValueError(f"ssd_bwd_scratch does not take {args}, dy_f32 "
+                         f"{dy_f32}")
+    return sizes[0], sizes[1]
+
+
+def fits_bf16_layout(t) -> bool:
+    """Whether ``t`` starts on 16 bytes with strides over its leading dims
+    that are multiples of 8 elements and its last dim contiguous: what the
+    tensor-core kernels read in 16-byte pieces."""
+    return (t.data_ptr() % 16 == 0 and t.stride(-1) == 1
+            and not any(st % 8 for st in t.stride()[:-1]))
+
+
+def sm_count(device) -> int:
+    """The card's SM count, which :func:`bwd_plan` sizes the grid by."""
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def _bwd_launchers():
     lib = _build.load("ssd_scan_bwd")
-    fn = lib.ssd_scan_bwd_launch
-    fn.argtypes, fn.restype = _BWD_ARGTYPES, ctypes.c_int
-    return fn
+    f32, tc = lib.ssd_scan_bwd_launch, lib.ssd_scan_bwd_bf16_launch
+    f32.argtypes, tc.argtypes = _BWD_ARGTYPES, _BWD_TC_ARGTYPES
+    f32.restype = tc.restype = ctypes.c_int
+    return f32, tc
+
+
+def bwd_kernel_info(hd: int, ds: int) -> dict:
+    """Registers, shared memory, local memory (spills and stack) and
+    resident blocks per SM of each tensor-core backward kernel at (hd, ds)
+    with a bfloat16 dy, as the CUDA runtime reports them (builds the
+    library): {name: {"registers", "smem_bytes", "local_bytes",
+    "blocks_per_sm"}}."""
+    fn = _build.load("ssd_scan_bwd").ssd_bwd_kernel_info
+    fn.argtypes = [ctypes.c_int] * 3 + [ctypes.POINTER(ctypes.c_int)]
+    fn.restype = ctypes.c_int
+    out = {}
+    for which, name in enumerate(BWD_KERNELS[torch.bfloat16]):
+        info = (ctypes.c_int * 4)()
+        rc = fn(hd, ds, which, info)
+        if rc != 0:
+            raise RuntimeError(f"ssd_bwd_kernel_info({name}): cudaError {rc}")
+        out[name] = {"registers": info[0], "smem_bytes": info[1],
+                     "local_bytes": info[2], "blocks_per_sm": info[3]}
+    return out
+
+
+def bwd_fma(fn, x, dt, A, B, C, dy, chunk, out, stream):
+    """The four f32-FMA kernels (the f32 path, which reads x, B, C and dy
+    as float32 or bfloat16 through strides) through launcher ``fn``
+    (``ssd_scan_bwd_launch``) into ``out`` = (dx, ddt, dA, dB, dC) on
+    ``stream``; returns the launches' cudaError_t array."""
+    b, s, nh, hd = x.shape
+    ds, nc, f32 = B.shape[-1], s // chunk, torch.float32
+    dev = x.device
+    dx, ddt, dA, dB, dC = out
+    # scratch: the chunk states then the states entering each chunk, their
+    # dy-side gradients then the end states' gradients, the chunk decays,
+    # each head's dB and dC and each block's share of dA
+    st = torch.empty(b, nc, nh, hd, ds, dtype=f32, device=dev)
+    gs = torch.empty_like(st)
+    dec = torch.empty(b, nc, nh, dtype=f32, device=dev)
+    dbp = torch.empty(nh, b, s, ds, dtype=f32, device=dev)
+    dcp = torch.empty_like(dbp)
+    dap = torch.empty(b, nc, nh, dtype=f32, device=dev)
+    strides = (*x.stride()[:3], *dy.stride()[:3], *dt.stride(),
+               *B.stride()[:2], *C.stride()[:2])
+    errs = (ctypes.c_int * 4)()
+    fn(x.data_ptr(), dt.data_ptr(), A.contiguous().data_ptr(), B.data_ptr(),
+       C.data_ptr(), dy.data_ptr(), dx.data_ptr(), ddt.data_ptr(),
+       dA.data_ptr(), dB.data_ptr(), dC.data_ptr(), st.data_ptr(),
+       gs.data_ptr(), dec.data_ptr(), dbp.data_ptr(), dcp.data_ptr(),
+       dap.data_ptr(), DTYPES[x.dtype], DTYPES[dy.dtype], DTYPES[B.dtype], b,
+       s, nh, hd, ds, chunk, *strides, stream, errs)
+    return errs
 
 
 def ssd_scan_bwd(x, dt, A, B, C, dy, *, chunk: int = 256):
@@ -392,14 +515,16 @@ def ssd_scan_bwd(x, dt, A, B, C, dy, *, chunk: int = 256):
     returns (dx in x's dtype, ddt and dA in float32, dB and dC in B's
     dtype) for dy = dL/dy of :func:`ssd_scan` on the same inputs.
 
-    Takes what :func:`ssd_scan` takes (either dtype path: the backward
-    reads x, B, C and dy as float32 or bfloat16 through strides, with no
-    alignment rule) and dy of x's shape, float32 or bfloat16, on the same
-    device (copied when its last dim is not contiguous).  The state
-    entering each chunk is recomputed in float32.  Adds one to
-    ``ssd_scan_bwd.launches`` for each call (its four device kernels
-    count as one).  Raises on a CPU tensor, another dtype, size or
-    layout, or a launch the runtime refuses.
+    Takes what :func:`ssd_scan` takes and dy of x's shape, float32 or
+    bfloat16, on the same device.  The inputs' types pick the path as the
+    forward's do: x, B and C all bfloat16 run the five tensor-core kernels
+    (``BWD_KERNELS``; x, B and C must meet :func:`check_bf16_layout`, and
+    a dy that does not is copied), any float32 among them the four f32
+    kernels (any strides with the last dim contiguous; dy copied when its
+    last dim is not).  The state entering each chunk is recomputed in
+    float32.  Adds one to ``ssd_scan_bwd.launches`` for each call (its
+    device kernels count as one).  Raises on a CPU tensor, another dtype,
+    size or layout, or a launch the runtime refuses.
     """
     check_cuda_args(x, dt, A, B, C, chunk)
     dev = x.device
@@ -407,7 +532,12 @@ def ssd_scan_bwd(x, dt, A, B, C, dy, *, chunk: int = 256):
         raise ValueError(f"dy must be float32 or bfloat16 of x's shape "
                          f"{tuple(x.shape)} on {dev}, got {dy.dtype} "
                          f"{tuple(dy.shape)} on {dy.device}")
-    if dy.stride(3) != 1:
+    tc = x.dtype == B.dtype == torch.bfloat16
+    if tc:
+        check_bf16_layout(x, B, C)
+        if not fits_bf16_layout(dy):
+            dy = dy.clone(memory_format=torch.contiguous_format)
+    elif dy.stride(3) != 1:
         dy = dy.contiguous()
     b, s, nh, hd = x.shape
     ds = B.shape[-1]
@@ -421,29 +551,32 @@ def ssd_scan_bwd(x, dt, A, B, C, dy, *, chunk: int = 256):
     if b == 0 or s == 0 or nh == 0:
         return tuple(t.zero_() for t in out)
     dx, ddt, dA, dB, dC = out
-    nc = s // chunk
-    # scratch: the chunk states then the states entering each chunk, their
-    # dy-side gradients then the end states' gradients, the chunk decays,
-    # each head's dB and dC and each block's share of dA
-    st = torch.empty(b, nc, nh, hd, ds, dtype=f32, device=dev)
-    gs = torch.empty_like(st)
-    dec = torch.empty(b, nc, nh, dtype=f32, device=dev)
-    dbp = torch.empty(nh, b, s, ds, dtype=f32, device=dev)
-    dcp = torch.empty_like(dbp)
-    dap = torch.empty(b, nc, nh, dtype=f32, device=dev)
-    strides = (*x.stride()[:3], *dy.stride()[:3], *dt.stride(),
-               *B.stride()[:2], *C.stride()[:2])
-    errs = (ctypes.c_int * 4)()
+    f32_fn, tc_fn = _bwd_launchers()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        _bwd_launcher()(
-            x.data_ptr(), dt.data_ptr(), A.contiguous().data_ptr(),
-            B.data_ptr(), C.data_ptr(), dy.data_ptr(), dx.data_ptr(),
-            ddt.data_ptr(), dA.data_ptr(), dB.data_ptr(), dC.data_ptr(),
-            st.data_ptr(), gs.data_ptr(), dec.data_ptr(), dbp.data_ptr(),
-            dcp.data_ptr(), dap.data_ptr(), DTYPES[x.dtype], DTYPES[dy.dtype],
-            DTYPES[B.dtype], b, s, nh, hd, ds, chunk, *strides, stream, errs)
-    failed = {k: e for k, e in zip(BWD_KERNELS, errs) if e}
+        if tc:
+            plan = bwd_plan(b, s, nh, hd, ds, chunk, sm_count(dev))
+            g, ks = plan["heads_per_group"], plan["ksplits"]
+            # scratch: the chunk states, the states' hi + lo planes, the
+            # scores, W's group partials, the vectors of the exponent
+            # gradient, the splits' dB and dC (csrc: tc::Scratch)
+            nf, nb = bwd_scratch(b, s, nh, hd, ds, chunk, g, ks,
+                                 dy.dtype == f32)
+            fs = torch.empty(nf, dtype=f32, device=dev)
+            hs = torch.empty(nb, dtype=torch.bfloat16, device=dev)
+            strides = (*x.stride()[:3], *dy.stride()[:3], *dt.stride(),
+                       *B.stride()[:2], *C.stride()[:2])
+            errs = (ctypes.c_int * 5)()
+            tc_fn(x.data_ptr(), dt.data_ptr(), A.contiguous().data_ptr(),
+                  B.data_ptr(), C.data_ptr(), dy.data_ptr(), dx.data_ptr(),
+                  ddt.data_ptr(), dA.data_ptr(), dB.data_ptr(),
+                  dC.data_ptr(), fs.data_ptr(), hs.data_ptr(), fs.numel(),
+                  hs.numel(), DTYPES[dy.dtype], b, s, nh, hd, ds, chunk, g,
+                  ks, *strides, stream, errs)
+        else:
+            errs = bwd_fma(f32_fn, x, dt, A, B, C, dy, chunk, out, stream)
+    names = BWD_KERNELS[torch.bfloat16 if tc else f32]
+    failed = {k: e for k, e in zip(names, errs) if e}
     if failed:
         raise RuntimeError(f"ssd_scan_bwd launch failed: cudaError by "
                            f"kernel {failed}")
@@ -456,7 +589,7 @@ ssd_scan_bwd.launches = 0
 
 class SsdScanFn(torch.autograd.Function):
     """``ssd_scan`` as an autograd node: its forward is the kernel, its
-    backward the four backward kernels (:func:`ssd_scan_bwd`), which
+    backward the backward kernels (:func:`ssd_scan_bwd`), which
     recompute what they need from the saved inputs.  ``ops.ssd_scan``
     routes every CUDA call that records a gradient through it; on the CPU
     the plain version is differentiated as it is."""

@@ -19,20 +19,29 @@ the float64 recurrence at these shapes: the scan's gradients reach |g| ~
 keep an absolute rounding of ~1e-5-1e-3 (up to 138 of 131,072 elements of
 dx outside it).
 
-On a card (marked ``cuda``, skipped without one): the four backward
-kernels (``ssd_scan_bwd``) against the plain version over a grid
-of shapes and both dtypes, bitwise equal repeats, strided inputs, and
-what the wrapper refuses:
+On the CPU also the tensor-core path's host side: its plan (head groups,
+splits and grid) against worked-out values and over sizes and cards, and
+the 16-byte layout rule.
+
+On a card (marked ``cuda``, skipped without one): the backward kernels
+(``ssd_scan_bwd``: the tensor-core path on bf16, the f32 path on f32)
+against the plain version over a grid of shapes and both dtypes, ragged
+head groups and splits, an f32 dy on bf16 inputs, bitwise equal repeats,
+strided and copied inputs, what the wrapper refuses, and the kernels'
+registers and spills:
 
     python -m pytest -q -m cuda tests/test_torch_ssd_bwd.py
 
 The card's machine has no JAX: it is imported inside the tests that use
 it.
 """
+import re
+
 import numpy as np
 import pytest
 import torch
 
+from repro_torch.kernels import _build
 from repro_torch.kernels import ops
 from repro_torch.kernels import ssd_scan as sk
 
@@ -204,6 +213,124 @@ def test_plain_backward_dtypes_and_ops_cpu_gradient():
         torch.testing.assert_close(g, w, **CARD_F32, msg=name)
 
 
+@pytest.mark.parametrize("call,want", [
+    # mamba2-1.3b's training call: 16 groups of 4 heads, 8 splits
+    ((1, 2048, 64, 64, 128, 256, 132),
+     dict(tile=64, tiles=4, heads_per_group=4, groups=16, ksplits=8,
+          chunk_blocks=512, bc_blocks=512, partial_bytes=37748736)),
+    # zamba2-2.7b's: 80 heads, ds 64
+    ((1, 2048, 80, 64, 64, 256, 132),
+     dict(heads_per_group=4, groups=20, ksplits=8, chunk_blocks=640,
+          bc_blocks=512)),
+    # mamba2-1.3b's prefill call: enough blocks with 8 heads a group
+    ((2, 4096, 64, 64, 128, 256, 132),
+     dict(heads_per_group=8, groups=8, ksplits=2, chunk_blocks=1024,
+          bc_blocks=512)),
+    # a chunk of 8 (one 8-row tile padded to 16), 4 heads
+    ((1, 64, 4, 16, 16, 8, 132),
+     dict(tile=8, tiles=1, heads_per_group=1, groups=4, ksplits=4,
+          chunk_blocks=32, bc_blocks=64)),
+    # 5 heads: ragged groups of 2 on a 6-SM card, 4 ragged splits on 20
+    ((1, 512, 5, 64, 128, 64, 6),
+     dict(heads_per_group=2, groups=3, ksplits=1, chunk_blocks=24)),
+    ((1, 512, 5, 16, 16, 64, 20),
+     dict(heads_per_group=1, groups=5, ksplits=4, bc_blocks=64)),
+])
+def test_bwd_plan_worked_values(call, want):
+    plan = sk.bwd_plan(*call)
+    assert {k: plan[k] for k in want} == want
+    b, s, nh, hd, ds, chunk, _ = call
+    # every head in one group and one split; W's and dB/dC's f32 partials
+    # below the per-head (nh, b, s, ds) pair of the f32 path
+    assert (plan["groups"] - 1) * plan["heads_per_group"] < nh \
+        <= plan["groups"] * plan["heads_per_group"]
+    assert 1 <= plan["ksplits"] <= nh
+    assert plan["partial_bytes"] < 2 * 4 * nh * b * s * ds or nh < 8
+
+
+@pytest.mark.parametrize("b,s,nh,chunk,sms", [
+    (b, s, nh, chunk, sms) for b, s, chunk in ((1, 64, 8), (2, 4096, 256))
+    for nh in (3, 64) for sms in (6, 132)])
+def test_bwd_plan_fills_the_card(b, s, nh, chunk, sms):
+    """Over sizes, heads and cards: the head group and the splits are
+    powers of two up to 8 (splits up to nh); a group smaller than 8 is the
+    largest that still gives three chunk blocks an SM, a split count above
+    1 the least that gives two dB/dC blocks an SM (or it stops at 8 or
+    nh); the blocks are the tiles times the groups or the splits."""
+    plan = sk.bwd_plan(b, s, nh, 64, 128, chunk, sms)
+    g, ks, nc = plan["heads_per_group"], plan["ksplits"], s // chunk
+    assert g in (1, 2, 4, 8) and ks in (1, 2, 4, 8) and ks <= nh
+    assert plan["tiles"] * plan["tile"] == chunk
+    assert plan["groups"] == -(-nh // g)
+    assert plan["chunk_blocks"] == b * nc * plan["groups"] * plan["tiles"]
+    assert plan["bc_blocks"] == b * nc * plan["tiles"] * 2 * ks
+    if g < 8:
+        assert b * nc * -(-nh // (2 * g)) * plan["tiles"] < 3 * sms
+    assert g == 1 or plan["chunk_blocks"] >= 3 * sms
+    if ks > 1:
+        assert plan["bc_blocks"] // 2 < 2 * sms
+    assert 2 * ks > min(8, nh) or plan["bc_blocks"] >= 2 * sms
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("call,want", [
+    # mamba2-1.3b's training call, zamba2-2.7b's, a chunk of 8
+    ((1, 2048, 64, 64, 128, 256, 4, 8), (22692864, 16777216)),
+    ((1, 2048, 80, 64, 64, 256, 4, 8), (19836160, 10485760)),
+    ((1, 64, 4, 16, 16, 8, 1, 4), (28768, 32768)),
+])
+def test_cuda_bwd_scratch_worked_values(cuda, call, want):
+    """The scratch the launcher carves, each piece rounded up to 8
+    elements: f32 the states twice, the decays, the scores, W's group
+    partials, the vectors, dE's and dA's partials, the splits' dB and dC;
+    bf16 the states' four planes."""
+    assert sk.bwd_scratch(*call) == want
+
+
+@pytest.mark.cuda
+def test_bwd_plan_scratch_with_f32_dy(cuda):
+    """An f32 dy adds its hi and lo bf16 planes, (2, b, s, nh, hd)."""
+    a = sk.bwd_scratch(2, 256, 3, 32, 64, 64, 1, 2)
+    c = sk.bwd_scratch(2, 256, 3, 32, 64, 64, 1, 2, dy_f32=True)
+    assert c[1] - a[1] == 2 * 2 * 256 * 3 * 32
+    assert c[0] == a[0]
+    with pytest.raises(ValueError):
+        sk.bwd_scratch(2, 256, 3, 32, 64, 64, 1, 4)  # more splits than heads
+
+
+def test_bf16_layout_rule():
+    """16-byte start, strides over the leading dims multiples of 8, last
+    dim contiguous: B and C as halves of one projection fit; a view one
+    element in, a row of 129, or a broadcast last dim do not."""
+    bc = torch.zeros(2, 32, 2 * 64, dtype=torch.bfloat16)
+    B, C = bc.chunk(2, dim=-1)
+    assert sk.fits_bf16_layout(B) and sk.fits_bf16_layout(C)
+    flat = torch.zeros(2 * 32 * 64 + 8, dtype=torch.bfloat16)
+    assert not sk.fits_bf16_layout(flat[1:1 + 2 * 32 * 64].view(2, 32, 64))
+    assert not sk.fits_bf16_layout(
+        torch.zeros(2, 32, 129, dtype=torch.bfloat16)[..., :64])
+    assert not sk.fits_bf16_layout(
+        torch.zeros(1, 1, 1, dtype=torch.bfloat16).expand(2, 32, 64))
+    with pytest.raises(ValueError, match="16-byte"):
+        sk.check_bf16_layout(B, B, flat[1:1 + 2 * 32 * 64].view(2, 32, 64))
+
+
+def test_backward_kernel_names_by_path():
+    """Each path's kernel names (those chip_smoke.py sums device time by)
+    are __global__ functions of the source, and the two paths share
+    none."""
+    src = (_build.CSRC / "ssd_scan_bwd.cu").read_text()
+    defined = set(re.findall(
+        r"__global__\s+void\s+__launch_bounds__\([^)]*\)\s+(ssd_bwd_\w+)\(",
+        src))
+    assert len(sk.BWD_KERNELS[torch.bfloat16]) == 5
+    assert len(sk.BWD_KERNELS[torch.float32]) == 4
+    for names in sk.BWD_KERNELS.values():
+        assert set(names) <= defined
+    assert not set(sk.BWD_KERNELS[torch.bfloat16]) & set(
+        sk.BWD_KERNELS[torch.float32])
+
+
 def test_backward_wrapper_refuses_cpu_tensors():
     t = [torch.from_numpy(a) for a in _inputs(1, 32, 2, 16, 16)]
     before = sk.ssd_scan_bwd.launches
@@ -310,3 +437,113 @@ def test_cuda_backward_rejects_what_it_does_not_take(cuda, bad):
     with pytest.raises(ValueError):
         sk.ssd_scan_bwd(x, dt, A, B, C, dy, chunk=chunk)
     assert sk.ssd_scan_bwd.launches == before
+
+
+def _bf16_check(got, again, want, exact, dtype=torch.bfloat16):
+    """Bitwise equal twice, the types, and each gradient within 1.25x the
+    plain version's distance from the f32 inputs' gradient."""
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    assert [g.dtype for g in got] == [dtype, torch.float32, torch.float32,
+                                      dtype, dtype]
+    for name, g, w, e in zip(NAMES, got, want, exact):
+        assert _rel(g, e) <= BF16_VS_PLAIN * _rel(w, e), name
+
+
+# (b, s, nh, hd, ds, chunk, SMs the plan is made for): ragged head groups
+# (5 heads in groups of 2; 3 heads in one group of 8) and ragged splits (5
+# heads in 4), ds 16 and 128, hd 16 and 64, chunks 16-256
+TC_CASES = [(1, 512, 5, 64, 128, 64, 6), (1, 512, 5, 16, 16, 64, 20),
+            (2, 96, 3, 16, 128, 32, 1), (1, 256, 3, 64, 16, 256, 1),
+            (2, 64, 5, 32, 64, 16, 10)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", TC_CASES)
+def test_cuda_tc_backward_ragged_groups_and_splits(cuda, case, monkeypatch):
+    *dims, chunk, sms = case
+    monkeypatch.setattr(sk, "sm_count", lambda _dev: sms)
+    arrs = _inputs(*dims, seed=30)
+    args = _card(arrs, cuda, torch.bfloat16, strided_bc=True)
+    got = sk.ssd_scan_bwd(*args, chunk=chunk)
+    again = sk.ssd_scan_bwd(*args, chunk=chunk)
+    torch.cuda.synchronize()
+    want = sk.ssd_scan_bwd_ref(*args, chunk)[:5]
+    exact = sk.ssd_scan_bwd_ref(*_card(arrs, cuda), chunk)[:5]
+    _bf16_check(got, again, want, exact)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(2, 128, 4, 16, 32, 16),
+                                   (1, 512, 5, 64, 128, 256)])
+def test_cuda_tc_backward_takes_f32_dy(cuda, shape):
+    """bf16 x, B and C with an f32 dy: the kernels split dy as hi + lo."""
+    *dims, chunk = shape
+    arrs = _inputs(*dims, seed=31)
+    x, dt, A, B, C, _ = _card(arrs, cuda, torch.bfloat16, strided_bc=True)
+    dy = torch.from_numpy(arrs[5]).to(cuda)
+    args = (x, dt, A, B, C, dy)
+    got = sk.ssd_scan_bwd(*args, chunk=chunk)
+    again = sk.ssd_scan_bwd(*args, chunk=chunk)
+    torch.cuda.synchronize()
+    want = sk.ssd_scan_bwd_ref(*args, chunk)[:5]
+    exact = sk.ssd_scan_bwd_ref(*_card(arrs, cuda), chunk)[:5]
+    _bf16_check(got, again, want, exact)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", ["misaligned", "broadcast", "strided"])
+def test_cuda_tc_backward_copies_a_dy_off_the_layout(cuda, layout):
+    """A bf16 dy off the 16-byte rule is copied: the same gradients as its
+    contiguous copy, bitwise."""
+    x, dt, A, B, C, dy = _card(_inputs(2, 128, 4, 16, 32, seed=32), cuda,
+                               torch.bfloat16, strided_bc=True)
+    if layout == "misaligned":
+        flat = torch.empty(dy.numel() + 8, dtype=dy.dtype, device=cuda)
+        bad = flat[1:1 + dy.numel()].view(dy.shape)
+        bad.copy_(dy)
+    elif layout == "broadcast":
+        bad = dy[:1, :1, :1, :1].expand(dy.shape)
+    else:  # every other step: strides (2 s nh hd, 2 nh hd, ...) fit; a
+        # column of 17 does not
+        wide = torch.zeros(*dy.shape[:3], 17, dtype=dy.dtype, device=cuda)
+        wide[..., :16] = dy
+        bad = wide[..., :16]
+    assert not sk.fits_bf16_layout(bad)
+    before = sk.ssd_scan_bwd.launches
+    got = sk.ssd_scan_bwd(x, dt, A, B, C, bad, chunk=16)
+    want = sk.ssd_scan_bwd(x, dt, A, B, C, bad.contiguous(), chunk=16)
+    torch.cuda.synchronize()
+    assert sk.ssd_scan_bwd.launches == before + 2
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bad", ["x", "B", "C"])
+def test_cuda_tc_backward_refuses_x_b_c_off_the_layout(cuda, bad):
+    x, dt, A, B, C, dy = _card(_inputs(1, 64, 2, 16, 16, seed=33), cuda,
+                               torch.bfloat16)
+    t = {"x": x, "B": B, "C": C}[bad]
+    flat = torch.empty(t.numel() + 8, dtype=t.dtype, device=cuda)
+    off = flat[1:1 + t.numel()].view(t.shape)
+    off.copy_(t)
+    args = {"x": x, "B": B, "C": C, bad: off}
+    before = sk.ssd_scan_bwd.launches
+    with pytest.raises(ValueError, match="16-byte"):
+        sk.ssd_scan_bwd(args["x"], dt, A, args["B"], args["C"], dy,
+                        chunk=16)
+    assert sk.ssd_scan_bwd.launches == before
+
+
+@pytest.mark.cuda
+def test_cuda_tc_backward_kernels_do_not_spill(cuda):
+    """The runtime's registers, local memory and occupancy at the training
+    calls' widths: no local memory, and at ds 128 two blocks of the chunk
+    and dB/dC kernels resident on an SM."""
+    for ds in (128, 64):
+        info = sk.bwd_kernel_info(64, ds)
+        assert set(info) == set(sk.BWD_KERNELS[torch.bfloat16])
+        for name, k in info.items():
+            assert k["local_bytes"] == 0, (name, ds, k)
+            assert k["blocks_per_sm"] >= 1, (name, ds, k)
+            if ds == 128 and name in ("ssd_bwd_tc_chunk", "ssd_bwd_tc_bc"):
+                assert k["blocks_per_sm"] >= 2, (name, k)

@@ -1,20 +1,26 @@
 #!/usr/bin/env python3
-"""The training cut's gate against deliberately wrong backward kernels, on
-one GPU.
+"""The training cut's gate and the scan backward's kernel checks against
+deliberately wrong backward kernels, on one GPU.
 
     python3 tools/train_cut_controls.py [ARCH ...]
 
 Runs chip_smoke.py's 2-layer training cut (``cut_readings``, held by
 ``train_cut_check``) of each ARCH (default: zamba2-2.7b, mamba2-1.3b,
-qwen2-1.5b) on the port as it stands, then of zamba2-2.7b on each control:
-a copy of the port under build/cut_controls/NAME/ whose
-csrc/ssd_scan_bwd.cu has one term of the gradient removed (CONTROLS).
-Each tree runs in its own process (the kernels load from the package's own
-build directory), which exits 3 when a gate fails.  Prints one JSON line
-per (tree, arch): whether the gate passed (else the leaves it failed on),
-whether its bf16 half alone passed, and each leaf's readings; one line per
-control saying whether the gate caught it; then the card's name and power
-limit.  Exits 1 if the port fails its gate or a control passes it.
+qwen2-1.5b) and the bf16 cases of the ``ssd_bwd`` phase's checks
+(``ssd_bwd_checks``) on the port as it stands, then the same for
+zamba2-2.7b on each control: a copy of the port under
+build/cut_controls/NAME/ whose csrc/ssd_scan_bwd.cu has one term of the
+tensor-core path's gradient removed (CONTROLS).  Each tree runs in its own
+process (the kernels load from the package's own build directory), which
+exits 3 when a gate that reads the tensor-core kernels failed (the cut's
+bf16 half, or the kernel checks) and 4 when only the cut's f32 half did
+(the f32 path runs the f32-FMA kernels, which no control touches).
+Prints one JSON line per (tree, arch): whether the gate passed (else the
+leaves it failed on), whether its bf16 half alone passed, and each leaf's
+readings; one per tree for the kernel checks; one line per control saying
+which gates caught it; then the card's name and power limit.  Exits 1 if
+the port fails a gate or a control is not caught by one that reads the
+tensor-core kernels.
 """
 import json
 import os
@@ -25,26 +31,33 @@ import sys
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 BWD = os.path.join("repro_torch", "kernels", "csrc", "ssd_scan_bwd.cu")
 ARCHS = ("zamba2-2.7b", "mamba2-1.3b", "qwen2-1.5b")
-GATE_FAILED = 3  # a tree's exit code when a gate failed
-# name: (text of ssd_scan_bwd.cu, its replacement, the term removed)
+GATE_FAILED = 3  # a gate that reads the tensor-core kernels failed
+F32_ONLY = 4     # only the cut's f32 half failed
+# name: (text of ssd_scan_bwd.cu, its replacement, the term removed), each
+# in the tensor-core path's kernels
 CONTROLS = {
     "no_state_dB": (
-        "for (int q = 0; q < RS; ++q) accB[r][q] *= w;",
-        "for (int q = 0; q < RS; ++q) accB[r][q] *= 0.f;",
+        "const float sc0 = sSc[r0], sc1 = sSc[r1];",
+        "const float sc0 = side ? 0.f : sSc[r0], "
+        "sc1 = side ? 0.f : sSc[r1];",
         "dB_j's end-state share u_j dt_j dS^T x_j"),
     "no_du_in_da": (
-        "const float da = sDaT[tid] + sDe[k] + dEdec + du;",
-        "const float da = sDaT[tid] + sDe[k] + dEdec;",
+        "float da = sV[kDaT * Q + k] + sV[kEde * Q + k] + dEdec + "
+        "sV[kUdu * Q + k];",
+        "float da = sV[kDaT * Q + k] + sV[kEde * Q + k] + dEdec;",
         "da_k's sum_{j<k} u_j du_j (into ddt and dA)"),
     "dB_skips_head_0": (
-        "      sb += a.dbp[h * n_bsd + e];",
-        "      if (h > 0) sb += a.dbp[h * n_bsd + e];",
-        "head 0's partial of the sum of dB over heads"),
+        "for (int grp = 0; grp < a.ngroups; ++grp) {",
+        "for (int grp = side; grp < a.ngroups; ++grp) {",
+        "head group 0 (head 0 and the rest of its group) in dB's sum of W "
+        "over groups"),
 }
 
 
 def one(src, archs):
-    """The gate and readings of each arch on the port under ``src``."""
+    """The gates and readings of each arch on the port under ``src``, and
+    the kernel checks' bf16 cases; returns the exit code (0, GATE_FAILED
+    or F32_ONLY)."""
     sys.path.insert(0, src)
     sys.path.insert(1, ROOT)
     import torch
@@ -53,7 +66,7 @@ def one(src, archs):
     _build.build_all(["flash_attention", "flash_attention_bwd", "ssd_scan",
                       "ssd_scan_bwd"])
     readings, f32_limit = cs.cut_readings, cs.TRAIN_CUT_F32_REL
-    bad = 0
+    bad = bf16_bad = 0
     for arch in archs:
         cfg = cs.get_cfg(arch)
         shape = (2, 2048) if cfg.family == "dense" else (1, 2048)
@@ -78,7 +91,19 @@ def one(src, archs):
                           "loss_plain": r["loss_plain"],
                           "leaves": r["leaves"]}), flush=True)
         bad += not gates["whole"]["passed"]
-    return bad
+        bf16_bad += not gates["bf16_alone"]["passed"]
+        cs.cut_readings, cs.TRAIN_CUT_F32_REL = readings, f32_limit
+    try:
+        cs.ssd_bwd_checks(torch, [c for c in cs.ssd_bwd_cases()
+                                  if c[1] == "bfloat16"])
+        checks = {"passed": True}
+    except RuntimeError as e:
+        checks = {"passed": False, "error": str(e)[:400]}
+    print(json.dumps({"src": os.path.relpath(src, ROOT),
+                      "ssd_bwd_bf16_checks": checks}), flush=True)
+    if bf16_bad or not checks["passed"]:
+        return GATE_FAILED
+    return F32_ONLY if bad else 0
 
 
 def main(argv) -> int:
@@ -112,8 +137,8 @@ def main(argv) -> int:
             continue
         caught = p.returncode == GATE_FAILED
         print(json.dumps({"control": name, "removed": CONTROLS[name][2],
-                          "caught": caught, "exit": p.returncode}),
-              flush=True)
+                          "caught_by_a_tensor_core_gate": caught,
+                          "exit": p.returncode}), flush=True)
         rc |= not caught
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
@@ -124,5 +149,5 @@ def main(argv) -> int:
 
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--one"]:
-        sys.exit(GATE_FAILED if one(sys.argv[2], sys.argv[3:]) else 0)
+        sys.exit(one(sys.argv[2], sys.argv[3:]))
     sys.exit(main(sys.argv[1:]))
