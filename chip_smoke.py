@@ -95,6 +95,23 @@ nonzero exit and no result line:
               them);
               smollm-135m at full width checkpointed after 4 steps and
               restarted to 6 against an unbroken run (1e-5)
+  train_dp    the int8-compressed data-parallel step
+              (build_step_bundle(mesh=make_local_mesh(), compressed=True))
+              at full qwen2-1.5b width and depth on a world of one on
+              NCCL, bf16 over f32, remat "dots", 4 steps of (2, 2048):
+              fails unless every loss is finite, each step launched the
+              attention forward 56 times and each backward kernel 28, and
+              each step issued 2 all-reduces a parameter leaf (the
+              scale's MAX, the int32 counts' SUM) and 4 means (loss, ce,
+              zloss, aux); ms per step and tokens/s beside the train
+              phase's, peak memory, one profiled step's device time and
+              busy share, the all-reduce bytes a step; a 2-layer cut in
+              f32 on the card against the same cut on the CPU (plain
+              versions, a gloo group) after 2 steps: loss and gradient
+              norm 1e-4; each residual element within one shared scale
+              and each weight within two AdamW steps (the quanta), plus
+              1e-4 of its leaf's largest value; at most 1e-3 of the
+              payload's elements a quantum off (counted)
   ssd_bwd     ssd_scan's backward (ssd_scan_bwd: bf16 ssd_bwd_tc_states,
               _pass, _chunk, _bc, _sum on the tensor cores; f32
               ssd_bwd_chunk_state, _state_pass, _chunk, _sum) against its
@@ -137,6 +154,18 @@ nonzero exit and no result line:
               same frequency, demand and plant-noise inputs
   sweep       engine_sweep over the 6 E9-fast specs in chunks of 5 against
               the monolithic rollout
+  mesh        the reference's distributed smoke on one card: two worker
+              processes of this script under the REPRO_* contract on
+              localhost (a gloo group: the ranks share the card) each
+              sweep their process_slice with engine_sweep(chunk_size=8,
+              mesh="auto", finalize=False) -- 36 scenario-days of hourly
+              tiers, and the seconds tier (telemetry on) on 6 of them cut
+              to 1 h; fails unless each worker counted only its slice, the
+              slices cover the specs and the merged aggregates meet the
+              single-process sweep (hourly rtol 1e-4 / atol 1e-5; seconds
+              1e-3, RLS 2e-2, counts exact); then engine_rollout over two
+              lanes of the card (6 scenarios) against mesh=None; each
+              worker's seconds and backend
   bidding     the reference bidding bench's three arms on its fast E9 slice
               (SE/DE/PL, 6 h, FFR, bands 0/0.2, event draw 0): the
               price-blind and price-aware Tier-3 grid searches and
@@ -177,7 +206,7 @@ nonzero exit and no result line:
               under AllocationChurn (printed, not enforced)
   twin        Fig. 4 (benchmarks/cluster_24h.py): 100 hosts x 3 chips on the
               DE grid, seeds 0-2 as one run_twin_batch over 24 h or the
-              longest whole number of hours the phase's 120 s allow
+              longest whole number of hours the phase's 80 s allow
               (printed as a cut): scenario-seconds per wall second, ms per
               tick, one tick's device time and launches, peak memory, seed
               0's summary beside the paper's, the net-CO2 decomposition at
@@ -214,7 +243,7 @@ import numpy as np
 ROOT = os.path.dirname(os.path.abspath(__file__))
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM data sheet
 L2_BYTES = 50 * 2**20              # H100 SXM, where torch does not report it
-ENGINE_BUDGET_S = 150.0            # wall time the 24 h rollout may spend
+ENGINE_BUDGET_S = 100.0            # wall time the 24 h rollout may spend
 KERNEL_TOL = dict(atol=1e-4, rtol=1e-5)
 # E4's closed loop through pid_update against the same loop through its
 # plain version: a 1-ulp change of every tick's PID outputs moves the
@@ -271,7 +300,7 @@ SERVICE_MAX_RSS_GROWTH_MB = 64.0
 PROFILED_STEPS = 8               # opt steps in the bidder's profiled run
 # the paper's experiments (benchmarks/e2, e4, e7, cluster_24h, e9)
 FR_LATENCY_PORT = 47661          # UDP port of fr_latency's island
-TWIN_BUDGET_S = 120.0            # wall time of the whole twin phase
+TWIN_BUDGET_S = 80.0             # wall time of the whole twin phase
 TWIN_SEEDS = (0, 1, 2)
 TWIN_PAPER = {"ar4_mae_norm": 0.036, "ar4_p95_norm": 0.09, "q_ffr": 1.0,
               "mean_mu_green": 0.90, "mean_mu_dirty": 0.40,
@@ -1197,6 +1226,219 @@ def phase_sweep(torch):
     emit({"phase": "sweep", "specs": len(specs), "chunk_size": 5,
           "max_rel_err": worst, "net_eur": swept["net_eur"],
           "n_events": swept["n_events"]})
+
+
+# --- mesh: the sweep split over two processes sharing the card -------------
+
+MESH_WORKER_TIMEOUT_S = 150        # each worker, rendezvous to result
+MESH_CHUNK = 8
+MESH_HOURLY_TOL = dict(rtol=1e-4, atol=1e-5)   # tests/test_engine_sharded.py
+MESH_SECONDS_TOL = {"energy": 1e-3, "rls": 2e-2}
+MESH_RLS_KEYS = ("ar4_mae_norm", "tracking_err_mean", "rls_rms",
+                 "track_rms", "track_hist")
+MESH_EXACT_KEYS = ("n_scenarios", "n_events", "n_compliant", "active_s",
+                   "n_budget_ok")
+
+
+def mesh_jobs():
+    """The reference's distributed smoke (benchmarks/engine_fleet.py):
+    36 scenario-days (6 grids x seeds 0-5, 24 h) under its hourly-tier
+    fleet_cfg, and its seconds_cfg on the first 6 of those specs cut to
+    1 h.  Built through the port: that file imports JAX."""
+    import dataclasses
+    import repro_torch.core.engine as eng
+    from repro_torch.grid.scenarios import product_specs
+    specs = product_specs(seeds=range(6), horizon_h=24)
+    return {
+        "hourly": (eng.EngineConfig(n_hosts=2, chips_per_host=2,
+                                    with_seconds=False), specs),
+        "seconds_tier": (
+            eng.EngineConfig(n_hosts=2, chips_per_host=2, e_max=8,
+                             events_per_day=48.0, telemetry=True),
+            [dataclasses.replace(s, horizon_h=1) for s in specs[:6]]),
+    }
+
+
+def mesh_worker(out_dir):
+    """One rank of the mesh phase (REPRO_* set by the parent): this
+    process's raw aggregates of engine_sweep(mesh="auto",
+    finalize=False) for each job, its slice, backend and seconds."""
+    import torch
+    import torch.distributed as dist
+    sys.path.insert(0, os.path.join(ROOT, "src"))
+    import repro_torch.core.engine as eng
+    from repro_torch.launch import mesh as mesh_lib
+    rec = {}
+    for name, (cfg, specs) in mesh_jobs().items():
+        t0 = time.perf_counter()
+        agg = eng.engine_sweep(cfg, specs, chunk_size=MESH_CHUNK,
+                               mesh="auto", finalize=False, device="cuda")
+        torch.cuda.synchronize()
+        rec[name] = {"agg": {k: v.tolist() for k, v in agg.items()},
+                     "slice": mesh_lib.process_slice(len(specs)),
+                     "seconds": time.perf_counter() - t0}
+    rec.update(rank=dist.get_rank(), world=dist.get_world_size(),
+               backend=dist.get_backend(),
+               lanes=[str(d) for d in mesh_lib.resolve_mesh(
+                   "auto", device="cuda").devices])
+    dist.destroy_process_group()
+    with open(os.path.join(out_dir, f"rank{rec['rank']}.json"), "w") as f:
+        json.dump(rec, f)
+    return 0
+
+
+def spawn_mesh_workers(out_dir, n=2):
+    """``n`` workers of this script under the REPRO_* contract on a free
+    localhost port; fails if one fails or outlives its timeout (all are
+    killed then)."""
+    import socket
+    with socket.socket() as sk:
+        sk.bind(("127.0.0.1", 0))
+        port = sk.getsockname()[1]
+    procs = []
+    try:
+        for r in range(n):
+            env = dict(os.environ, REPRO_COORD_ADDR=f"127.0.0.1:{port}",
+                       REPRO_NUM_PROCESSES=str(n), REPRO_PROCESS_ID=str(r))
+            procs.append(subprocess.Popen(
+                [sys.executable, os.path.abspath(__file__), "--mesh-worker",
+                 out_dir], env=env, stdout=subprocess.PIPE,
+                stderr=subprocess.STDOUT, text=True))
+        deadline = time.monotonic() + MESH_WORKER_TIMEOUT_S
+        for r, p in enumerate(procs):
+            out, _ = p.communicate(
+                timeout=max(deadline - time.monotonic(), 1.0))
+            if p.returncode != 0:
+                raise RuntimeError(f"mesh: worker {r} exited "
+                                   f"{p.returncode}: {out[-3000:]}")
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    recs = []
+    for r in range(n):
+        with open(os.path.join(out_dir, f"rank{r}.json")) as f:
+            recs.append(json.load(f))
+    return recs
+
+
+def mesh_compare(got, want, hourly):
+    """Finalized sweep metrics against the single process's: hourly at
+    rtol 1e-4 / atol 1e-5; the seconds tier at 1e-3 for energy and money,
+    2e-2 for the RLS metrics, counts exact.  Returns the worst relative
+    error per key."""
+    flat_g = {**got, **{f"telemetry.{k}": v
+                        for k, v in got.get("telemetry", {}).items()}}
+    flat_w = {**want, **{f"telemetry.{k}": v
+                         for k, v in want.get("telemetry", {}).items()}}
+    worst = {}
+    for k, w in flat_w.items():
+        if k == "telemetry":
+            continue
+        g, w = np.asarray(flat_g[k], np.float64), np.asarray(w, np.float64)
+        base = k.split(".")[-1]
+        if not hourly and base in MESH_EXACT_KEYS:
+            ok = np.array_equal(g, w)
+        else:
+            rtol = (MESH_HOURLY_TOL["rtol"] if hourly else
+                    MESH_SECONDS_TOL["rls" if base in MESH_RLS_KEYS
+                                     else "energy"])
+            atol = MESH_HOURLY_TOL["atol"] if hourly else 1e-4
+            ok = bool(np.all(np.abs(g - w) <= atol + rtol * np.abs(w)))
+        if not ok:
+            raise RuntimeError(f"mesh: {k} {g} against {w}")
+        worst[k] = float(np.max(np.abs(g - w) / np.maximum(np.abs(w),
+                                                           1e-12)))
+    return worst
+
+
+def phase_mesh(torch):
+    """The sweep over the mesh layer on one card: two worker processes
+    (REPRO_* on localhost, a gloo group, as the ranks share the card) each
+    sweep their process_slice of mesh_jobs(), their raw aggregates merged
+    through summary_merge against the single-process sweep; then
+    engine_rollout over two lanes on the card (N = 6 on 2 lanes; the
+    seconds job's 6 specs) against mesh=None."""
+    import tempfile
+    import repro_torch.core.engine as eng
+    from repro_torch.grid.scenarios import build_scenario_batch
+    from repro_torch.launch.mesh import ScenarioMesh
+    t_phase = time.perf_counter()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()   # the workers open contexts of their own
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_mesh_") as d:
+        t0 = time.perf_counter()
+        recs = spawn_mesh_workers(d)
+        workers_s = time.perf_counter() - t0
+    rec = {"phase": "mesh", "workers_s": workers_s,
+           "workers": [{"rank": r["rank"], "world": r["world"],
+                        "backend": r["backend"], "lanes": r["lanes"],
+                        **{name: {"slice": r[name]["slice"],
+                                  "seconds": r[name]["seconds"]}
+                           for name in mesh_jobs()}}
+                       for r in recs]}
+    for name, (cfg, specs) in mesh_jobs().items():
+        aggs = [{k: torch.tensor(v, dtype=torch.float32)
+                 for k, v in r[name]["agg"].items()} for r in recs]
+        slices = [tuple(r[name]["slice"]) for r in recs]
+        for (lo, hi), a in zip(slices, aggs):
+            if float(a["n_scenarios"]) != hi - lo:
+                raise RuntimeError(f"mesh: {name}: a worker counted "
+                                   f"{float(a['n_scenarios'])} scenarios "
+                                   f"of its slice [{lo}, {hi})")
+        if slices[0][0] != 0 or slices[-1][1] != len(specs) or any(
+                a[1] != b[0] for a, b in zip(slices, slices[1:])):
+            raise RuntimeError(f"mesh: {name}: slices {slices} do not "
+                               f"cover {len(specs)} specs")
+        merged = eng.sweep_finalize(eng.summary_merge(*aggs))
+        t0 = time.perf_counter()
+        single = eng.sweep_finalize(eng.engine_sweep(
+            cfg, specs, chunk_size=MESH_CHUNK, finalize=False,
+            device="cuda"))
+        rec[name] = {"specs": len(specs), "slices": slices,
+                     "single_process_s": time.perf_counter() - t0,
+                     "n_events": merged.get("n_events"),
+                     "max_rel_err": mesh_compare(merged, single,
+                                                 name == "hourly")}
+    cfg, specs = mesh_jobs()["seconds_tier"]
+    batch = build_scenario_batch(specs, device="cuda")
+    lanes = ScenarioMesh((torch.device("cuda", 0),) * 2)
+    t0 = time.perf_counter()
+    split = eng.engine_rollout(cfg, batch, mesh=lanes, device="cuda")
+    torch.cuda.synchronize()
+    split_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    whole = eng.engine_rollout(cfg, batch, device="cuda")
+    torch.cuda.synchronize()
+    whole_s = time.perf_counter() - t0
+    worst = {}
+    for k, w in whole.items():
+        if not isinstance(w, torch.Tensor):
+            continue
+        g = split[k]
+        if g.shape != w.shape:
+            raise RuntimeError(f"mesh: rollout {k} {g.shape} {w.shape}")
+        if k in ("n_events", "active_s", "n_compliant"):
+            ok = torch.equal(g, w)
+        else:
+            rtol = MESH_SECONDS_TOL["rls" if k in MESH_RLS_KEYS
+                                    else "energy"]
+            g64, w64 = g.double(), w.double()
+            ok = bool(((g64 - w64).abs() <= 1e-4 + rtol * w64.abs()).all())
+            worst[k] = float(((g64 - w64).abs()
+                              / w64.abs().clamp_min(1e-12)).max())
+        if not ok:
+            raise RuntimeError(f"mesh: engine_rollout on 2 lanes, {k}")
+    if not torch.equal(split["events"].t_event_s,
+                       whole["events"].t_event_s):
+        raise RuntimeError("mesh: the 2-lane rollout's trigger seconds "
+                           "differ")
+    rec["rollout_2_lanes"] = {"scenarios": batch.n, "hours": 1,
+                              "split_s": split_s, "whole_s": whole_s,
+                              "max_rel_err": worst}
+    rec["seconds"] = time.perf_counter() - t_phase
+    emit(rec)
 
 
 def bid_specs():
@@ -2656,7 +2898,8 @@ def phase_train(torch):
     TRAIN_STEPS steps of TRAIN_SHAPE tokens (the attention forward 56
     times a step under remat "dots", each backward kernel 28); then the
     2-layer kernels-vs-plain check and the smollm-135m restart check.
-    Returns each kernel's launches in the trainer's run."""
+    Returns the trainer's run (each kernel's launches under
+    ``launches``)."""
     from repro_torch.core.plant import train_step_cost
     t_phase = time.perf_counter()
     cfg = get_cfg("qwen2-1.5b")
@@ -2677,7 +2920,232 @@ def phase_train(torch):
           "mfu_vs_989": flops / (ms * 1e-3) / TENSOR_CORE_BF16_FLOP_S,
           "cut_check": cut, "restart_check": restart,
           "seconds": time.perf_counter() - t_phase})
-    return res["launches"]
+    return res
+
+
+# --- train_dp: the int8-compressed data-parallel step at full width ----------
+
+TRAIN_DP_STEPS = 4
+TRAIN_DP_CUT_SHAPE = (1, 128)      # the 2-layer cut's tokens, card and CPU
+TRAIN_DP_CUT_STEPS = (100, 101)    # past warm-up: AdamW moves every weight
+TRAIN_DP_CUT_REL = 1e-4            # f32, per leaf, plus one quantum
+TRAIN_DP_CUT_FLIPS = 1e-3          # share of elements that may need it
+
+
+def count_all_reduces(torch):
+    """Wrap ``torch.distributed.all_reduce`` to record each call's dtype
+    and element count; returns (records, undo)."""
+    import torch.distributed as dist
+    calls, orig = [], dist.all_reduce
+
+    def counting(t, *a, **kw):
+        calls.append((t.dtype, t.numel()))
+        return orig(t, *a, **kw)
+
+    dist.all_reduce = counting
+    return calls, lambda: setattr(dist, "all_reduce", orig)
+
+
+def train_dp_cut(torch, cfg, rules):
+    """A 2-layer cut of ``cfg`` at full width through the compressed step
+    (on the world of one that ``rules`` names) in f32, on the card (the
+    kernels, NCCL) and on the CPU (the plain versions, a gloo group of
+    the same rank), from the same weights and tokens, for two steps past
+    warm-up.  The loss and the all-reduced gradient's norm at
+    TRAIN_DP_CUT_REL.  A payload element one quantum off between the two
+    devices moves its residual by one shared scale (the residual's
+    quantum: the leaf's largest scale over the steps and devices) and
+    its weight by up to twice the steps' learning rates (the weight's
+    quantum: an AdamW step moves a weight by about lr whatever its
+    gradient's size).  So every element must lie within its quantum plus
+    TRAIN_DP_CUT_REL of its leaf's largest value (for the residual, of
+    the compensated gradient it came from), and at most
+    TRAIN_DP_CUT_FLIPS of the residual's elements more than half a scale
+    away (a flipped payload element: float noise moves a residual far
+    less, a wrong gradient flips most)."""
+    import dataclasses
+    import torch.distributed as dist
+    from repro_torch._tree import leaves_with_paths, tree_map
+    from repro_torch.data.tokens import TokenPipeline
+    from repro_torch.models import build_model
+    from repro_torch.optim import adamw_init
+    from repro_torch.train import step as st
+    cut = dataclasses.replace(cfg, num_layers=TRAIN_CUT_LAYERS)
+    gloo = dist.new_group(backend="gloo")
+    runs = {}
+    params0 = None
+    b, s = TRAIN_DP_CUT_SHAPE
+    tokens = TokenPipeline(b, s, cut.vocab_size, device="cpu").batch_at(0)
+    scales, requantize_sum = [], st.requantize_sum
+
+    def recording(q, s_local, group=None):
+        scales.append(float(s_local))     # a world of one: the shared one
+        return requantize_sum(q, s_local, group)
+
+    st.requantize_sum = recording
+    try:
+        for dev, group in (("cuda", None), ("cpu", gloo)):
+            model = build_model(cut, compute_dtype=torch.float32, device=dev)
+            step = st.make_compressed_train_step(model, rules, group=group)
+            if params0 is None:
+                params0 = tree_map(lambda p: p.cpu(), model.init(0))
+            params = tree_map(lambda p: p.to(dev).clone(), params0)
+            opt = adamw_init(params)
+            res = st.init_residual(model, rules)
+            batch = {k: v.to(dev) for k, v in tokens.items()}
+            metrics, lrs = [], []
+            for i in TRAIN_DP_CUT_STEPS:
+                params, opt, res, m = step(params, opt, res, batch, i)
+                metrics.append((float(m["loss"]), float(m["grad_norm"])))
+                lrs.append(float(m["lr"]))
+            runs[dev] = (metrics, dict(leaves_with_paths(params)),
+                         dict(leaves_with_paths(res)))
+            del model, params, opt, res
+    finally:
+        st.requantize_sum = requantize_sum
+        dist.destroy_process_group(gloo)
+    n_leaves = len(runs["cpu"][2])
+    leaf_scale = np.asarray(scales).reshape(-1, n_leaves).max(axis=0)
+    (mg, pg, rg), (mw, pw, rw) = runs["cuda"], runs["cpu"]
+    for (lg, ng), (lw, nw) in zip(mg, mw):
+        if abs(lg - lw) > TRAIN_DP_CUT_REL * abs(lw) or \
+                abs(ng - nw) > TRAIN_DP_CUT_REL * abs(nw):
+            raise RuntimeError(f"train_dp: the cut's loss / grad norm "
+                               f"{mg} against the CPU's {mw}")
+    flips = total = 0
+    worst = {"res": 0.0, "params": 0.0}
+    for path, scale in zip(rw, leaf_scale):
+        quanta = {"res": float(scale), "params": 2 * sum(lrs)}
+        for name, g, w in (("res", rg[path], rw[path]),
+                           ("params", pg[path], pw[path])):
+            err = (g.cpu().double() - w.double()).abs()
+            # 1e-4 of the leaf's largest value: for the residual, of the
+            # gradient plus residual it was taken from (127 scales)
+            slack = TRAIN_DP_CUT_REL * (127 * quanta[name] if name == "res"
+                                        else float(w.abs().max()))
+            if float(err.max()) > quanta[name] + slack:
+                raise RuntimeError(f"train_dp: the cut's {name} "
+                                   f"{'/'.join(path)} off by "
+                                   f"{float(err.max())}, quantum "
+                                   f"{quanta[name]}")
+            worst[name] = max(worst[name], float(err.max()) / quanta[name])
+            if name == "res":
+                flips += int((err > quanta[name] / 2).sum())
+                total += err.numel()
+    if flips > TRAIN_DP_CUT_FLIPS * total:
+        raise RuntimeError(f"train_dp: {flips} of the cut's {total} "
+                           f"payload elements were a quantum off")
+    return {"layers": TRAIN_CUT_LAYERS, "batch_x_seq": list(
+                TRAIN_DP_CUT_SHAPE), "steps": list(TRAIN_DP_CUT_STEPS),
+            "loss_grad_norm_card": mg, "loss_grad_norm_cpu": mw,
+            "payload_elements_a_quantum_off": flips,
+            "payload_elements": total,
+            "max_err_in_quanta": worst, "lr": lrs,
+            "tol_rel": TRAIN_DP_CUT_REL, "tol_flips": TRAIN_DP_CUT_FLIPS}
+
+
+def phase_train_dp(torch, train):
+    """The int8-compressed data-parallel step (make_compressed_train_step
+    through build_step_bundle(mesh=make_local_mesh(), compressed=True)) at
+    full qwen2-1.5b width and depth on a world of one on NCCL: bf16
+    compute over f32 parameters, remat "dots", TRAIN_DP_STEPS steps of
+    TRAIN_SHAPE tokens.  Fails unless every loss is finite, each step
+    launched the attention forward 56 times and each backward kernel 28,
+    and each step issued 2 all-reduces a parameter leaf (the scale's MAX,
+    the int32 counts' SUM) and 4 means (loss, ce, zloss, aux); then the
+    2-layer cut against the CPU.  ``train`` is the train phase's record,
+    printed beside this one's."""
+    import torch.distributed as dist
+    from repro_torch._tree import leaves
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.data.tokens import TokenPipeline
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.optim import adamw_init
+    from repro_torch.sharding.rules import MeshRules
+    from repro_torch.train import step as st
+    t_phase = time.perf_counter()
+    cfg = get_cfg("qwen2-1.5b")
+    b, s = TRAIN_SHAPE
+    mesh = make_local_mesh("cuda")
+    backend = dist.get_backend()
+    try:
+        bundle = st.build_step_bundle(
+            cfg, ShapeConfig("smoke_train_dp", s, b, "train"),
+            device="cuda", mesh=mesh, compressed=True)
+        params = bundle.model.init(0)
+        opt = adamw_init(params)
+        res = st.init_residual(bundle.model, bundle.rules)
+        n_leaves = len(leaves(params))
+        pipe = TokenPipeline(b, s, cfg.vocab_size, device="cuda")
+        torch.cuda.synchronize()
+        counters = train_launch_counters()
+        for c in counters.values():
+            c.launches = 0
+        calls, undo = count_all_reduces(torch)
+        torch.cuda.reset_peak_memory_stats()
+        losses, dts = [], []
+        try:
+            for i in range(TRAIN_DP_STEPS):
+                t0 = time.perf_counter()
+                params, opt, res, m = bundle.step_fn(
+                    params, opt, res, pipe.batch_at(i), i)
+                losses.append(float(m["loss"]))   # waits for the step
+                dts.append(time.perf_counter() - t0)
+        finally:
+            undo()
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        launches = {k: c.launches for k, c in counters.items()}
+        want = train_launches_expected(cfg, TRAIN_DP_STEPS)
+        per_step = 2 * n_leaves + 4
+        bytes_step = sum(dt.itemsize * n for dt, n in calls) / TRAIN_DP_STEPS
+        int32_bytes = sum(dt.itemsize * n for dt, n in calls
+                          if dt == torch.int32) / TRAIN_DP_STEPS
+        if not all(np.isfinite(losses)) or launches != want or \
+                len(calls) != per_step * TRAIN_DP_STEPS:
+            raise RuntimeError(
+                f"train_dp: losses {losses}, launches {launches} (expected "
+                f"{want}), {len(calls)} all-reduces (expected "
+                f"{per_step * TRAIN_DP_STEPS})")
+        batch = pipe.batch_at(TRAIN_DP_STEPS)
+        t1 = time.perf_counter()
+        bundle.step_fn(params, opt, res, batch, TRAIN_DP_STEPS)
+        torch.cuda.synchronize()
+        step_wall_ms = (time.perf_counter() - t1) * 1e3
+        prof = profile_calls(
+            torch, lambda i=0: bundle.step_fn(params, opt, res, batch,
+                                              TRAIN_DP_STEPS + 1), 1)
+        del params, opt, res, bundle
+        torch.cuda.empty_cache()
+        cut = train_dp_cut(torch, cfg, MeshRules(cfg.plan, mesh))
+    finally:
+        dist.destroy_process_group()
+    torch.cuda.empty_cache()
+    ms = statistics.median(dts[1:]) * 1e3
+    emit({"phase": "train_dp", "arch": cfg.name, "params": cfg.param_count(),
+          "backend": backend, "world": 1, "batch": b, "seq": s,
+          "steps": TRAIN_DP_STEPS, "compute_dtype": "bfloat16",
+          "param_dtype": "float32", "remat": cfg.plan.remat,
+          "losses": losses, "ms_per_step": ms,
+          "step_ms": [d * 1e3 for d in dts],
+          "tokens_per_s": b * s / (ms * 1e-3), "peak_gb": peak_gb,
+          "train_phase": {"ms_per_step": train["ms_per_step"],
+                          "tokens_per_s": train["tokens_per_s"],
+                          "peak_gb": train["peak_gb"]},
+          "launches": launches, "launches_expected": want,
+          "launches_per_step": {k: v / TRAIN_DP_STEPS
+                                for k, v in launches.items()},
+          "parameter_leaves": n_leaves,
+          "all_reduces_per_step": len(calls) / TRAIN_DP_STEPS,
+          "all_reduces_expected": per_step,
+          "all_reduce_bytes_per_step": bytes_step,
+          "all_reduce_int32_bytes_per_step": int32_bytes,
+          "profiled_step_wall_ms": step_wall_ms,
+          "device_ms_per_step": prof["device_us_per_call"] / 1e3,
+          "busy_share": prof["device_us_per_call"] / 1e3 / step_wall_ms,
+          "launches_per_profiled_step": prof["launches_per_call"],
+          "top_kernels_us": prof["kernels"], "cut_check": cut,
+          "seconds": time.perf_counter() - t_phase})
+    return launches
 
 
 def phase_train_ssm(torch, phase, arch):
@@ -2805,6 +3273,8 @@ def phase_e8(torch):
 
 def main() -> int:
     import torch
+    if sys.argv[1:2] == ["--mesh-worker"]:
+        return mesh_worker(sys.argv[2])
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this "
               "script runs the port on an NVIDIA GPU", file=sys.stderr)
@@ -2828,7 +3298,7 @@ def main() -> int:
         # the build, the backward kernels' phases and the three train
         # phases alone; no result line
         phase_flash_bwd(torch)
-        phase_train(torch)
+        phase_train_dp(torch, phase_train(torch))
         phase_ssd_bwd(torch)
         phase_train_ssm(torch, "train_ssm", "mamba2-1.3b")
         phase_train_ssm(torch, "train_hybrid", "zamba2-2.7b")
@@ -2872,7 +3342,10 @@ def main() -> int:
     free()
     bwd_recs = phase_flash_bwd(torch)
     free()
-    train_launches = phase_train(torch)
+    train = phase_train(torch)
+    train_launches = train["launches"]
+    free()
+    dp_launches = phase_train_dp(torch, train)
     free()
     ssd_bwd_rec = phase_ssd_bwd(torch)
     free()
@@ -2882,8 +3355,10 @@ def main() -> int:
     free()
     for rec in bwd_recs:
         rec["launches"] = train_launches[rec["name"]]
+        rec["launches_train_dp"] = dp_launches[rec["name"]]
         rec["launches_train_hybrid"] = hybrid[rec["name"]]
     flash_rec["launches_train"] = train_launches["flash_attention"]
+    flash_rec["launches_train_dp"] = dp_launches["flash_attention"]
     flash_rec["launches_train_hybrid"] = hybrid["flash_attention"]
     ssd_rec["launches_train_ssm"] = ssm["ssd_scan"]
     ssd_rec["launches_train_hybrid"] = hybrid["ssd_scan"]
@@ -2892,6 +3367,7 @@ def main() -> int:
     engine = phase_engine(torch)
     phase_cpu_vs_gpu(torch)
     phase_sweep(torch)
+    phase_mesh(torch)
     phase_bidding(torch)
     phase_service(torch)
     pid_rec["launches_e4"] = phase_tier1_bench(torch)

@@ -17,11 +17,13 @@ the manifests of the two packages for the same state are identical.
 Leaves with at least ``n_shards`` rows are split along dim 0 into
 ``n_shards`` pieces; restore concatenates the pieces and places each
 leaf on the caller's ``device``, so a checkpoint written on one device
-restores on another.  The atomic rename makes a crash mid-save
-invisible.  The pieces are compressed and decompressed on a pool of
-host threads (zlib lets go of the GIL): level-1 zlib on float32 weights
-runs at tens of MB/s a core, so one thread would take minutes for a
-model of a few GB.
+restores on another -- or, with ``shardings``, as a DTensor on a
+``DeviceMesh`` (the elastic restore: a checkpoint written at one
+data-parallel width restores at another).  The atomic rename makes a
+crash mid-save invisible.  The pieces are compressed and decompressed on
+a pool of host threads (zlib lets go of the GIL): level-1 zlib on
+float32 weights runs at tens of MB/s a core, so one thread would take
+minutes for a model of a few GB.
 """
 from __future__ import annotations
 
@@ -38,6 +40,7 @@ import torch
 
 from repro_torch import resolve_device
 from repro_torch._tree import leaves_with_paths, unflatten_like
+from repro_torch.sharding.rules import placements
 
 _MANIFEST = "manifest.json"
 
@@ -117,12 +120,31 @@ def save_checkpoint(root: str, step: int, tree: Any, *,
     return final
 
 
+def _shardings_like(tree_like: Any, shardings: Any) -> list:
+    """The ``(DeviceMesh, spec)`` pair of each leaf of ``tree_like``, in
+    leaf order, from ``shardings`` of the same structure."""
+    if isinstance(tree_like, dict):
+        return [x for k in sorted(tree_like)
+                for x in _shardings_like(tree_like[k], shardings[k])]
+    if isinstance(tree_like, tuple) and hasattr(tree_like, "_fields"):
+        return [x for f in tree_like._fields
+                for x in _shardings_like(getattr(tree_like, f),
+                                         getattr(shardings, f))]
+    if isinstance(tree_like, (tuple, list)):
+        return [x for t, s in zip(tree_like, shardings)
+                for x in _shardings_like(t, s)]
+    return [] if tree_like is None else [shardings]
+
+
 def restore_checkpoint(root: str, tree_like: Any, *,
-                       step: Optional[int] = None,
-                       device="cuda") -> tuple[Any, int, dict]:
+                       step: Optional[int] = None, device="cuda",
+                       shardings: Any = None) -> tuple[Any, int, dict]:
     """Restore into the structure of ``tree_like`` (leaf count and shapes
     checked), every leaf a tensor on ``device`` in the dtype it was saved
-    with.  Returns (tree, step, extra)."""
+    with.  ``shardings``, a tree of ``(DeviceMesh, spec)`` pairs of
+    ``tree_like``'s structure, restores each leaf instead as a DTensor on
+    its mesh with ``rules.placements(mesh, spec)``.  Returns (tree, step,
+    extra)."""
     dev = resolve_device(device)
     if step is None:
         steps = _steps(root)
@@ -148,6 +170,9 @@ def restore_checkpoint(root: str, tree_like: Any, *,
             for pc in meta["pieces"]]
     with _pool() as pool:
         flat = iter(list(pool.map(read, jobs)))
+    if shardings is not None:
+        from torch.distributed.tensor import distribute_tensor
+        places = iter(_shardings_like(tree_like, shardings))
     out = []
     for meta, (_, leaf) in zip(manifest["leaves"], like):
         pieces = [next(flat) for _ in meta["pieces"]]
@@ -158,7 +183,12 @@ def restore_checkpoint(root: str, tree_like: Any, *,
         if tuple(t.shape) != tuple(want):
             raise ValueError(f"{meta['path']}: checkpoint shape "
                              f"{tuple(t.shape)}, expected {tuple(want)}")
-        out.append(t.to(dev))
+        if shardings is None:
+            out.append(t.to(dev))
+        else:
+            mesh, spec = next(places)
+            out.append(distribute_tensor(t.to(mesh.device_type), mesh,
+                                         placements(mesh, spec)))
     return unflatten_like(tree_like, out), step, manifest.get("extra", {})
 
 
@@ -178,9 +208,9 @@ class CheckpointManager:
         return p
 
     def restore(self, tree_like: Any, step: Optional[int] = None,
-                device="cuda"):
+                device="cuda", shardings: Any = None):
         return restore_checkpoint(self.root, tree_like, step=step,
-                                  device=device)
+                                  device=device, shardings=shardings)
 
     def latest_step(self) -> Optional[int]:
         if not os.path.isdir(self.root):

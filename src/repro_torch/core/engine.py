@@ -20,10 +20,20 @@ of elementwise ops.
 (N, T) trigger/shed/load traces.  ``engine_sweep`` streams chunked
 rollouts through the :func:`summary_merge` monoid into preallocated
 aggregates, so any chunking gives the monolithic numbers.
+
+``mesh=`` splits the scenario axis over the lanes of a
+:class:`~repro_torch.launch.mesh.ScenarioMesh` (padded to a multiple of
+the lane count by repeating the last scenario) and, in a multi-process
+launch, the sweep's specs over the processes (``process_slice``).  A
+``"local"`` mesh over several cards in one process steps their slices
+from one host loop, one lane after another; one process per card
+(``"distributed"``, the ``REPRO_*`` environment) is how the port scales.
+The reference caches one compiled sharded program per mesh topology; an
+eager port has no program to cache.
 """
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, fields
 from typing import NamedTuple
 
 import numpy as np
@@ -40,8 +50,10 @@ import repro_torch.obs.telemetry as obs_tel
 import repro_torch.workload.model as workload_lib
 from repro_torch import resolve_device
 from repro_torch._num import override, take, tensor
+from repro_torch._tree import leaves, unflatten_like
 from repro_torch.grid.scenarios import (ScenarioBatch, frequency_seeds,
                                         masked_quantile, scenario_chunk)
+from repro_torch.launch import mesh as mesh_lib
 
 K = twin_lib.LOAD_BLOCK_S    # seconds per hour block
 
@@ -482,6 +494,86 @@ def _rollout(cfg: EngineConfig, reduce: str, batch: ScenarioBatch, freq,
     return out
 
 
+# ---------------------------------------------------------------------------
+# The scenario axis over mesh lanes
+# ---------------------------------------------------------------------------
+
+_SCENARIO_AXIS = mesh_lib.SCENARIO_AXIS
+
+
+def _resolve_mesh(mesh, device="cuda"):
+    """mesh= argument -> a validated mesh with a "scenario" axis.
+
+    Strings ("auto" | "local" | "distributed") resolve through
+    ``repro_torch.launch.mesh.resolve_mesh`` on ``device``'s kind.
+    """
+    if isinstance(mesh, str):
+        mesh = mesh_lib.resolve_mesh(mesh, device=device)
+    if _SCENARIO_AXIS not in mesh.axis_names:
+        raise ValueError(
+            f"engine mesh needs a {_SCENARIO_AXIS!r} axis, got mesh axes "
+            f"{mesh.axis_names}")
+    return mesh
+
+
+def _map_tensors(fn, tree):
+    """``fn`` over every tensor of a ScenarioBatch, tuple, NamedTuple or
+    dict, keeping the structure; None and other leaves pass through."""
+    if isinstance(tree, torch.Tensor):
+        return fn(tree)
+    if isinstance(tree, dict):
+        return {k: _map_tensors(fn, v) for k, v in tree.items()}
+    if isinstance(tree, ScenarioBatch):
+        return ScenarioBatch(**{f.name: _map_tensors(fn, getattr(tree,
+                                                                 f.name))
+                                for f in fields(tree)})
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        return type(tree)(*(_map_tensors(fn, x) for x in tree))
+    if isinstance(tree, (tuple, list)):
+        return type(tree)(_map_tensors(fn, x) for x in tree)
+    return tree
+
+
+def _scenario_count(tree) -> int:
+    sizes = []
+    _map_tensors(lambda x: sizes.append(int(x.shape[0])), tree)
+    return sizes[0]
+
+
+def pad_scenario_axis(tree, multiple: int):
+    """Right-pad the leading (scenario) axis of every tensor to a multiple
+    of ``multiple`` by repeating the last scenario (every padded lane stays
+    numerically well-defined); :func:`unpad_scenario_axis` slices it back.
+    Returns ``(padded_tree, original_n)``."""
+    n = _scenario_count(tree)
+    pad = (-n) % multiple
+    if pad == 0:
+        return tree, n
+    return _map_tensors(lambda x: torch.cat(
+        [x, x[-1:].expand((pad,) + tuple(x.shape[1:]))]), tree), n
+
+
+def unpad_scenario_axis(tree, n: int):
+    """Slice the leading (scenario) axis of every tensor back to ``n``."""
+    return _map_tensors(lambda x: x[:n], tree)
+
+
+def _on_lanes(mesh, dev, fn, *args):
+    """``fn(*args)`` split over the mesh's lanes: pad the scenario axis to
+    a multiple of the lane count, run each lane's contiguous slice on its
+    device, concatenate the outputs on ``dev`` and unpad."""
+    lanes = mesh.devices
+    args, n = pad_scenario_axis(args, len(lanes))
+    m = _scenario_count(args) // len(lanes)
+    outs = [fn(*_map_tensors(lambda x, i=i, d=d: x[i * m:(i + 1) * m].to(d),
+                             args))
+            for i, d in enumerate(lanes)]
+    parts = [leaves(o) for o in outs]
+    out = unflatten_like(outs[0], [torch.cat([p[j].to(dev) for p in parts])
+                                   for j in range(len(parts[0]))])
+    return unpad_scenario_axis(out, n)
+
+
 def base_loads(cfg: EngineConfig, batch: ScenarioBatch) -> torch.Tensor:
     """(N, T, H) unscaled per-host demand rows, materialised: the same
     counter-based draws the rollout makes block by block."""
@@ -498,14 +590,21 @@ def engine_rollout(cfg: EngineConfig, batch: ScenarioBatch, *,
     frequency traces and demand rows, ``noise`` (N, T, H, C) the plant's
     per-tick standard normals, ``ops`` a ``(mu_h, rho_h)`` pair of
     (N, H_max) hourly trajectories in place of the Tier-3 search; all
-    are validated against the batch up front.  ``mesh`` (sharding over
-    devices) is not ported yet.
+    are validated against the batch up front.
+
+    ``mesh`` (a :class:`~repro_torch.launch.mesh.ScenarioMesh` or "auto" /
+    "local" / "distributed") splits the batch over the mesh's lanes: N
+    padded to a multiple of the lane count by repeating the last
+    scenario, each lane's slice (and its slice of every override) rolled
+    out on the lane's device, the outputs concatenated on ``device`` and
+    sliced back to N -- the single-device numbers to float32
+    reassociation.
     """
     if reduce not in ("summary", "full"):
         raise ValueError(f"reduce must be 'summary' or 'full', got {reduce!r}")
-    if mesh is not None:
-        raise NotImplementedError("engine_rollout(mesh=...) is not ported")
     dev = resolve_device(device)
+    if mesh is not None:
+        mesh = _resolve_mesh(mesh, dev)
     batch = batch.to(dev)
     n, T = batch.n, batch.h_max * K
     if ops is not None:
@@ -518,7 +617,10 @@ def engine_rollout(cfg: EngineConfig, batch: ScenarioBatch, *,
                 f"{tuple(rho_ops.shape)}")
         ops = (mu_ops, rho_ops)
     if not cfg.with_seconds:
-        return _hourly(cfg, batch, ops)
+        if mesh is None:
+            return _hourly(cfg, batch, ops)
+        return _on_lanes(mesh, dev, lambda b, o: _hourly(cfg, b, o),
+                         batch, ops)
     if freq is None:
         freq, _ = frequency.synthesize_frequency_batch(
             frequency_seeds(batch), batch.product_idx, n_seconds=T,
@@ -534,7 +636,10 @@ def engine_rollout(cfg: EngineConfig, batch: ScenarioBatch, *,
     if noise is not None:
         noise = override(noise, (n, T, cfg.n_hosts, cfg.chips_per_host),
                          "noise", "(N, T, H, C)", dev)
-    return _rollout(cfg, reduce, batch, freq, loads, noise, ops)
+    if mesh is None:
+        return _rollout(cfg, reduce, batch, freq, loads, noise, ops)
+    return _on_lanes(mesh, dev, lambda *a: _rollout(cfg, reduce, *a),
+                     batch, freq, loads, noise, ops)
 
 
 # ---------------------------------------------------------------------------
@@ -718,9 +823,20 @@ def sweep_finalize(agg: dict) -> dict:
     return out
 
 
+def _pad_chunk(batch: ScenarioBatch, pad_to: int):
+    """Pad a chunk to ``pad_to`` lanes and return the lane validity mask
+    that keeps the replicated padding out of the sums."""
+    n = batch.n
+    if n > pad_to:
+        raise ValueError(f"chunk of {n} scenarios exceeds lane count "
+                         f"{pad_to}")
+    lane = (torch.arange(pad_to, device=batch.device) < n).to(torch.float32)
+    return pad_scenario_axis(batch, pad_to)[0], lane
+
+
 def engine_sweep(cfg: EngineConfig, specs, *, chunk_size: int, mesh=None,
-                 h_max: int | None = None, progress=None,
-                 device="cuda") -> dict:
+                 h_max: int | None = None, finalize: bool = True,
+                 progress=None, device="cuda") -> dict:
     """Stream a scenario sweep through chunk-sized rollouts with online
     aggregation: memory is O(chunk_size), not O(len(specs)).
 
@@ -729,29 +845,53 @@ def engine_sweep(cfg: EngineConfig, specs, *, chunk_size: int, mesh=None,
     (:func:`summary_init`) and updated in place.  ``h_max`` pins the
     padded hour axis for every chunk (default: the longest horizon in
     ``specs``), which fixes each scenario's frequency trace length, so
-    any chunking reproduces the monolithic rollout.  An eager loop needs
-    no fixed lane count, so the last chunk is not padded.  ``mesh``
-    (sharding over devices and processes) is not ported yet.
+    any chunking reproduces the monolithic rollout.  Without a mesh the
+    last chunk is not padded (an eager loop needs no fixed lane count).
+
+    ``mesh`` splits each chunk over the mesh's lanes: the chunk padded to
+    ``chunk_size`` rounded up to the lane count, with a lane mask that
+    keeps the padding out of the sums, one aggregate per lane on its
+    device, merged in lane order at the end.  In a multi-process launch
+    (the ``REPRO_COORD_ADDR`` environment) every process calls this with
+    the same ``specs`` and sweeps only its ``process_slice``; with
+    ``finalize=False`` the process's raw aggregate comes back (CPU
+    tensors) for out-of-band merging through :func:`summary_merge` and
+    :func:`sweep_finalize`.  ``progress(chunks_done, n_chunks)`` is
+    called after each folded chunk.
     """
     if chunk_size < 1:
         raise ValueError(f"chunk_size must be >= 1, got {chunk_size}")
     if len(specs) == 0:
         raise ValueError("empty scenario list")
-    if mesh is not None:
-        raise NotImplementedError("engine_sweep(mesh=...) is not ported")
     dev = resolve_device(device)
+    mesh_lib.ensure_distributed(dev)
+    lanes = (dev,) if mesh is None else _resolve_mesh(mesh, dev).devices
     if h_max is None:
         h_max = max(s.horizon_h for s in specs)
-    agg = summary_init(cfg, device=dev)
-    starts = range(0, len(specs), chunk_size)
+    lo0, hi0 = mesh_lib.process_slice(len(specs))
+    m = -(-chunk_size // len(lanes))           # scenarios a lane a chunk
+    aggs = [summary_init(cfg, device=d) for d in lanes]
+    starts = range(lo0, hi0, chunk_size)
     for i, lo in enumerate(starts):
-        batch = scenario_chunk(specs, lo, min(lo + chunk_size, len(specs)),
+        batch = scenario_chunk(specs, lo, min(lo + chunk_size, hi0),
                                h_max=h_max, device=dev)
-        out = engine_rollout(cfg, batch, reduce="summary", device=dev)
-        summary_merge(agg, chunk_summary(cfg, out, batch), out=agg)
+        if mesh is None:
+            parts = [(batch, None)]
+        else:
+            batch, lane = _pad_chunk(batch, m * len(lanes))
+            parts = [_map_tensors(lambda x, j=j: x[j * m:(j + 1) * m],
+                                  (batch, lane))
+                     for j in range(len(lanes))]
+        for agg, d, (b, lane) in zip(aggs, lanes, parts):
+            b = b.to(d)
+            out = engine_rollout(cfg, b, reduce="summary", device=d)
+            summary_merge(agg, chunk_summary(cfg, out, b, lane), out=agg)
         if progress is not None:
             progress(i + 1, len(starts))
-    return sweep_finalize(agg)
+    agg = {k: v.cpu() for k, v in aggs[0].items()}
+    for other in aggs[1:]:
+        agg = summary_merge(agg, {k: v.cpu() for k, v in other.items()})
+    return sweep_finalize(agg) if finalize else agg
 
 
 def summarize_rollout(cfg: EngineConfig, batch: ScenarioBatch,
@@ -786,6 +926,6 @@ def summarize_rollout(cfg: EngineConfig, batch: ScenarioBatch,
 
 __all__ = ["EngineConfig", "EngineState", "EngineParams", "EngineAccum",
            "engine_init", "engine_params", "engine_step", "engine_rollout",
-           "base_loads",
+           "base_loads", "pad_scenario_axis", "unpad_scenario_axis",
            "summary_init", "chunk_summary", "summary_merge",
            "sweep_finalize", "engine_sweep", "summarize_rollout"]

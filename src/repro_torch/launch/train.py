@@ -5,10 +5,13 @@
         --batch 2 --seq 2048 --steps 8 --gridpilot
 
 Runs the training loop on one device (``--device``, default ``cuda``): the
-reduced config by default, the published one with ``--full``.  With
-``--gridpilot`` the GridPilot controller runs alongside: a Tier-3 plan
-from a synthetic grid, the safety island armed, FFR triggers shedding
-steps.
+reduced config by default, the published one with ``--full``.  Under the
+``REPRO_COORD_ADDR`` / ``REPRO_NUM_PROCESSES`` / ``REPRO_PROCESS_ID``
+environment (one process per card) it runs data-parallel on
+``launch.mesh.make_local_mesh()``, each rank on its share of every batch.
+With ``--gridpilot`` the GridPilot controller runs alongside: a Tier-3
+plan from a synthetic grid, the safety island armed, FFR triggers
+shedding steps.
 """
 from __future__ import annotations
 
@@ -34,14 +37,19 @@ def build_parser() -> argparse.ArgumentParser:
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
 
+    import torch.distributed as dist
+
     from repro_torch.configs import get_arch
     from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch.mesh import distributed_env, make_local_mesh
     from repro_torch.train.trainer import Trainer, TrainerConfig
 
     cfg = get_arch(args.arch)
     if not args.full:
         cfg = cfg.reduced()
     shape = ShapeConfig("cli", args.seq, args.batch, "train")
+    mesh = (make_local_mesh(args.device) if distributed_env() is not None
+            else None)
 
     gp = None
     if args.gridpilot:
@@ -57,11 +65,13 @@ def main(argv=None) -> int:
     try:
         tcfg = TrainerConfig(steps=args.steps, ckpt_dir=args.ckpt_dir)
         trainer = Trainer(cfg, shape, tcfg, gridpilot=gp, seed=args.seed,
-                          device=args.device)
+                          mesh=mesh, device=args.device)
         out = trainer.train()
     finally:
         if gp is not None:
             gp.close()
+        if mesh is not None:
+            dist.destroy_process_group()
     losses = [h["loss"] for h in out["history"]]
     print(f"done: {len(losses)} steps, loss {losses[0]:.3f} -> "
           f"{losses[-1]:.3f}, skipped {out['skipped']} (power shed)")

@@ -2,8 +2,8 @@
 
 Parameters are plain nested dicts of tensors built from :class:`ParamSpec`
 records, so shapes and parameter counts exist without allocating memory.
-The reference's ``shard`` (a sharding constraint inside a mesh) is the
-identity on one card and has no counterpart here.
+:func:`shard` is the reference's sharding constraint: it redistributes a
+DTensor over its mesh and leaves a plain tensor as it is.
 """
 from __future__ import annotations
 
@@ -12,6 +12,9 @@ import math
 from typing import NamedTuple
 
 import torch
+
+from repro_torch.sharding.rules import (P, axis_sizes, entry_size,
+                                        placements)
 
 # ---------------------------------------------------------------------------
 # Param specs
@@ -56,6 +59,39 @@ def init_tree(specs, generator: torch.Generator, device):
     turn from ``generator`` on ``device``."""
     return {k: s.initialize(generator, device) if isinstance(s, ParamSpec)
             else init_tree(s, generator, device) for k, s in specs.items()}
+
+
+# ---------------------------------------------------------------------------
+# Sharding helper
+# ---------------------------------------------------------------------------
+
+
+def resolve_spec(spec, shape, sizes: dict) -> tuple:
+    """The reference's resolution of a ``shard`` spec on a mesh whose axes
+    have ``sizes`` (name -> size): an entry that is not a mesh axis (or a
+    tuple of them), or whose devices do not divide the dimension, becomes
+    None."""
+    def keep(entry, dim) -> bool:
+        if entry is None:
+            return True
+        axes = tuple(entry) if isinstance(entry, (tuple, list)) else (entry,)
+        return all(a in sizes for a in axes) and \
+            dim % entry_size(sizes, axes) == 0
+
+    return tuple(e if keep(e, d) else None for e, d in zip(spec, shape))
+
+
+def shard(x, *spec):
+    """Redistribute a DTensor over its own mesh to ``spec`` (resolved by
+    :func:`resolve_spec`); a plain tensor comes back unchanged.  The
+    port's models hold plain tensors, so their code calls no ``shard``
+    yet."""
+    from torch.distributed.tensor import DTensor
+    if not isinstance(x, DTensor):
+        return x
+    mesh = x.device_mesh
+    clean = resolve_spec(spec, tuple(x.shape), axis_sizes(mesh))
+    return x.redistribute(mesh, placements(mesh, P(*clean)))
 
 
 # ---------------------------------------------------------------------------

@@ -3,16 +3,19 @@
 
 Symmetric per-tensor int8 quantisation with the quantisation error kept
 as a residual (error feedback), so the sum of what was sent plus the
-residual equals the sum of the true gradients.  The pure functions are
-here; the data-parallel all-reduce that sends the int8 payload
-(``make_compressed_train_step``, ``compressed_psum``) needs a mesh and
-waits for ROADMAP A11.
+residual equals the sum of the true gradients.  :func:`compressed_psum`
+is the data-parallel all-reduce of the quantised gradients on a
+``torch.distributed`` group; ``repro_torch.train.step.
+make_compressed_train_step`` runs it once a step.  As in the reference,
+the sum travels as int32 counts on a shared scale: 4 bytes an element on
+the wire, not the int8 payload's one.
 """
 from __future__ import annotations
 
 from typing import NamedTuple
 
 import torch
+import torch.distributed as dist
 
 from repro_torch._tree import tree_map
 
@@ -53,3 +56,24 @@ def ef_compress(grads, state: CompressionState):
 
 def ef_decompress(q_tree, s_tree):
     return tree_map(dequantize_int8, q_tree, s_tree)
+
+
+def requantize_sum(q, s_local, group=None):
+    """One leaf of :func:`compressed_psum`: the shared scale (the MAX of
+    every rank's ``s_local``), this rank's payload requantised to it as
+    int32, the SUM of those counts over ``group``, times the shared
+    scale.  ``torch.round`` rounds half to even, as ``jnp.round`` does."""
+    s_sh = s_local.detach().clone()
+    dist.all_reduce(s_sh, op=dist.ReduceOp.MAX, group=group)
+    v = q.float() * s_local
+    total = torch.clamp(torch.round(v / s_sh), -127, 127).to(torch.int32)
+    dist.all_reduce(total, op=dist.ReduceOp.SUM, group=group)
+    return total.float() * s_sh
+
+
+def compressed_psum(q_tree, s_tree, group=None):
+    """All-reduce the quantised gradients over ``group`` (default: the
+    world), leaf by leaf: a MAX of the scale, then a SUM of the int32
+    counts on that shared scale (two collectives a leaf)."""
+    return tree_map(lambda q, s: requantize_sum(q, s, group), q_tree,
+                    s_tree)

@@ -1,5 +1,5 @@
-"""The port's training stack on one device: steps (``step``) and the
-GridPilot-actuated trainer (``trainer``)."""
+"""The port's training stack: steps (``step``, on one device or a mesh)
+and the GridPilot-actuated trainer (``trainer``)."""
 from repro_torch.train.step import StepBundle, build_step_bundle
 from repro_torch.train.trainer import Trainer, TrainerConfig
 

@@ -17,15 +17,20 @@ throughput curve the offline engine accumulates and Tier-3 prices:
     and the first step after a shed window records a ``resumed`` event,
   * restart -- a trainer whose checkpoint directory holds a step restores
     from it (``restored``) and continues; :meth:`Trainer.resize` rebuilds
-    the trainer on another device and restores through the checkpoint.
+    the trainer on another device or mesh and restores through the
+    checkpoint (a checkpoint written at one data-parallel width restores
+    at another).
 
 Fault tolerance: per-host heartbeats and a step deadline (a multiple of
 the median step time) flag stragglers (``straggler_step``).
 
-The reference's data-parallel half -- Tier-3's mu mapped to the
-data-parallel width, re-lowering the step on a wider mesh -- needs a mesh
-and waits for ROADMAP A11; here the trainer runs on one device
-(``device=``, default ``"cuda"``).
+Data parallelism: on a ``mesh`` (a ``DeviceMesh`` over the world, e.g.
+``launch.mesh.make_local_mesh()``) each rank takes its ``batch_pspec``
+share of every batch and the gradients are averaged over the ranks with
+``all_reduce`` -- the value the reference's pjit computes on the global
+batch.  Parameters and AdamW moments stay replicated on every rank
+(FSDP, TP and ZeRO-1 placements of them wait, ROADMAP A11b); rank 0
+writes the checkpoints.
 """
 from __future__ import annotations
 
@@ -35,6 +40,7 @@ from typing import Callable, Optional
 
 import numpy as np
 import torch
+from torch.distributed.device_mesh import DeviceMesh
 
 from repro_torch import resolve_device
 from repro_torch.ckpt.manager import CheckpointManager
@@ -43,7 +49,7 @@ from repro_torch.core.plant import load_from_cost_analysis
 from repro_torch.data.tokens import TokenPipeline
 from repro_torch.obs import trace
 from repro_torch.optim import adamw_init
-from repro_torch.train.step import build_step_bundle
+from repro_torch.train.step import batch_share, build_step_bundle
 from repro_torch.workload import RUN_FULL, PowerActuator, StepDecision
 
 
@@ -95,20 +101,26 @@ class HostHealth:
 
 
 class Trainer:
-    """Single-process trainer on one device (bf16 compute over float32
-    parameters, the model's defaults)."""
+    """Trainer on one device, or one rank of a data-parallel ``mesh``
+    (bf16 compute over float32 parameters, the model's defaults)."""
 
     def __init__(self, cfg: ArchConfig, shape: ShapeConfig,
                  tcfg: TrainerConfig = TrainerConfig(),
-                 gridpilot=None, seed: int = 0, *, device="cuda"):
+                 gridpilot=None, seed: int = 0, *, mesh=None,
+                 device="cuda"):
         self.cfg = cfg
         self.shape = shape
         self.device = resolve_device(device)
+        if mesh is not None and mesh.device_type != self.device.type:
+            raise ValueError(f"a {mesh.device_type} mesh for a trainer on "
+                             f"{self.device}")
+        self.mesh = mesh
         self.tcfg = tcfg
         self.gp = gridpilot
         self.seed = seed
         self.plan = None
-        self.health = HostHealth(n_hosts=1)
+        world = 1 if mesh is None else mesh.size()
+        self.health = HostHealth(n_hosts=max(world // 8, 1))
         self.skipped_steps = 0
         self.events: list[dict] = []
         # workload actuation state (shared model; see module docstring)
@@ -120,9 +132,16 @@ class Trainer:
         self._shed_active = False
         self._host_power_buf: Optional[np.ndarray] = None
 
-        self.bundle = build_step_bundle(cfg, shape, device=self.device)
+        self.bundle = build_step_bundle(cfg, shape, device=self.device,
+                                        mesh=mesh)
         self.ckpt = (CheckpointManager(tcfg.ckpt_dir)
                      if tcfg.ckpt_dir else None)
+        # this rank's rows of every batch, and whether it writes the
+        # checkpoints (every rank holds the same replicated state)
+        self._rows = (0, shape.global_batch) if mesh is None else \
+            batch_share(self.bundle.rules, shape.global_batch,
+                        mesh.get_coordinate())
+        self._writes = mesh is None or mesh.get_rank() == 0
 
     # -- state ------------------------------------------------------------
     def init_state(self):
@@ -136,6 +155,11 @@ class Trainer:
         return TokenPipeline(batch=self.shape.global_batch,
                              seq=self.shape.seq_len, vocab=c.vocab_size,
                              seed=self.seed, device=self.device)
+
+    def _local(self, batch: dict) -> dict:
+        """This rank's share of a global batch."""
+        lo, hi = self._rows
+        return {k: v[lo:hi] for k, v in batch.items()}
 
     # -- events ------------------------------------------------------------
     def _event(self, step: int, name: str, **attrs) -> dict:
@@ -208,8 +232,8 @@ class Trainer:
                 # the shed plan (the dead time tier3.throughput_score
                 # prices)
                 with trace.span("train.grid_ckpt", step=step):
-                    self.ckpt.save(step, (params, opt),
-                                   extra={"grid_event": True})
+                    self._save(step, (params, opt),
+                               extra={"grid_event": True})
                 self._event(step, "grid_ckpt")
                 self._pending_grid_ckpt = False
             if not run:
@@ -222,7 +246,8 @@ class Trainer:
                 self._event(step, "resumed")
                 self._shed_active = False
             t0 = time.perf_counter()
-            params, opt, metrics = step_fn(params, opt, batch, step)
+            params, opt, metrics = step_fn(params, opt, self._local(batch),
+                                           step)
             loss = float(metrics["loss"])  # waits for the step's work
             dt = time.perf_counter() - t0
             self.health.step_times.append(dt)
@@ -239,21 +264,32 @@ class Trainer:
                 print(f"  step {step:5d} loss {loss:.4f} "
                       f"({dt*1e3:.0f} ms)", flush=True)
             if self.ckpt and step > start_step and step % tcfg.ckpt_every == 0:
-                self.ckpt.save(step, (params, opt), extra={"loss": loss})
+                self._save(step, (params, opt), extra={"loss": loss})
             step += 1
 
         if self.ckpt:
-            self.ckpt.save(step, (params, opt))
+            self._save(step, (params, opt))
         return {"params": params, "opt": opt, "history": history,
                 "skipped": self.skipped_steps, "events": self.events}
 
-    # -- restart on another device -------------------------------------------
-    def resize(self, device) -> "Trainer":
-        """Rebuild the trainer on ``device``; its ``train()`` restores the
+    def _save(self, step: int, tree, extra=None) -> None:
+        if self._writes:
+            self.ckpt.save(step, tree, extra=extra)
+
+    # -- elastic re-width / restart on another device ------------------------
+    def resize(self, mesh_or_device) -> "Trainer":
+        """Rebuild the trainer on a new ``DeviceMesh`` (its device kind
+        and this rank's card) or on a device; its ``train()`` restores the
         parameters and moments there through the checkpoint manager (a
-        checkpoint written on one device restores on another)."""
+        checkpoint written at one width or device restores at another)."""
+        mesh = (mesh_or_device if isinstance(mesh_or_device, DeviceMesh)
+                else None)
         t = Trainer(self.cfg, self.shape, self.tcfg, gridpilot=self.gp,
-                    seed=self.seed, device=device)
+                    seed=self.seed, mesh=mesh,
+                    device=self.device if mesh is not None
+                    else mesh_or_device)
+        where = ({"device": str(t.device)} if mesh is None else
+                 {"mesh": str(dict(zip(mesh.mesh_dim_names, mesh.shape)))})
         t.events = self.events + [trace.event(
-            "train.resized", event="resized", device=str(t.device))]
+            "train.resized", event="resized", **where)]
         return t

@@ -9,10 +9,13 @@ tests.
 """
 import ast
 import dataclasses
+import json
 import os
 import pathlib
+import socket
 import subprocess
 import sys
+import time
 
 import numpy as np
 import pytest
@@ -114,6 +117,277 @@ def assert_close(got, want, rtol, atol=0.0, msg=""):
 
 
 # ---------------------------------------------------------------------------
+# Ranks: worker processes under the REPRO_* environment, on gloo
+# ---------------------------------------------------------------------------
+
+def free_port() -> int:
+    """A localhost port that was free a moment ago (bind port 0)."""
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def run_procs(argvs, envs, timeout=180):
+    """Run ``python *argv`` once per (argv, env), all at once, from the
+    repo root with ``src`` and ``tests`` on the path; return each
+    process's stdout.  A process that exits nonzero fails the test; all
+    are killed once ``timeout`` seconds have passed."""
+    path = os.pathsep.join([str(ROOT / "src"), str(ROOT / "tests")])
+    procs = []
+    try:
+        for argv, env in zip(argvs, envs):
+            procs.append(subprocess.Popen(
+                [sys.executable, *argv], cwd=ROOT, text=True,
+                stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                env=dict(os.environ, PYTHONPATH=path, OMP_NUM_THREADS="2",
+                         **env)))
+        deadline = time.monotonic() + timeout
+        outs = []
+        for i, p in enumerate(procs):
+            out, err = p.communicate(
+                timeout=max(deadline - time.monotonic(), 1.0))
+            assert p.returncode == 0, f"process {i}: {err[-4000:]}"
+            outs.append(out)
+        return outs
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+
+
+def run_ranks(argv, n=2, timeout=180):
+    """``python *argv`` as ``n`` ranks under the REPRO_* contract on a
+    free localhost port (:func:`run_procs`)."""
+    port = free_port()
+    envs = [dict(REPRO_COORD_ADDR=f"127.0.0.1:{port}",
+                 REPRO_NUM_PROCESSES=str(n), REPRO_PROCESS_ID=str(r))
+            for r in range(n)]
+    return run_procs([argv] * n, envs, timeout)
+
+
+def flat_arrays(tree, prefix):
+    """{"prefix/a/b": numpy} of a nested dict of arrays or tensors."""
+    out = {}
+    for k, v in tree.items():
+        key = f"{prefix}/{k}"
+        out.update(flat_arrays(v, key) if isinstance(v, dict)
+                   else {key: n(v) if isinstance(v, torch.Tensor)
+                         else np.asarray(v)})
+    return out
+
+
+def nested_arrays(flat, prefix):
+    """The nested dict :func:`flat_arrays` flattened under ``prefix``."""
+    out = {}
+    for key, v in flat.items():
+        if not key.startswith(prefix + "/"):
+            continue
+        *path, leaf = key[len(prefix) + 1:].split("/")
+        d = out
+        for p in path:
+            d = d.setdefault(p, {})
+        d[leaf] = np.asarray(v)
+    return out
+
+
+# the compressed step's cut: reduced qwen2-1.5b (2 layers, d 64), float32
+# compute, a global batch of 4 x 16 tokens, two steps past warm-up
+COMPRESSED_ARCH = "qwen2-1.5b"
+COMPRESSED_STEPS = (150, 151)
+
+
+def port_compressed_run(inputs, *, device=CPU):
+    """The port's compressed step on this rank's share of ``inputs``'
+    batch (``tokens``, and ``params``/``mu``/``nu`` flattened, see
+    :func:`flat_arrays`) for COMPRESSED_STEPS, on ``make_local_mesh``
+    (the REPRO_* world, or a world of one).  Returns the losses, the
+    norms of the all-reduced gradients, the rank's residual and the
+    parameters after the steps, and each leaf's shared scale per step."""
+    import torch.distributed as dist
+    import repro_torch.train.step as st
+    from repro_torch import convert
+    from repro_torch._tree import tree_map
+    from repro_torch.configs import get_arch
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch.mesh import make_local_mesh
+    cfg = get_arch(COMPRESSED_ARCH).reduced()
+    tokens = np.asarray(inputs["tokens"])
+    shape = ShapeConfig("compressed", tokens.shape[1], tokens.shape[0],
+                        "train")
+    mesh = make_local_mesh(device)
+    b = st.build_step_bundle(cfg, shape, device=device, mesh=mesh,
+                             compressed=True,
+                             model_kw=dict(compute_dtype=torch.float32))
+    lo, hi = st.batch_share(b.rules, shape.global_batch,
+                            mesh.get_coordinate())
+    params = convert.model_params(nested_arrays(inputs, "params"), device)
+    opt = convert.adamw_state({"step": inputs["step"],
+                               "mu": nested_arrays(inputs, "mu"),
+                               "nu": nested_arrays(inputs, "nu")}, device)
+    res = st.init_residual(b.model, b.rules)
+    batch = {"tokens": torch.as_tensor(tokens[lo:hi], device=device)}
+    scales, orig = [], st.requantize_sum
+
+    def recording(q, s, group=None):
+        sh = s.detach().clone()
+        dist.all_reduce(sh, op=dist.ReduceOp.MAX, group=group)
+        scales.append(float(sh))
+        return orig(q, s, group)
+
+    st.requantize_sum = recording
+    try:
+        metrics = []
+        for step in COMPRESSED_STEPS:
+            params, opt, res, m = b.step_fn(params, opt, res, batch, step)
+            metrics.append([float(m["loss"]), float(m["grad_norm"])])
+    finally:
+        st.requantize_sum = orig
+    loss, grad_norm = np.asarray(metrics).T
+    return {"loss": loss, "grad_norm": grad_norm,
+            "rows": np.asarray([lo, hi]),
+            "scales": np.asarray(scales).reshape(len(COMPRESSED_STEPS), -1),
+            **flat_arrays(params, "params"),
+            **flat_arrays(tree_map(lambda r: r[0], res), "res")}
+
+
+def ref_compressed_run(inputs):
+    """The reference's compressed step (``build_step_bundle(...,
+    compressed=True)``) on a (devices, 1) mesh over every JAX device, on
+    the same inputs as :func:`port_compressed_run`; the residual keeps its
+    leading device axis."""
+    import jax
+    import jax.numpy as jnp
+    from repro.configs import get_arch
+    from repro.configs.base import ShapeConfig
+    from repro.optim import AdamWState
+    from repro.train.step import build_step_bundle, init_residual
+    cfg = get_arch(COMPRESSED_ARCH).reduced()
+    tokens = np.asarray(inputs["tokens"])
+    shape = ShapeConfig("compressed", tokens.shape[1], tokens.shape[0],
+                        "train")
+    mesh = jax.make_mesh((len(jax.devices()), 1), ("data", "model"))
+    b = build_step_bundle(cfg, shape, mesh, compressed=True,
+                          model_kw=dict(compute_dtype=jnp.float32))
+    tree = lambda k: jax.tree.map(jnp.asarray, nested_arrays(inputs, k))
+    params = tree("params")
+    opt = AdamWState(step=jnp.int32(inputs["step"]), mu=tree("mu"),
+                     nu=tree("nu"))
+    res = init_residual(b.model, b.rules)
+    f = b.jitted()
+    metrics = []
+    with mesh:
+        for step in COMPRESSED_STEPS:
+            params, opt, res, m = f(params, opt, res,
+                                    {"tokens": jnp.asarray(tokens)},
+                                    jnp.int32(step))
+            metrics.append([float(m["loss"]), float(m["grad_norm"])])
+    loss, grad_norm = np.asarray(metrics).T
+    return {"loss": loss, "grad_norm": grad_norm,
+            **flat_arrays(jax.tree.map(np.asarray, params), "params"),
+            **flat_arrays(jax.tree.map(np.asarray, res), "res")}
+
+
+def _rank_path(out_dir, suffix):
+    rank = os.environ["REPRO_PROCESS_ID"]
+    return pathlib.Path(out_dir) / f"rank{rank}{suffix}"
+
+
+def _worker_ensure(out_dir):
+    """Two-rank check of the env contract: the group, the backend, the
+    slice and the scenario mesh this rank gets, and one all-reduce."""
+    import torch.distributed as dist
+    from repro_torch.launch import mesh as mesh_lib
+    assert mesh_lib.ensure_distributed("cpu")
+    assert mesh_lib.ensure_distributed("cpu")       # a second call is a no-op
+    x = torch.tensor([float(dist.get_rank() + 1)])
+    dist.all_reduce(x)
+    mesh = mesh_lib.resolve_mesh("auto", device="cpu")
+    rec = dict(rank=dist.get_rank(), world=dist.get_world_size(),
+               backend=dist.get_backend(), slice=mesh_lib.process_slice(7),
+               devices=[str(d) for d in mesh.devices], sum=float(x),
+               local_mesh=list(mesh_lib.make_local_mesh("cpu").shape))
+    dist.destroy_process_group()
+    _rank_path(out_dir, ".json").write_text(json.dumps(rec))
+
+
+def _worker_sweep(job_path, out_dir):
+    """This rank's raw aggregates of ``engine_sweep(mesh="auto",
+    finalize=False)`` for each config of the job file."""
+    import torch.distributed as dist
+    import repro_torch.core.engine as eng
+    from repro_torch.grid.scenarios import ScenarioSpec
+    from repro_torch.launch import mesh as mesh_lib
+    job = json.loads(pathlib.Path(job_path).read_text())
+    specs = [ScenarioSpec(**s) for s in job["specs"]]
+    rec = {}
+    for name, kw in job["cfgs"].items():
+        agg = eng.engine_sweep(eng.EngineConfig(**kw), specs,
+                               chunk_size=job["chunk"], mesh="auto",
+                               finalize=False, device="cpu")
+        rec[name] = {k: n(v).tolist() for k, v in agg.items()}
+    rec["slice"] = mesh_lib.process_slice(len(specs))
+    rec["backend"] = dist.get_backend()
+    dist.destroy_process_group()
+    _rank_path(out_dir, ".json").write_text(json.dumps(rec))
+
+
+def _worker_data_parallel(in_path, out_dir):
+    """On this rank: the compressed step (:func:`port_compressed_run`),
+    the plain data-parallel step and a 3-step data-parallel ``Trainer``
+    on this rank's batch share, and ``compressed_psum`` on rank-seeded
+    payloads."""
+    import torch.distributed as dist
+    import repro_torch.train.step as st
+    from repro_torch import convert
+    from repro_torch.configs import get_arch
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.optim import compressed_psum
+    from repro_torch.train.trainer import Trainer, TrainerConfig
+    inputs = dict(np.load(in_path))
+    out = {f"compressed/{k}": v
+           for k, v in port_compressed_run(inputs).items()}
+    mesh = make_local_mesh(CPU)
+    cfg = get_arch(COMPRESSED_ARCH).reduced()
+    tokens = inputs["tokens"]
+    shape = ShapeConfig("dp", tokens.shape[1], tokens.shape[0], "train")
+    for name, m in (("dp", mesh), ("single", None)):
+        b = st.build_step_bundle(cfg, shape, device=CPU, mesh=m,
+                                 model_kw=dict(compute_dtype=torch.float32))
+        lo, hi = ((0, shape.global_batch) if m is None else st.batch_share(
+            b.rules, shape.global_batch, mesh.get_coordinate()))
+        params = convert.model_params(nested_arrays(inputs, "params"), CPU)
+        opt = convert.adamw_state({"step": inputs["step"],
+                                   "mu": nested_arrays(inputs, "mu"),
+                                   "nu": nested_arrays(inputs, "nu")}, CPU)
+        params, opt, met = b.step_fn(
+            params, opt, {"tokens": torch.as_tensor(tokens[lo:hi])}, 150)
+        out.update(flat_arrays(params, f"{name}/params"))
+        out[f"{name}/loss"] = np.float32(met["loss"])
+        t = Trainer(cfg, ShapeConfig("dp", 16, 4, "train"),
+                    TrainerConfig(steps=3, log_every=0), mesh=m, device=CPU)
+        out[f"{name}/trainer_loss"] = np.asarray(
+            [h["loss"] for h in t.train()["history"]])
+    rng = np.random.default_rng(dist.get_rank())
+    q = {f"leaf{i}": torch.as_tensor(rng.integers(-127, 128, shape),
+                                     dtype=torch.int8)
+         for i, shape in enumerate(((5, 3), (7,), ()))}
+    s = {k: torch.tensor(float(rng.uniform(0.01, 1.0)), dtype=torch.float32)
+         for k in q}
+    got = compressed_psum(q, s)
+    for k in q:
+        out[f"psum/q/{k}"], out[f"psum/s/{k}"] = n(q[k]), n(s[k])
+        out[f"psum/out/{k}"] = n(got[k])
+    dist.destroy_process_group()
+    np.savez(_rank_path(out_dir, ".npz"), **out)
+
+
+def _worker_ref_compressed(in_path, out_path):
+    np.savez(out_path, **ref_compressed_run(dict(np.load(in_path))))
+
+
+# ---------------------------------------------------------------------------
 # The port's package-level checks
 # ---------------------------------------------------------------------------
 
@@ -125,7 +399,8 @@ def _port_sources():
                 "core/dispatch.py", "core/island.py", "obs/report.py",
                 "experiments.py", "train/trainer.py", "train/step.py",
                 "ckpt/manager.py", "data/tokens.py", "optim/adamw.py",
-                "workload/actuator.py", "launch/train.py"):
+                "workload/actuator.py", "launch/train.py",
+                "launch/mesh.py", "sharding/rules.py"):
         assert PORT / sub in files, sub
     return files
 
@@ -156,7 +431,9 @@ def test_importing_the_engine_loads_neither_jax_nor_repro():
             "repro_torch.experiments, repro_torch.core, repro_torch.grid, "
             "repro_torch.obs, repro_torch.workload, "
             "repro_torch.train.trainer, repro_torch.launch.train, "
-            "repro_torch.ckpt, repro_torch.data, repro_torch.optim; "
+            "repro_torch.ckpt, repro_torch.data, repro_torch.optim, "
+            "repro_torch.launch.mesh, repro_torch.sharding, "
+            "repro_torch.train.step; "
             "import repro_torch.core as c, repro_torch.grid as g; "
             "[getattr(m, k) for m in (c, g) for k in m.__all__]; "
             "bad = [m for m in sys.modules if m == 'jax' or "
@@ -357,3 +634,11 @@ def test_convert_round_trips_reference_state():
     assert int(st.seed[0]) == 7 and float(st.acc.n_s[0]) == 0.0
     assert jnp.asarray(ref_state.last_load).item() == pytest.approx(
         float(st.last_load[0]))
+
+
+if __name__ == "__main__":
+    # worker entry points of the multi-process tests:
+    #   python tests/test_torch_common.py <worker> <args...>
+    {"ensure": _worker_ensure, "sweep": _worker_sweep,
+     "data_parallel": _worker_data_parallel,
+     "ref_compressed": _worker_ref_compressed}[sys.argv[1]](*sys.argv[2:])

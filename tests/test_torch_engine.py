@@ -23,6 +23,7 @@ from repro.grid.scenarios import product_specs as r_specs
 import repro_torch.core.engine as eng
 from repro_torch import convert
 from repro_torch.grid.scenarios import build_scenario_batch
+from repro_torch.launch.mesh import ScenarioMesh
 
 REF_CFG = r_eng.EngineConfig(n_hosts=3, chips_per_host=2, e_max=8,
                              events_per_day=48.0)
@@ -287,8 +288,11 @@ def test_engine_rollout_validates_its_inputs():
     T = 3600
     with pytest.raises(ValueError, match="reduce"):
         eng.engine_rollout(CFG, pb, reduce="everything", device=CPU)
-    with pytest.raises(NotImplementedError, match="mesh"):
-        eng.engine_rollout(CFG, pb, mesh="auto", device=CPU)
+    with pytest.raises(ValueError, match="scenario"):
+        eng.engine_rollout(CFG, pb, mesh=ScenarioMesh((CPU,), ("data",)),
+                           device=CPU)
+    with pytest.raises(ValueError, match="kind"):
+        eng.engine_rollout(CFG, pb, mesh="cluster", device=CPU)
     with pytest.raises(ValueError, match=r"freq.*h_max \* 3600"):
         eng.engine_rollout(CFG, pb, freq=torch.zeros(1, T - 1), device=CPU)
     good = torch.full((1, T), 50.0)
@@ -305,9 +309,9 @@ def test_engine_rollout_validates_its_inputs():
         eng.engine_sweep(CFG, [], chunk_size=0, device=CPU)
     with pytest.raises(ValueError, match="empty"):
         eng.engine_sweep(CFG, [], chunk_size=4, device=CPU)
-    with pytest.raises(NotImplementedError, match="mesh"):
+    with pytest.raises(ValueError, match="scenario"):
         eng.engine_sweep(CFG, port_specs(_specs()), chunk_size=4,
-                         mesh="auto", device=CPU)
+                         mesh=ScenarioMesh((CPU,), ("data",)), device=CPU)
     with pytest.raises(ValueError, match="rho_mode"):
         eng.EngineConfig(rho_mode="free")
 
