@@ -5,7 +5,8 @@
     python3 chip_smoke.py --flash-only   # build and flash_attention only
     python3 chip_smoke.py --ssd-only     # build and ssd_scan only
     python3 chip_smoke.py --train-only   # build, flash_bwd, train, ssd_bwd,
-                                         # train_ssm and train_hybrid only
+                                         # train_ssm, train_hybrid and
+                                         # train_cuts only
 
 Phases, each printing one JSON line; any failure ends the run with a
 nonzero exit and no result line:
@@ -24,7 +25,12 @@ nonzero exit and no result line:
               kernel's name, registers, shared memory and spills, and
               its earlier time; flash_attention also checked at the bf16
               kernel's edges at prefill length (ragged Sq, Sq > Sk,
-              narrow windows, GQA group 6);
+              narrow windows, GQA group 6), and at the MoE, VLM and
+              enc-dec families' calls: head dim 96 (phi-3-vision-4.2b's
+              (2, 4096, 32, 32, 96), timed) and whisper-medium's
+              non-causal encoder (2, 1500, 16, 16, 64) and cross (Sq 448
+              against Sk 1500) calls, timed beside SDPA with
+              is_causal=False;
               ssd_scan at the reference's test shapes, at the bf16
               kernels' edges (chunk 8-64, hd 16/32, ds 16/128) and at
               both full-width prefill calls (mamba2-1.3b, zamba2-2.7b) in
@@ -61,6 +67,29 @@ nonzero exit and no result line:
               zamba2-2.7b at full width and depth: exactly 54 ssd_scan and
               9 flash_attention launches per forward; decode against
               forward at S = 256
+  prefill_moe olmoe-1b-7b at full width and depth (bf16 over f32, (2,
+              4096) tokens, last_only): exactly 16 flash_attention
+              launches, the slots its capacity drops per layer; then
+              mixtral-8x22b at full width cut to 2 of its 56 layers on
+              (1, 8192) tokens, so that its 4096 window masks: exactly 2
+              launches, the cut printed as "reduced"
+  decode_vs_forward_moe, serve (olmoe-1b-7b)
+              olmoe in f32: teacher-forced decode against the forward
+              (2e-3) on every position of a (1, 4) call (no slot can
+              drop) and on the drop-free prefix of a (2, 64) call (its
+              length and the dropped slots printed); each decode step
+              takes the forward's picks of its token, the slots whose own
+              pick differed counted; run_serve as for qwen2-1.5b
+  prefill_vlm phi-3-vision-4.2b at full width and depth: 576 image
+              embeddings and 3,520 tokens, 4,096 positions: exactly 32
+              launches
+  prefill_encdec, decode_vs_forward_encdec, serve (whisper-medium)
+              whisper-medium at full width and depth, (2, 1500, 1024)
+              frames and (2, 448) tokens: exactly 72 launches (24
+              non-causal encoder, 24 causal decoder, 24 non-causal cross);
+              in f32 at S = 64, teacher-forced decode after encode and
+              precompute_cross_kv against decode_train (2e-3); run_serve,
+              its frames encoded into the cache's cross K/V first
   flash_bwd   flash_attention's two backward wrappers (flash_bwd_dq,
               flash_bwd_dkdv; in bf16 the wgmma kernels and, when the GQA
               group is split, flash_bwd_dkdv_sum) against autograd through
@@ -68,7 +97,10 @@ nonzero exit and no result line:
               prefill call (2, 4096, 12, 2, 128) and training call (2,
               2048, ...) bf16 causal, zamba2-2.7b's training call (1, 2048,
               32, 32, 80) and at small and odd shapes (head
-              dims 64 and 80, windows, S not a multiple of 64, Sq > Sk),
+              dims 64, 80 and 96, windows, S not a multiple of 64, Sq >
+              Sk), phi-3-vision-4.2b's training call (1, 2048, 32, 32, 96)
+              and whisper-medium's non-causal encoder and cross calls
+              (Sk 1500, each timed beside SDPA's backward),
               every case run twice and held to bitwise equality, the
               forward's LSE against the plain one, SDPA's backward's own
               error at the prefill call (printed, not a gate); at both
@@ -80,7 +112,7 @@ nonzero exit and no result line:
               plain version's backward; the kernels' registers, shared
               memory and local memory as the CUDA runtime reports them,
               failing on local memory (a spill) in a bf16 kernel at D =
-              128, and ptxas' report when this process ran nvcc
+              96 or 128, and ptxas' report when this process ran nvcc
   train       the Trainer at full qwen2-1.5b width and depth (bf16 compute
               over f32 parameters, remat "dots", AdamW on the card) for 8
               steps of (2, 2048) tokens with a GridPilot attached and an
@@ -145,6 +177,15 @@ nonzero exit and no result line:
               weights alone to bf16 moving their f32 gradient more than
               2e-2) may miss 2e-2 if the kernels' bf16 gradient lies no
               farther from float64 than the plain versions' does
+  train_cuts  one step's loss and gradient at full width, 2 layers (and
+              2 encoder layers), through the kernels and through the plain
+              versions, every leaf held at 2e-2 norm-relative in bf16 and
+              1e-4 in f32, each kernel's launches enforced: olmoe-1b-7b
+              on (1, 2048) tokens (no remat; the plain run takes the
+              kernels' run's picks, the slots whose own pick differed
+              printed), phi-3-vision-4.2b on 576 embeddings and 1,472
+              tokens (the D = 96 backward), whisper-medium on (1, 448)
+              tokens and (1, 1500, 1024) frames (the non-causal backward)
   engine      engine_rollout(reduce="summary") on the full E9 batch (288
               scenarios, 6 countries x 3 seeds x 2 products x 4 bands x 2
               event draws) over 24 h, or the longest whole number of hours
@@ -206,7 +247,7 @@ nonzero exit and no result line:
               under AllocationChurn (printed, not enforced)
   twin        Fig. 4 (benchmarks/cluster_24h.py): 100 hosts x 3 chips on the
               DE grid, seeds 0-2 as one run_twin_batch over 24 h or the
-              longest whole number of hours the phase's 80 s allow
+              longest whole number of hours the phase's 65 s allow
               (printed as a cut): scenario-seconds per wall second, ms per
               tick, one tick's device time and launches, peak memory, seed
               0's summary beside the paper's, the net-CO2 decomposition at
@@ -243,7 +284,9 @@ import numpy as np
 ROOT = os.path.dirname(os.path.abspath(__file__))
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM data sheet
 L2_BYTES = 50 * 2**20              # H100 SXM, where torch does not report it
-ENGINE_BUDGET_S = 100.0            # wall time the 24 h rollout may spend
+# wall time the 24 h rollout may spend (cut from 150 s, then 100, to make
+# room for the later phases; the horizon it allows is printed as a cut)
+ENGINE_BUDGET_S = 70.0
 KERNEL_TOL = dict(atol=1e-4, rtol=1e-5)
 # E4's closed loop through pid_update against the same loop through its
 # plain version: a 1-ulp change of every tick's PID outputs moves the
@@ -261,6 +304,10 @@ FLASH_TOL = {"float32": dict(atol=2e-5, rtol=2e-5),
 FLASH_TOL_LONG_F32 = dict(atol=1e-4, rtol=1e-4)
 PREFILL_SHAPE = (2, 4096, 12, 2, 128)    # qwen2-1.5b's heads at S = 4096
 ZAMBA2_ATTN_SHAPE = (2, 4096, 32, 32, 80)  # zamba2-2.7b's shared block
+PHI3_ATTN_SHAPE = (2, 4096, 32, 32, 96)    # phi-3-vision-4.2b's prefill
+WHISPER_ENC_SHAPE = (2, 1500, 16, 16, 64)  # whisper-medium's encoder
+# its cross-attention: 448 decoder rows (its context) against Sk = 1500
+WHISPER_CROSS_SHAPE, WHISPER_CROSS_SK = (2, 448, 16, 16, 64), 1500
 # flash_attention's bf16 time at those two calls by head dim, from an
 # earlier call of this script on another card (the earlier mma.sync kernel,
 # NVIDIA H100 80GB HBM3, 700 W): only the ratio to the library call
@@ -271,6 +318,14 @@ FLASH_PREV_MS = {128: 0.924, 80: 1.372}
 FLASH_PREV_PTXAS = {128: "Used 188 registers, used 16 barriers",
                     80: "Used 162 registers, used 16 barriers"}
 DECODE_TOL = dict(atol=2e-3, rtol=2e-3)  # tests/test_models.py
+# olmoe-1b-7b's decode-vs-forward calls: (1, 4) cannot drop a slot (one
+# group of 4 tokens, capacity 4), (2, 64) may from position 0 on
+MOE_DECODE_CALLS = ((1, 4), (2, 64))
+# mixtral-8x22b's prefill: full width, 2 of its 56 layers (21.6 GB of f32
+# weights), on (1, 8192) tokens so that its 4096 window masks
+MIXTRAL_CUT_LAYERS = 2
+MIXTRAL_PREFILL_SHAPE = (1, 8192)
+WHISPER_PREFILL_SHAPE = (2, 448)   # decoder tokens: whisper's context
 # ssd_scan: the reference's kernel tolerances (tests/test_kernels.py)
 SSD_TOL = {"chunked": dict(atol=1e-4, rtol=1e-4),
            "oracle": dict(atol=5e-4, rtol=5e-3),
@@ -300,7 +355,7 @@ SERVICE_MAX_RSS_GROWTH_MB = 64.0
 PROFILED_STEPS = 8               # opt steps in the bidder's profiled run
 # the paper's experiments (benchmarks/e2, e4, e7, cluster_24h, e9)
 FR_LATENCY_PORT = 47661          # UDP port of fr_latency's island
-TWIN_BUDGET_S = 80.0             # wall time of the whole twin phase
+TWIN_BUDGET_S = 65.0             # wall time of the whole twin phase (was 80)
 TWIN_SEEDS = (0, 1, 2)
 TWIN_PAPER = {"ar4_mae_norm": 0.036, "ar4_p95_norm": 0.09, "q_ffr": 1.0,
               "mean_mu_green": 0.90, "mean_mu_dirty": 0.40,
@@ -570,12 +625,18 @@ def phase_tier1(torch):
 
 
 def flash_cases():
-    """(shape (B, S, H, Hkv, D), dtype name, window, Sk or None for Sk = S)
-    of the kernel check: the reference's test shapes in both dtypes, its
-    windows, the padded head_dim-128 GQA case, the prefill shape and
-    zamba2-2.7b's shared block (head dim 80, window 4096); then the bf16
-    TMA kernel's edges at prefill length: Sq not a multiple of its 128-row
-    q-tile, Sq > Sk, windows narrower than a kv tile, GQA group 6."""
+    """(shape (B, S, H, Hkv, D), dtype name, window, Sk or None for Sk = S,
+    causal) of the kernel check: the reference's test shapes in both
+    dtypes, its windows, the padded head_dim-128 GQA case, the prefill
+    shape and zamba2-2.7b's shared block (head dim 80, window 4096); then
+    the bf16 TMA kernel's edges at prefill length: Sq not a multiple of
+    its 128-row q-tile, Sq > Sk, windows narrower than a kv tile, GQA
+    group 6; then the calls of the MoE, VLM and enc-dec families: head
+    dim 96 (phi-3-vision-4.2b's prefill call, and small with a window and
+    a ragged Sq in both dtypes), whisper-medium's non-causal encoder call
+    in both dtypes and its cross call (Sq 448 against Sk 1500: no kv tile
+    divides 1500), and a non-causal call at D = 96 whose Sk is not a
+    multiple of the kv tile."""
     cases = [(shape, dt, 0, None) for shape in ((1, 128, 4, 4, 32),
                                                 (2, 256, 4, 2, 64),
                                                 (1, 256, 8, 1, 64),
@@ -592,6 +653,15 @@ def flash_cases():
               ((1, 4096, 12, 2, 128), "bfloat16", 100, None),
               ((1, 4096, 32, 32, 80), "bfloat16", 16, None),
               ((1, 4096, 12, 12, 128), "bfloat16", 0, None)]
+    cases = [c + (True,) for c in cases]
+    cases += [(PHI3_ATTN_SHAPE, "bfloat16", 0, None, True)]
+    cases += [((1, 300, 4, 2, 96), dt, 64, None, True)
+              for dt in ("float32", "bfloat16")]
+    cases += [(WHISPER_ENC_SHAPE, dt, 0, None, False)
+              for dt in ("float32", "bfloat16")]
+    cases += [(WHISPER_CROSS_SHAPE, dt, 0, WHISPER_CROSS_SK, False)
+              for dt in ("float32", "bfloat16")]
+    cases += [((1, 300, 4, 2, 96), "bfloat16", 0, 1000, False)]
     return cases
 
 
@@ -602,34 +672,37 @@ def flash_inputs(torch, g, shape, dtype, sk=None):
                                            (sk or s, hkv)))
 
 
-def flash_bound_ms(shape, dtype, window=0):
-    """The least time of one causal call: 4 B H D flop per visible
-    (row, col) pair at the dtype's peak, against reading q, k, v once and
+def flash_bound_ms(shape, dtype, window=0, causal=True, sk=None):
+    """The least time of one call: 4 B H D flop per visible (row, col)
+    pair (causal: the diagonal and below, within the window; non-causal:
+    all S x Sk) at the dtype's peak, against reading q, k, v once and
     writing o once at the HBM rate; the larger of the two."""
     b, s, h, hkv, d = shape
+    sk = sk or s
     rows = range(s)
-    pairs = sum(min(i + 1, window) if window else i + 1 for i in rows)
+    pairs = sum(min(i + 1, window) if window else i + 1 for i in rows) \
+        if causal else s * sk
     flops = 4.0 * b * h * d * pairs
     elem = 2 if dtype == "bfloat16" else 4
-    nbytes = elem * b * s * d * (2 * h + 2 * hkv)
+    nbytes = elem * b * d * (2 * h * s + 2 * hkv * sk)
     peak = TENSOR_CORE_BF16_FLOP_S if dtype == "bfloat16" else FP32_FLOP_S
     t_ops, t_bytes = flops / peak, nbytes / HBM_BYTES_PER_S
     return max(t_ops, t_bytes) * 1e3, \
         "operations" if t_ops >= t_bytes else "bytes", flops, nbytes
 
 
-def time_flash(torch, g, shape, window):
+def time_flash(torch, g, shape, window, causal=True, sk=None):
     """Cold-L2 device times at one bf16 shape (enough input sets that four
     L2s of traffic pass between two reads of one set): the kernel, its
     plain version and scaled_dot_product_attention on (B, H, S, D) copies
-    laid out before the clock starts."""
+    laid out before the clock starts; non-causal calls with ``sk`` keys."""
     import torch.nn.functional as F
     from repro_torch.kernels import _build
     from repro_torch.kernels import flash_attention as fa
-    q, k, v = flash_inputs(torch, g, shape, torch.bfloat16)
+    q, k, v = flash_inputs(torch, g, shape, torch.bfloat16, sk)
     set_bytes = sum(x.numel() * x.element_size() for x in (q, k, v))
     n_sets = math.ceil(4 * l2_bytes(torch) / set_bytes)
-    sets = [flash_inputs(torch, g, shape, torch.bfloat16)
+    sets = [flash_inputs(torch, g, shape, torch.bfloat16, sk)
             for _ in range(n_sets)]
     sdpa_sets = [tuple(x.transpose(1, 2).contiguous() for x in st)
                  for st in sets]
@@ -638,13 +711,13 @@ def time_flash(torch, g, shape, window):
                          "function only for a window of 0 or >= S")
 
     def kernel(q, k, v):
-        return fa.flash_attention(q, k, v, causal=True, window=window)
+        return fa.flash_attention(q, k, v, causal=causal, window=window)
 
     def plain(q, k, v):
-        return fa.flash_attention_ref(q, k, v, causal=True, window=window)
+        return fa.flash_attention_ref(q, k, v, causal=causal, window=window)
 
     def sdpa(q, k, v):
-        return F.scaled_dot_product_attention(q, k, v, is_causal=True,
+        return F.scaled_dot_product_attention(q, k, v, is_causal=causal,
                                               enable_gqa=True)
 
     kept = []
@@ -655,11 +728,15 @@ def time_flash(torch, g, shape, window):
     prof_l = profile_calls(torch, cycled(sdpa_sets, sdpa, kept), 20)
     kept.clear()
     bound_ms, bound_by, flops, nbytes = flash_bound_ms(shape, "bfloat16",
-                                                       window)
-    ms = prof_k["device_us_per_call"] / 1e3
-    library_ms = prof_l["device_us_per_call"] / 1e3
+                                                       window, causal, sk)
+    # each kernel's mean per launch times its launches per call: a window
+    # where CUPTI dropped events read whisper's encoder call at a third
+    ms = prof_k["rounded_us_per_call"] / 1e3
+    library_ms = prof_l["rounded_us_per_call"] / 1e3
     return {"shape": list(shape), "dtype": "bfloat16", "window": window,
-            "ms": ms, "plain_ms": prof_p["device_us_per_call"] / 1e3,
+            "causal": causal, "sk": sk or shape[1],
+            "ms": ms, "plain_ms": prof_p["rounded_us_per_call"] / 1e3,
+            "ms_all_events": prof_k["device_us_per_call"] / 1e3,
             "library_ms": library_ms, "ms_over_library": ms / library_ms,
             "bound_ms": bound_ms, "bound_by": bound_by,
             "bound_share": bound_ms / ms, "gflop": flops / 1e9,
@@ -669,8 +746,8 @@ def time_flash(torch, g, shape, window):
             "ptxas": ptxas_by_kernel(_build.PTXAS_REPORT.get(
                 "flash_attention", "")).get(
                     f"{fa.KERNELS[torch.bfloat16]}<{shape[4]}>"),
-            "ptxas_prev": FLASH_PREV_PTXAS[shape[4]],
-            "prev_ms": FLASH_PREV_MS[shape[4]],
+            "ptxas_prev": FLASH_PREV_PTXAS.get(shape[4]),
+            "prev_ms": FLASH_PREV_MS.get(shape[4]),
             "prev_ms_from": "an earlier call on another card (the mma.sync "
                             "kernel before the TMA + wgmma redesign)",
             "cold_sets": n_sets,
@@ -682,34 +759,50 @@ def phase_flash_kernel(torch):
     from repro_torch.kernels import flash_attention as fa
     g = torch.Generator(device="cuda").manual_seed(1)
     checks, worst = [], 0.0
-    for shape, dt, window, sk in flash_cases():
+    for shape, dt, window, sk, causal in flash_cases():
         dtype = getattr(torch, dt)
         q, k, v = flash_inputs(torch, g, shape, dtype, sk)
-        got = fa.flash_attention(q, k, v, causal=True, window=window)
-        want = fa.flash_attention_ref(q, k, v, causal=True, window=window)
+        got = fa.flash_attention(q, k, v, causal=causal, window=window)
+        want = fa.flash_attention_ref(q, k, v, causal=causal, window=window)
         torch.cuda.synchronize()
-        tol = FLASH_TOL_LONG_F32 if dt == "float32" and shape[1] >= 1000 \
-            else FLASH_TOL[dt]
+        # the long causal f32 case of earlier slices keeps its 1e-4; the
+        # calls of the MoE, VLM and enc-dec families are held at 2e-5
+        tol = FLASH_TOL_LONG_F32 if dt == "float32" and causal and \
+            shape[1] >= 1000 else FLASH_TOL[dt]
         err = float((got.float() - want.float()).abs().max())
         torch.testing.assert_close(got.float(), want.float(), **tol)
         worst = max(worst, err)
         checks.append({"shape": list(shape), "dtype": dt, "window": window,
-                       "sk": sk or shape[1], "max_abs_err": err, "tol": tol})
+                       "sk": sk or shape[1], "causal": causal,
+                       "max_abs_err": err, "tol": tol})
         del q, k, v, got, want
     torch.cuda.empty_cache()
     t = time_flash(torch, g, PREFILL_SHAPE, 0)
     d80 = time_flash(torch, g, ZAMBA2_ATTN_SHAPE, ZAMBA2_ATTN_SHAPE[1])
+    d96 = time_flash(torch, g, PHI3_ATTN_SHAPE, 0)
+    enc = time_flash(torch, g, WHISPER_ENC_SHAPE, 0, causal=False)
+    cross = time_flash(torch, g, WHISPER_CROSS_SHAPE, 0, causal=False,
+                       sk=WHISPER_CROSS_SK)
+    calls = {"phi-3-vision-4.2b": d96, "whisper-medium encoder": enc,
+             "whisper-medium cross": cross, "zamba2-2.7b": d80}
     rec = {"name": "flash_attention", "route": "cuda",
            "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
            "replaces": "src/repro/kernels/flash_attention.py:139",
            "max_abs_err": worst, "ms": t["ms"], "plain_ms": t["plain_ms"],
            "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
            "library_ms": t["library_ms"], "shape": list(PREFILL_SHAPE),
-           "dtype": "bfloat16"}
+           "dtype": "bfloat16",
+           "calls": {name: {k: c[k] for k in (
+               "shape", "causal", "sk", "ms", "plain_ms", "bound_ms",
+               "bound_by", "library_ms")} for name, c in calls.items()}}
     emit({"phase": "kernel", "name": "flash_attention", "checks": checks,
           **t, "library": "torch.nn.functional.scaled_dot_product_attention("
-                          "is_causal=True, enable_gqa=True) on (B, H, S, D)",
-          "head_dim_80": d80})
+                          "is_causal=causal, enable_gqa=True) on (B, H, S, "
+                          "D)",
+          "head_dim_80": d80, "head_dim_96": d96, "whisper_encoder": enc,
+          "whisper_cross": cross,
+          "build_f32": {d: fa.kernel_info(torch.float32, d)
+                        for d in (64, 96)}})
     return rec
 
 
@@ -904,10 +997,60 @@ def get_cfg(name):
     return get_arch(name)
 
 
-def phase_prefill(torch, phase, cfg, expect):
+def prefill_batch(torch, cfg, b, s, g):
+    """The inputs of a (b, s) prefill drawn from ``g``: s tokens; for the
+    VLM its frontend embeddings in front of s - frontend_tokens tokens;
+    for the enc-dec family s decoder tokens beside (b, encoder_seq, D)
+    frames (the frontend inputs 0.02 x normals, as the data pipeline
+    draws them)."""
+    front = cfg.frontend_tokens if cfg.family == "vlm" else 0
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (b, s - front),
+                                     generator=g, device="cuda")}
+    if front:
+        batch["embeds"] = 0.02 * torch.randn(b, front, cfg.d_model,
+                                             generator=g, device="cuda")
+    if cfg.family == "encdec":
+        batch["frames"] = 0.02 * torch.randn(b, cfg.encoder_seq, cfg.d_model,
+                                             generator=g, device="cuda")
+    return batch
+
+
+def moe_routing(torch, fn, pinned=None):
+    """Run ``fn`` with the MoE layers' ``moe_ffn`` wrapped: each call's
+    routing (G, S, k) and its dropped slots per token (B, S) recorded in
+    call order, or with ``pinned`` (a list in call order) fed in as its
+    picks (``topi=``), counting the slots whose own pick differs.  Returns
+    (fn's result, the picks, the dropped slots, the differing slots)."""
+    from repro_torch.models import moe as moe_lib
+    orig = moe_lib.moe_ffn
+    picks, dropped, differ = [], [], [0]
+
+    def wrap(cfg, lp, x, topi=None):
+        b, s, d = x.shape
+        with torch.no_grad():
+            own = moe_lib.route(lp["router"], x.detach().reshape(
+                -1, min(moe_lib.GROUP_SIZE, b * s), d), cfg.top_k)[2]
+            dropped.append(moe_lib.dropped_slots(cfg, lp, x.detach()))
+        if pinned is not None:
+            topi = pinned[len(picks)]
+            differ[0] += int((own.sort(-1).values
+                              != topi.sort(-1).values).sum())
+        picks.append(own if topi is None else topi)
+        return orig(cfg, lp, x, topi=topi)
+
+    moe_lib.moe_ffn = wrap
+    try:
+        out = fn()
+    finally:
+        moe_lib.moe_ffn = orig
+    return out, picks, dropped, differ[0]
+
+
+def phase_prefill(torch, phase, cfg, expect, shape=None, extra=None):
     """Model.forward at full width and depth (random weights from a seed,
-    bf16 compute) on (2, 4096) tokens, last_only; returns the launches of
-    one forward and the (f32) parameters."""
+    bf16 compute) on ``shape`` (default (2, 4096)) positions, last_only;
+    for the MoE family the slots its capacity drops per layer; returns the
+    launches of one forward and the (f32) parameters."""
     from repro_torch.models import build_model
     model = build_model(cfg, compute_dtype=torch.bfloat16, device="cuda")
     t0 = time.perf_counter()
@@ -915,12 +1058,15 @@ def phase_prefill(torch, phase, cfg, expect):
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
     n_params = sum(p.numel() for p in all_tensors(params))
-    b, s = PREFILL_SHAPE[:2]
+    b, s = shape or PREFILL_SHAPE[:2]
     g = torch.Generator(device="cuda").manual_seed(2)
-    batch = {"tokens": torch.randint(0, cfg.vocab_size, (b, s), generator=g,
-                                     device="cuda")}
-    model.forward(params, batch, last_only=True)  # first launches
+    batch = prefill_batch(torch, cfg, b, s, g)
+    _, _, dropped, _ = moe_routing(      # first launches
+        torch, lambda: model.forward(params, batch, last_only=True))
     torch.cuda.synchronize()
+    if cfg.is_moe:
+        extra = dict(extra or {}, dropped_slots_per_layer=[
+            int(d.sum()) for d in dropped], slots_per_layer=b * s * cfg.top_k)
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     logits, launches = count_launches(
@@ -953,7 +1099,8 @@ def phase_prefill(torch, phase, cfg, expect):
                                prof["matched_us_per_call"].items()},
           "launches_per_forward": prof["launches_per_call"],
           "top_kernels_us": prof["kernels"],
-          "logits_absmax": float(logits[..., :cfg.vocab_size].abs().max())})
+          "logits_absmax": float(logits[..., :cfg.vocab_size].abs().max()),
+          **(extra or {})})
     return launches, params
 
 
@@ -1064,6 +1211,119 @@ def phase_serve(torch, arch):
           "active": out["active"], "response_ms": out["response_ms"],
           "budget_ms": budget_ms,
           "sheds": trace.metrics.counters.get("serve.sheds")})
+
+
+def phase_decode_vs_forward_moe(torch, cfg, params):
+    """olmoe-1b-7b at full width and depth in f32: teacher-forced decode
+    logits against the forward's (2e-3).  The forward drops the slots over
+    capacity and the decode step drops none, so decode is held on the
+    positions before the first token that lost a slot in some layer: every
+    position of a (1, 4) call (a group of 4 tokens cannot drop), the
+    drop-free prefix of a (2, 64) one.  Each decode step takes the
+    forward's picks of its token (the routing's last bits differ between
+    the two paths' products); the slots whose own pick differed are
+    counted."""
+    from repro_torch.models import build_model
+    from repro_torch.models import moe as moe_lib
+    t_phase = time.perf_counter()
+    model = build_model(cfg, compute_dtype=torch.float32, device="cuda")
+    g = torch.Generator(device="cuda").manual_seed(3)
+    calls = []
+    for b, seq in MOE_DECODE_CALLS:
+        tokens = torch.randint(0, cfg.vocab_size, (b, seq), generator=g,
+                               device="cuda")
+        (full, picks, dropped, _), launches = count_launches(
+            torch, lambda: moe_routing(torch, lambda: model.forward(
+                params, {"tokens": tokens})))
+        check_launches("decode_vs_forward_moe", launches,
+                       {"flash_attention": cfg.num_layers})
+        lost = torch.stack(dropped).sum(dim=(0, 1))       # per position
+        keep = int(lost.nonzero()[0, 0]) if lost.any() else seq
+        if b * seq <= 4 and keep != seq:
+            raise RuntimeError(f"decode_vs_forward_moe: a (1, 4) call "
+                               f"dropped slots at position {keep}")
+        picks = [p.reshape(b, seq, -1) for p in picks]
+        orig = moe_lib.moe_ffn_decode
+        step, layer, differ = [0], [0], [0]
+
+        def pinned(cfg_, lp, x, topi=None):
+            want = picks[layer[0]][:, step[0]]
+            own = moe_lib.route(lp["router"], x, cfg_.top_k)[2]
+            differ[0] += int((own.sort(-1).values
+                              != want.sort(-1).values).sum())
+            layer[0] = (layer[0] + 1) % cfg.num_layers
+            return orig(cfg_, lp, x, topi=want)
+
+        cache = model.init_cache(b, seq)
+        dec = []
+        moe_lib.moe_ffn_decode = pinned
+        try:
+            for i in range(seq):
+                step[0] = i
+                logits, cache = model.decode_step(params, cache,
+                                                  tokens[:, i])
+                dec.append(logits)
+        finally:
+            moe_lib.moe_ffn_decode = orig
+        dec = torch.stack(dec, 1)
+        v = cfg.vocab_size
+        err = float((dec[:, :keep, :v] - full[:, :keep, :v]).abs().max()) \
+            if keep else None
+        torch.testing.assert_close(dec[:, :keep], full[:, :keep],
+                                   **DECODE_TOL)
+        calls.append({"batch": b, "seq": seq, "launches": launches,
+                      "dropped_slots_per_layer": [int(d.sum())
+                                                  for d in dropped],
+                      "slots_per_layer": b * seq * cfg.top_k,
+                      "drop_free_prefix": keep, "max_abs_err": err,
+                      "decode_picks_differing_from_forward": differ[0]})
+        del full, dec, cache
+    emit({"phase": "decode_vs_forward_moe", "arch": cfg.name,
+          "dtype": "float32", "depth": cfg.num_layers, "calls": calls,
+          "tol": DECODE_TOL, "seconds": time.perf_counter() - t_phase})
+
+
+def phase_decode_vs_forward_encdec(torch, cfg, params):
+    """whisper-medium at full width and depth in f32 on S = 64 decoder
+    tokens and (2, 1500, 1024) frames: teacher-forced decode logits
+    (after encode and precompute_cross_kv) against decode_train's (2e-3);
+    the forward's 72 attention launches (24 encoder, non-causal; 24
+    decoder, causal; 24 cross, non-causal)."""
+    from repro_torch.models import build_model
+    from repro_torch.models import encdec
+    t_phase = time.perf_counter()
+    model = build_model(cfg, compute_dtype=torch.float32, device="cuda")
+    b, seq = 2, 64
+    g = torch.Generator(device="cuda").manual_seed(3)
+    batch = prefill_batch(torch, cfg, b, seq, g)
+    full, launches = count_launches(torch,
+                                    lambda: model.forward(params, batch))
+    check_launches("decode_vs_forward_encdec", launches,
+                   {"flash_attention": cfg.encoder_layers
+                    + 2 * cfg.num_layers})
+    cache = model.init_cache(b, seq)
+    with torch.no_grad():
+        enc = encdec.encode(cfg, params, batch["frames"],
+                            dtype=torch.float32)
+        cache["xk"], cache["xv"] = encdec.precompute_cross_kv(cfg, params,
+                                                              enc)
+    dec = []
+    t0 = time.perf_counter()
+    for i in range(seq):
+        logits, cache = model.decode_step(params, cache, batch["tokens"][:, i])
+        dec.append(logits)
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) / seq * 1e3
+    dec = torch.stack(dec, 1)
+    v = cfg.vocab_size
+    err = float((dec[..., :v] - full[..., :v]).abs().max())
+    torch.testing.assert_close(dec, full, **DECODE_TOL)
+    emit({"phase": "decode_vs_forward_encdec", "arch": cfg.name,
+          "batch": b, "seq": seq, "encoder_seq": cfg.encoder_seq,
+          "dtype": "float32", "depth": [cfg.encoder_layers, cfg.num_layers],
+          "max_abs_err": err, "tol": DECODE_TOL, "launches": launches,
+          "decode_ms_per_step": step_ms,
+          "seconds": time.perf_counter() - t_phase})
 
 
 def e9_specs(hours):
@@ -2049,6 +2309,11 @@ TRAIN_STEPS = 8
 TRAIN_TRIGGER_AFTER = 3            # fire_test_trigger after this step
 TRAIN_ISLAND_PORT = 47681          # UDP port of the train phase's island
 TRAIN_CUT_LAYERS = 2               # the kernels-vs-plain check's depth
+# the MoE, VLM and enc-dec families' cuts: (arch, (batch, positions));
+# phi-3-vision's 2048 positions are 576 image embeddings and 1472 tokens,
+# whisper's 448 decoder tokens come with (1, 1500, 1024) frames
+TRAIN_CUTS = (("olmoe-1b-7b", (1, 2048)), ("phi-3-vision-4.2b", (1, 2048)),
+              ("whisper-medium", (1, 448)))
 TRAIN_CUT_REL = 2e-2               # bf16, norm-relative per leaf
 TRAIN_CUT_F32_REL = 1e-4           # the same cut in f32 compute, per leaf
 # the SSM and hybrid train phases: mamba2-1.3b and zamba2-2.7b under their
@@ -2067,32 +2332,44 @@ CKPT_LOSS_RTOL = 1e-5
 
 
 def flash_bwd_cases():
-    """(shape (B, S, H, Hkv, D), dtype name, window, Sk or None) of the
-    backward check: qwen2-1.5b's prefill and training calls and zamba2-2.7b's
-    training call (head dim 80), then small
-    and odd shapes in both dtypes -- head dims 64 and 80, windows, S not a
-    multiple of the 64-row tiles, Sq > Sk."""
-    return ([(PREFILL_SHAPE, "bfloat16", 0, None),
-             (TRAIN_ATTN_SHAPE, "bfloat16", 0, None),
-             (ZAMBA2_TRAIN_ATTN_SHAPE, "bfloat16", 0, None)]
-            + [(shape, dt, w, None)
-               for shape, w in (((2, 256, 4, 2, 64), 0),
-                                ((1, 200, 6, 2, 80), 24),
-                                ((1, 300, 12, 2, 128), 0),
-                                ((1, 1000, 12, 2, 128), 100))
+    """(shape (B, S, H, Hkv, D), dtype name, window, Sk or None, causal)
+    of the backward check: qwen2-1.5b's prefill and training calls and
+    zamba2-2.7b's training call (head dim 80), then small and odd shapes
+    in both dtypes -- head dims 64 and 80, windows, S not a multiple of
+    the 64-row tiles, Sq > Sk; then phi-3-vision-4.2b's training call
+    (head dim 96), a small D = 96 case with a window in both dtypes, and
+    whisper-medium's non-causal encoder and cross calls (Sk = 1500)."""
+    cases = ([(PREFILL_SHAPE, "bfloat16", 0, None),
+              (TRAIN_ATTN_SHAPE, "bfloat16", 0, None),
+              (ZAMBA2_TRAIN_ATTN_SHAPE, "bfloat16", 0, None)]
+             + [(shape, dt, w, None)
+                for shape, w in (((2, 256, 4, 2, 64), 0),
+                                 ((1, 200, 6, 2, 80), 24),
+                                 ((1, 300, 12, 2, 128), 0),
+                                 ((1, 1000, 12, 2, 128), 100))
+                for dt in ("float32", "bfloat16")]
+             + [((1, 256, 4, 2, 64), "bfloat16", 0, 100)])
+    return ([c + (True,) for c in cases]
+            + [(PHI3_TRAIN_ATTN_SHAPE, "bfloat16", 0, None, True)]
+            + [((1, 200, 4, 2, 96), dt, 24, None, True)
                for dt in ("float32", "bfloat16")]
-            + [((1, 256, 4, 2, 64), "bfloat16", 0, 100)])
+            + [(WHISPER_ENC_SHAPE, dt, 0, None, False)
+               for dt in ("float32", "bfloat16")]
+            + [(WHISPER_CROSS_SHAPE, "bfloat16", 0, WHISPER_CROSS_SK,
+                False)])
 
 
-def flash_bwd_bound(shape, products, window=0):
+def flash_bwd_bound(shape, products, window=0, causal=True, sk=None):
     """(ms, bound_by, flop) of ``products`` bf16 products over the visible
     pairs against reading q, k, v, o, dO and the LSE once and writing dq,
     dk, dv once."""
     b, s, h, hkv, d = shape
-    _, _, fwd_flops, _ = flash_bound_ms(shape, "bfloat16", window)
+    sk = sk or s
+    _, _, fwd_flops, _ = flash_bound_ms(shape, "bfloat16", window, causal,
+                                        sk)
     flops = fwd_flops / 2 * products        # the forward is 2 products
-    nbytes = 2 * b * s * d * (3 * h + 2 * hkv) + 2 * b * s * d * (
-        h + 2 * hkv) + 4 * b * h * s
+    nbytes = 2 * b * d * (3 * h * s + 2 * hkv * sk) + 2 * b * d * (
+        h * s + 2 * hkv * sk) + 4 * b * h * s
     t_ops = flops / TENSOR_CORE_BF16_FLOP_S
     t_bytes = nbytes / HBM_BYTES_PER_S
     return max(t_ops, t_bytes) * 1e3, \
@@ -2103,10 +2380,10 @@ def sm_count(torch):
     return torch.cuda.get_device_properties(0).multi_processor_count
 
 
-def plain_grads(torch, q, k, v, do, window):
+def plain_grads(torch, q, k, v, do, window, causal=True):
     from repro_torch.kernels import flash_attention as fa
     leaves = [x.detach().clone().requires_grad_(True) for x in (q, k, v)]
-    out = fa.flash_attention_ref(*leaves, causal=True, window=window)
+    out = fa.flash_attention_ref(*leaves, causal=causal, window=window)
     return torch.autograd.grad(out, leaves, do)
 
 
@@ -2122,8 +2399,9 @@ def sdpa_grads(torch, q, k, v, do):
     return [x.transpose(1, 2) for x in grads]
 
 
-def time_flash_bwd(torch, g, shape, plain_reps):
-    """Cold-L2 device times at one bf16 causal call: the two wrappers
+def time_flash_bwd(torch, g, shape, plain_reps, causal=True, sk=None):
+    """Cold-L2 device times at one bf16 call (non-causal with ``sk`` keys
+    where asked): the two wrappers
     (each the sum of its kernels per call, flash_bwd_dkdv_sum included
     when the call splits) and together, the plain version's backward
     (autograd through flash_attention_ref; skipped for plain_reps = 0)
@@ -2135,9 +2413,9 @@ def time_flash_bwd(torch, g, shape, plain_reps):
     b, s, h, hkv, _ = shape
 
     def one_set():
-        q, k, v = flash_inputs(torch, g, shape, torch.bfloat16)
+        q, k, v = flash_inputs(torch, g, shape, torch.bfloat16, sk)
         do = torch.randn_like(q)
-        o, lse = fa.flash_attention_with_lse(q, k, v, causal=True)
+        o, lse = fa.flash_attention_with_lse(q, k, v, causal=causal)
         return q, k, v, o, do, lse
     first = one_set()
     set_bytes = sum(x.numel() * x.element_size() for x in first)
@@ -2145,7 +2423,7 @@ def time_flash_bwd(torch, g, shape, plain_reps):
     sets = [first] + [one_set() for _ in range(n_sets - 1)]
 
     def kernels(q, k, v, o, do, lse):
-        return fa.flash_attention_bwd(q, k, v, o, do, lse, causal=True)
+        return fa.flash_attention_bwd(q, k, v, o, do, lse, causal=causal)
 
     def graphs(fwd, layout):
         out = []
@@ -2170,16 +2448,15 @@ def time_flash_bwd(torch, g, shape, plain_reps):
                            groups=groups)
     kept.clear()
     sdpa = graphs(lambda q, k, v: F.scaled_dot_product_attention(
-        q, k, v, is_causal=True, enable_gqa=True),
+        q, k, v, is_causal=causal, enable_gqa=True),
         lambda x: x.transpose(1, 2).contiguous())
     prof_l = profile_calls(torch, grad_call(sdpa), 10)
     kept.clear()
     del sdpa
     plain_ms = None
     if plain_reps:
-        plain = graphs(lambda q, k, v: fa.flash_attention_ref(q, k, v,
-                                                              causal=True),
-                       lambda x: x)[:1]
+        plain = graphs(lambda q, k, v: fa.flash_attention_ref(
+            q, k, v, causal=causal), lambda x: x)[:1]
         prof_p = profile_calls(torch, grad_call(plain), plain_reps)
         plain_ms = prof_p["rounded_us_per_call"] / 1e3
         kept.clear()
@@ -2190,17 +2467,19 @@ def time_flash_bwd(torch, g, shape, plain_reps):
     rec = {}
     for name, ms in per.items():
         bound_ms, bound_by, flops = flash_bwd_bound(
-            shape, FLASH_BWD_PRODUCTS[name])
+            shape, FLASH_BWD_PRODUCTS[name], 0, causal, sk)
         rec[name] = {"ms": ms, "bound_ms": bound_ms, "bound_by": bound_by,
                      "bound_share": bound_ms / ms, "gflop": flops / 1e9,
                      "tflop_s": flops / (ms * 1e-3) / 1e12,
                      "kernels": prof_k["group_kernels"][name]}
-    pair_bound, _, pair_flops = flash_bwd_bound(shape,
-                                                FLASH_BWD_PRODUCTS["pair"])
+    pair_bound, _, pair_flops = flash_bwd_bound(
+        shape, FLASH_BWD_PRODUCTS["pair"], 0, causal, sk)
     pair_ms = sum(per.values())
     library_ms = prof_l["rounded_us_per_call"] / 1e3
     return {"shape": list(shape), "dtype": "bfloat16", "window": 0,
-            "splits": fa.dkdv_splits(b, hkv, h // hkv, s, sm_count(torch)),
+            "causal": causal, "sk": sk or s,
+            "splits": fa.dkdv_splits(b, hkv, h // hkv, sk or s,
+                                     sm_count(torch)),
             "kernels": rec, "ms": per, "pair_ms": pair_ms,
             "pair_bound_ms": pair_bound, "pair_bound_share":
                 pair_bound / pair_ms,
@@ -2213,31 +2492,31 @@ def time_flash_bwd(torch, g, shape, plain_reps):
 def phase_flash_bwd(torch):
     """flash_attention's two backward wrappers against autograd through the
     plain version (f32 1e-4, bf16 2e-2) at qwen2-1.5b's prefill and
-    training calls, zamba2-2.7b's training call and at small and odd
-    shapes, each run twice and held to bitwise equality, the forward's LSE
-    against the plain one, SDPA's backward's own error at the prefill call
-    (context, not a gate), the device times at those three calls beside
-    the bound and SDPA's backward, and
-    the bf16 kernels' resources from the CUDA runtime (no local memory at
-    D = 128); returns the two wrappers' records of the {"kernels": ...}
-    line."""
+    training calls, zamba2-2.7b's and phi-3-vision-4.2b's training calls,
+    whisper-medium's non-causal encoder and cross calls and at small and
+    odd shapes, each run twice and held to bitwise equality, the forward's
+    LSE against the plain one, SDPA's backward's own error at the prefill
+    call (context, not a gate), the device times at those six calls beside
+    the bound and SDPA's backward, and the bf16 kernels' resources from
+    the CUDA runtime (no local memory at D = 96 or 128); returns the two
+    wrappers' records of the {"kernels": ...} line."""
     from repro_torch.kernels import _build
     from repro_torch.kernels import flash_attention as fa
     t_phase = time.perf_counter()
     g = torch.Generator(device="cuda").manual_seed(11)
     checks, worst = [], {"flash_bwd_dq": 0.0, "flash_bwd_dkdv": 0.0}
     sdpa_err = None
-    for shape, dt, window, sk in flash_bwd_cases():
+    for shape, dt, window, sk, causal in flash_bwd_cases():
         dtype = getattr(torch, dt)
         q, k, v = flash_inputs(torch, g, shape, dtype, sk)
         do = torch.randn(q.shape, device="cuda", generator=g).to(dtype)
-        o, lse = fa.flash_attention_with_lse(q, k, v, causal=True,
+        o, lse = fa.flash_attention_with_lse(q, k, v, causal=causal,
                                              window=window)
-        got = fa.flash_attention_bwd(q, k, v, o, do, lse, causal=True,
+        got = fa.flash_attention_bwd(q, k, v, o, do, lse, causal=causal,
                                      window=window)
-        again = fa.flash_attention_bwd(q, k, v, o, do, lse, causal=True,
+        again = fa.flash_attention_bwd(q, k, v, o, do, lse, causal=causal,
                                        window=window)
-        want = plain_grads(torch, q, k, v, do, window)
+        want = plain_grads(torch, q, k, v, do, window, causal)
         torch.cuda.synchronize()
         if not all(torch.equal(a, b) for a, b in zip(got, again)):
             raise RuntimeError(f"flash_bwd: two runs at {shape} {dt} "
@@ -2247,7 +2526,7 @@ def phase_flash_bwd(torch):
         for a, b in zip(got, want):
             torch.testing.assert_close(a.float(), b.float(),
                                        **FLASH_BWD_TOL[dt])
-        _, lse_plain = fa.flash_attention_lse_ref(q, k, v, causal=True,
+        _, lse_plain = fa.flash_attention_lse_ref(q, k, v, causal=causal,
                                                   window=window)
         lse_err = float((lse - lse_plain).abs().max())
         torch.testing.assert_close(lse, lse_plain, atol=1e-3, rtol=1e-4)
@@ -2259,7 +2538,8 @@ def phase_flash_bwd(torch):
         worst["flash_bwd_dkdv"] = max(worst["flash_bwd_dkdv"], *errs[1:])
         b, s, h, hkv, _ = shape
         checks.append({"shape": list(shape), "dtype": dt, "window": window,
-                       "sk": sk or s, "max_abs_err_dq_dk_dv": errs,
+                       "sk": sk or s, "causal": causal,
+                       "max_abs_err_dq_dk_dv": errs,
                        "lse_max_abs_err": lse_err,
                        "splits": fa.dkdv_splits(b, hkv, h // hkv, sk or s,
                                                 sm_count(torch))
@@ -2271,16 +2551,22 @@ def phase_flash_bwd(torch):
     t = time_flash_bwd(torch, g, PREFILL_SHAPE, plain_reps=4)
     t_train = time_flash_bwd(torch, g, TRAIN_ATTN_SHAPE, plain_reps=0)
     t_hybrid = time_flash_bwd(torch, g, ZAMBA2_TRAIN_ATTN_SHAPE, plain_reps=0)
-    build = {d: fa.bwd_kernel_info(torch.bfloat16, d) for d in (80, 128)}
-    spilled = {k: v for k, v in build[128].items() if v["local_bytes"]}
+    t_phi3 = time_flash_bwd(torch, g, PHI3_TRAIN_ATTN_SHAPE, plain_reps=0)
+    t_enc = time_flash_bwd(torch, g, WHISPER_ENC_SHAPE, plain_reps=2,
+                           causal=False)
+    t_cross = time_flash_bwd(torch, g, WHISPER_CROSS_SHAPE, plain_reps=2,
+                             causal=False, sk=WHISPER_CROSS_SK)
+    build = {d: fa.bwd_kernel_info(torch.bfloat16, d) for d in (80, 96, 128)}
+    spilled = {(d, k): v for d in (96, 128) for k, v in build[d].items()
+               if v["local_bytes"]}
     if spilled:
-        raise RuntimeError(f"flash_bwd: the bf16 kernels at D = 128 use "
-                           f"local memory (spills): {spilled}")
+        raise RuntimeError(f"flash_bwd: the bf16 kernels at D = 96 or 128 "
+                           f"use local memory (spills): {spilled}")
     # printed as context only: empty when this process found the library
     # already built
     ptxas = {k: v for k, v in ptxas_by_kernel(_build.PTXAS_REPORT.get(
         "flash_attention_bwd", "")).items() if "flash_bwd" in k
-        and ("128" in k or "80" in k or "_sum" in k)}
+        and ("128" in k or "80" in k or "96" in k or "_sum" in k)}
     recs = []
     for name in ("flash_bwd_dq", "flash_bwd_dkdv"):
         k_pre, k_train = t["kernels"][name], t_train["kernels"][name]
@@ -2294,10 +2580,21 @@ def phase_flash_bwd(torch):
             "shape": list(PREFILL_SHAPE), "dtype": "bfloat16",
             "kernels_bf16": list(fa.BWD_KERNELS[torch.bfloat16][name]),
             "splits": t["splits"], "ms_train_call": k_train["ms"],
-            "ms_train_call_d80": t_hybrid["kernels"][name]["ms"]})
+            "ms_train_call_d80": t_hybrid["kernels"][name]["ms"],
+            "calls": {label: {"shape": c["shape"], "causal": c["causal"],
+                              "sk": c["sk"],
+                              "ms": c["kernels"][name]["ms"],
+                              "bound_ms": c["kernels"][name]["bound_ms"],
+                              "bound_by": c["kernels"][name]["bound_by"],
+                              "plain_ms_pair": c["plain_ms"],
+                              "library_ms_pair": c["library_ms"]}
+                      for label, c in (("phi-3-vision-4.2b", t_phi3),
+                                       ("whisper-medium encoder", t_enc),
+                                       ("whisper-medium cross", t_cross))}})
     emit({"phase": "flash_bwd", "checks": checks,
           "prefill_call": t, "train_call": t_train,
-          "train_call_hybrid": t_hybrid,
+          "train_call_hybrid": t_hybrid, "train_call_phi3": t_phi3,
+          "whisper_encoder": t_enc, "whisper_cross": t_cross,
           "sdpa_max_abs_err_dq_dk_dv": sdpa_err,
           "kernels_max_abs_err": worst,
           "prev_ms": FLASH_BWD_PREV_MS,
@@ -2308,7 +2605,7 @@ def phase_flash_bwd(torch):
           "plain": "autograd through flash_attention_ref (dq, dk, dv "
                    "together)",
           "library": "torch.autograd.grad through scaled_dot_product_"
-                     "attention(is_causal=True, enable_gqa=True) on "
+                     "attention(is_causal=causal, enable_gqa=True) on "
                      "(B, H, S, D): dq, dk and dv together",
           "build": build, "ptxas": ptxas,
           "seconds": time.perf_counter() - t_phase})
@@ -2337,6 +2634,7 @@ SSD_TRAIN = {"mamba2-1.3b": (1, 2048, 64, 64, 128, 256),
 SSD_BWD_PREV_MS = {"mamba2-1.3b": 3.118, "zamba2-2.7b": 2.236,
                    "prefill mamba2-1.3b": 13.11}
 ZAMBA2_TRAIN_ATTN_SHAPE = (1, 2048, 32, 32, 80)  # its shared block, training
+PHI3_TRAIN_ATTN_SHAPE = (1, 2048, 32, 32, 96)    # phi-3-vision's, training
 
 
 def ssd_bwd_cases():
@@ -2608,9 +2906,11 @@ def train_launches_expected(cfg, runs, microbatches=None):
     m = cfg.plan.microbatches if microbatches is None else microbatches
     again = 2 if cfg.plan.remat in ("dots", "full") else 1
     ssd = attn = 0
-    if cfg.family == "dense":
+    if cfg.family in ("dense", "moe", "vlm"):
         attn = cfg.num_layers
         attn_fwd = attn * again
+    elif cfg.family == "encdec":   # no remat, as in the reference
+        attn = attn_fwd = cfg.encoder_layers + 2 * cfg.num_layers
     else:
         ssd = cfg.num_layers
         if cfg.family == "hybrid":
@@ -2754,6 +3054,95 @@ def train_cut_check(torch, cfg, phase, batch_shape, conditioned=False):
                 k: leaves[worst_f32][k]
                 for k in ("kernels_f32_from_f64", "plain_f32_from_f64")},
             "f32_tol_rel": TRAIN_CUT_F32_REL, "launches": r["launches"]}
+
+
+def family_cut_check(torch, arch, batch_shape):
+    """One step's loss and gradient of a TRAIN_CUT_LAYERS-layer cut of
+    ``arch`` at full width (the enc-dec family's encoder cut alike) on
+    ``batch_shape`` positions through the kernels and through their plain
+    versions, in bf16 (held per leaf at TRAIN_CUT_REL, norm-relative) and
+    in f32 (TRAIN_CUT_F32_REL); fails on a non-finite loss or a kernel
+    launched other than expected.  The MoE cut runs without remat and its
+    plain run takes the kernels' run's picks (a discrete pick is pinned
+    through its inputs): the slots whose own pick differed are printed."""
+    import dataclasses
+    from repro_torch.data.tokens import TokenPipeline
+    from repro_torch.models import build_model
+    cfg = get_cfg(arch)
+    over = {"num_layers": TRAIN_CUT_LAYERS}
+    if cfg.family == "encdec":
+        over["encoder_layers"] = TRAIN_CUT_LAYERS
+    if cfg.is_moe:
+        over["plan"] = dataclasses.replace(cfg.plan, remat="none")
+    cut = dataclasses.replace(cfg, **over)
+    b, s = batch_shape
+    front = cut.frontend_tokens if cut.family == "vlm" else 0
+    batch = TokenPipeline(
+        b, s - front, cut.vocab_size, frontend_tokens=front,
+        d_model=cut.d_model if front or cut.family == "encdec" else 0,
+        encoder_seq=cut.encoder_seq if cut.family == "encdec" else 0,
+        device="cuda").batch_at(0)
+    params = build_model(cut, device="cuda").init(0)
+    counters = train_launch_counters()
+    out = {}
+    for name, dtype in (("bf16", torch.bfloat16), ("f32", torch.float32)):
+        model = build_model(cut, compute_dtype=dtype, device="cuda")
+        before = {k: c.launches for k, c in counters.items()}
+        (loss_k, _, gk), picks, dropped, _ = moe_routing(
+            torch, lambda: cut_grads(torch, model, params, batch, False))
+        torch.cuda.synchronize()
+        launched = {k: c.launches - before[k] for k, c in counters.items()}
+        (loss_p, _, gp), _, _, differ = moe_routing(
+            torch, lambda: cut_grads(torch, model, params, batch, True),
+            pinned=picks if cut.is_moe else None)
+        rels = leaf_rels(torch, gk, gp)
+        worst = max(rels, key=rels.get)
+        tol = TRAIN_CUT_REL if name == "bf16" else TRAIN_CUT_F32_REL
+        loss_rel = abs(float(loss_k) - float(loss_p)) / abs(float(loss_p))
+        want = train_launches_expected(cut, 1, microbatches=1)
+        if not (np.isfinite(float(loss_k)) and np.isfinite(float(loss_p))):
+            raise RuntimeError(f"train_cuts: {arch} {name}: a non-finite "
+                               f"loss {float(loss_k)}, {float(loss_p)}")
+        bad = {k: v for k, v in rels.items() if not v <= tol}
+        if bad or not loss_rel <= tol:
+            raise RuntimeError(f"train_cuts: {arch} {name}: the kernels "
+                               f"miss the plain versions: loss {loss_rel}, "
+                               f"leaves {bad}")
+        if launched != want:
+            raise RuntimeError(f"train_cuts: {arch} {name}: launched "
+                               f"{launched}, expected {want}")
+        out[name] = {"loss_kernels": float(loss_k),
+                     "loss_plain": float(loss_p), "loss_rel_err": loss_rel,
+                     "grad_rel_err_max": rels[worst],
+                     "grad_rel_err_leaf": worst, "tol_rel": tol,
+                     "launches": launched}
+        if cut.is_moe:
+            out[name]["slots_routed_differently"] = differ
+            out[name]["dropped_slots_per_layer"] = [int(d.sum())
+                                                    for d in dropped]
+        del gk, gp
+    del params
+    torch.cuda.empty_cache()
+    return {"arch": arch, "layers": TRAIN_CUT_LAYERS,
+            "encoder_layers": cut.encoder_layers or None,
+            "batch_x_positions": list(batch_shape),
+            "batch": {k: list(v.shape) for k, v in batch.items()},
+            "remat": "none" if cut.family == "encdec" else cut.plan.remat,
+            **out}
+
+
+def phase_train_cuts(torch):
+    """:func:`family_cut_check` for the MoE, VLM and enc-dec families:
+    olmoe-1b-7b, phi-3-vision-4.2b (its attention backward at head dim 96)
+    and whisper-medium (the non-causal backward at Sk = 1500)."""
+    t_phase = time.perf_counter()
+    cuts = [family_cut_check(torch, arch, shape)
+            for arch, shape in TRAIN_CUTS]
+    emit({"phase": "train_cuts", "cuts": cuts,
+          "reduced": {"layers": TRAIN_CUT_LAYERS,
+                      "why": "one step's gradient at full width, checked "
+                             "against the plain versions in bf16, f32"},
+          "seconds": time.perf_counter() - t_phase})
 
 
 def run_trainer(torch, phase, cfg, batch_shape, steps, trigger_after, port,
@@ -3271,6 +3660,58 @@ def phase_e8(torch):
           "seconds": time.perf_counter() - t_phase})
 
 
+def phase_families(torch, flash_rec, free):
+    """The MoE, VLM and enc-dec families at full width: prefill_moe
+    (olmoe-1b-7b, then mixtral-8x22b cut to MIXTRAL_CUT_LAYERS layers on
+    MIXTRAL_PREFILL_SHAPE tokens), decode_vs_forward_moe and serve on
+    olmoe, prefill_vlm (phi-3-vision-4.2b: 576 image embeddings and 3,520
+    tokens), prefill_encdec (whisper-medium, (2, 448) tokens and (2, 1500,
+    1024) frames), decode_vs_forward_encdec and serve on whisper; each
+    forward's flash_attention launches enforced and added to
+    ``flash_rec``."""
+    import dataclasses
+    olmoe = get_cfg("olmoe-1b-7b")
+    launches, params = phase_prefill(torch, "prefill_moe", olmoe,
+                                     {"flash_attention": olmoe.num_layers})
+    flash_rec["launches_olmoe"] = launches["flash_attention"]
+    phase_decode_vs_forward_moe(torch, olmoe, params)
+    del params
+    free()
+    phase_serve(torch, "olmoe-1b-7b")
+    free()
+    full = get_cfg("mixtral-8x22b")
+    mixtral = dataclasses.replace(full, num_layers=MIXTRAL_CUT_LAYERS)
+    launches, params = phase_prefill(
+        torch, "prefill_moe", mixtral, {"flash_attention": MIXTRAL_CUT_LAYERS},
+        shape=MIXTRAL_PREFILL_SHAPE,
+        extra={"reduced": {"num_layers": [full.num_layers,
+                                          MIXTRAL_CUT_LAYERS],
+                           "params_full": full.param_count(),
+                           "why": "full width on one 80 GB card: 2 layers "
+                                  "are 21.6 GB of f32 weights, 56 would be "
+                                  "563 GB"}})
+    flash_rec["launches_mixtral_cut"] = launches["flash_attention"]
+    del params
+    free()
+    phi3 = get_cfg("phi-3-vision-4.2b")
+    launches, params = phase_prefill(torch, "prefill_vlm", phi3,
+                                     {"flash_attention": phi3.num_layers})
+    flash_rec["launches_phi3"] = launches["flash_attention"]
+    del params
+    free()
+    whisper = get_cfg("whisper-medium")
+    launches, params = phase_prefill(
+        torch, "prefill_encdec", whisper,
+        {"flash_attention": whisper.encoder_layers + 2 * whisper.num_layers},
+        shape=WHISPER_PREFILL_SHAPE)
+    flash_rec["launches_whisper"] = launches["flash_attention"]
+    phase_decode_vs_forward_encdec(torch, whisper, params)
+    del params
+    free()
+    phase_serve(torch, "whisper-medium")
+    free()
+
+
 def main() -> int:
     import torch
     if sys.argv[1:2] == ["--mesh-worker"]:
@@ -3302,6 +3743,7 @@ def main() -> int:
         phase_ssd_bwd(torch)
         phase_train_ssm(torch, "train_ssm", "mamba2-1.3b")
         phase_train_ssm(torch, "train_hybrid", "zamba2-2.7b")
+        phase_train_cuts(torch)
         return 0
     pid_rec = phase_kernel(torch)
     flash_rec = phase_flash_kernel(torch)
@@ -3340,6 +3782,7 @@ def main() -> int:
                             params, 256, hybrid)
     del params
     free()
+    phase_families(torch, flash_rec, free)
     bwd_recs = phase_flash_bwd(torch)
     free()
     train = phase_train(torch)
@@ -3352,6 +3795,8 @@ def main() -> int:
     ssm = phase_train_ssm(torch, "train_ssm", "mamba2-1.3b")
     free()
     hybrid = phase_train_ssm(torch, "train_hybrid", "zamba2-2.7b")
+    free()
+    phase_train_cuts(torch)
     free()
     for rec in bwd_recs:
         rec["launches"] = train_launches[rec["name"]]

@@ -133,7 +133,9 @@ def bid_ensemble(d: dict, device="cuda") -> BidEnsemble:
 def model_params(params: dict, device="cuda") -> dict:
     """A reference model's parameter pytree (nested dicts of numpy
     arrays, layer-stacked as the reference stores them) as the same
-    nested dict of tensors, dtypes kept."""
+    nested dict of tensors, dtypes kept: every family's tree, the MoE
+    layers' ``router``/``moe_*`` leaves, the VLM's ``frontend_proj`` and
+    the enc-dec family's ``enc``/``dec`` stacks and norms included."""
     dev = resolve_device(device)
     return {k: model_params(v, dev) if isinstance(v, dict)
             else torch.as_tensor(np.array(v), device=dev)
@@ -142,8 +144,9 @@ def model_params(params: dict, device="cuda") -> dict:
 
 def decode_cache(cache: dict, device="cuda") -> dict:
     """A reference decode cache (``k``/``v``/``pos_buf``, ``ssm``/``conv``
-    or both, and ``cur``, as numpy) as the port's: tensors with their
-    dtypes kept, ``cur`` a Python int."""
+    or both, the enc-dec family's cross ``xk``/``xv``, and ``cur``, as
+    numpy) as the port's: tensors with their dtypes kept, ``cur`` a
+    Python int."""
     dev = resolve_device(device)
     out = {k: torch.as_tensor(np.array(v), device=dev)
            for k, v in cache.items() if k != "cur"}

@@ -24,10 +24,12 @@ from repro_torch import resolve_device
 
 
 def synthetic_batch(seed: int, step: int, batch: int, seq: int,
-                    vocab: int) -> dict:
-    """One batch of synthetic tokens on the CPU: (batch, seq) int32.  The
-    reference's frontend embeddings and encoder frames come with the VLM
-    and enc-dec families (ROADMAP A13c)."""
+                    vocab: int, frontend_tokens: int = 0, d_model: int = 0,
+                    encoder_seq: int = 0) -> dict:
+    """One batch of synthetic data on the CPU: (batch, seq) int32 tokens
+    and, as the reference draws them, the VLM's ``embeds`` (batch,
+    frontend_tokens, d_model) or the enc-dec family's ``frames`` (batch,
+    encoder_seq, d_model): 0.02 x standard normals, float32."""
     lanes = rnd.lanes((batch, seq), "cpu")
     u = rnd.uniform(seed, rnd.TOKEN_ZIPF, step, lanes)
     u = 1e-6 + (1.0 - 1e-6) * u          # the reference's [1e-6, 1)
@@ -35,8 +37,14 @@ def synthetic_batch(seed: int, step: int, batch: int, seq: int,
                          vocab - 1).to(torch.int32)
     # short-range structure: repeat the previous token 25 % of the time
     rep = rnd.uniform(seed, rnd.TOKEN_REPEAT, step, lanes) < 0.25
-    return {"tokens": torch.where(rep, torch.roll(tokens, 1, dims=1),
-                                  tokens)}
+    out = {"tokens": torch.where(rep, torch.roll(tokens, 1, dims=1),
+                                 tokens)}
+    for key, n in (("embeds", frontend_tokens), ("frames", encoder_seq)):
+        if n and d_model:
+            out[key] = 0.02 * rnd.normal(seed, rnd.TOKEN_FRONTEND, step,
+                                         rnd.lanes((batch, n, d_model),
+                                                   "cpu"))
+    return out
 
 
 @dataclass
@@ -44,29 +52,39 @@ class TokenPipeline:
     """Seekable, prefetching synthetic-token source.
 
     ``seed`` + ``step`` fully determine a batch, so an elastic restore
-    needs no data state beyond the step counter.  ``tokens`` overrides
-    the draws: a callable ``step -> (batch, seq)`` array (the reference's
-    batches, in parity tests).
+    needs no data state beyond the step counter.  ``frontend_tokens``,
+    ``d_model`` and ``encoder_seq`` add the VLM's embeds or the enc-dec
+    family's frames, as in the reference.  ``tokens`` overrides the
+    draws: a callable ``step -> (batch, seq)`` token array, or ``step ->``
+    a dict of arrays with ``"tokens"`` and the batch's ``"embeds"`` or
+    ``"frames"`` (the reference's batches, in parity tests).
     """
 
     batch: int
     seq: int
     vocab: int
     seed: int = 0
+    frontend_tokens: int = 0
+    d_model: int = 0
+    encoder_seq: int = 0
     prefetch: int = 2
     device: str = "cuda"
-    tokens: Optional[Callable[[int], np.ndarray]] = None
+    tokens: Optional[Callable[[int], "np.ndarray | dict"]] = None
 
     def __post_init__(self):
         self.device = resolve_device(self.device)
 
     def batch_at(self, step: int) -> dict:
         if self.tokens is not None:
-            b = {"tokens": torch.as_tensor(np.asarray(self.tokens(step)),
-                                           dtype=torch.int32)}
+            got = self.tokens(step)
+            got = got if isinstance(got, dict) else {"tokens": got}
+            b = {k: torch.as_tensor(np.asarray(v), dtype=torch.int32
+                                    if k == "tokens" else torch.float32)
+                 for k, v in got.items()}
         else:
             b = synthetic_batch(self.seed, step, self.batch, self.seq,
-                                self.vocab)
+                                self.vocab, self.frontend_tokens,
+                                self.d_model, self.encoder_seq)
         return {k: v.to(self.device) for k, v in b.items()}
 
     def iterate(self, start_step: int = 0) -> Iterator[dict]:

@@ -46,8 +46,11 @@
 // (no repeated K/V), and ragged Sq and Sk are handled in the kernel (no
 // padded copies): rows >= Sq are not stored, columns >= Sk are masked
 // explicitly -- the TPU kernel leaves them to the causal mask, which
-// does not hide them when Sq > Sk.  A row that sees no key at all
-// (Sq > Sk + window) gets zeros from the bf16 kernel.
+// does not hide them when Sq > Sk, and refuses a non-causal call whose Sk
+// its kv block would pad; here a non-causal call takes any Sk (whisper's
+// encoder and cross-attention: Sk = 1500), its last kv tile's rows past
+// Sk zero-filled by TMA and masked, not scored as 0.  A row that sees no
+// key at all (Sq > Sk + window) gets zeros from the bf16 kernel.
 //
 // Plain C interface, loaded with ctypes: flash_attention_launch returns
 // the cudaError_t of the launch (0 on success); a shape, type or head
@@ -231,7 +234,8 @@ __global__ void __launch_bounds__(kF32Threads)
 //
 // Tiles land in shared memory in swizzled column blocks (hopper.cuh); at
 // D = 80 five 16-column blocks with the 32-byte swizzle, since
-// zero-filling to 128 columns would cost 1.6x the tensor work.
+// zero-filling to 128 columns would cost 1.6x the tensor work; at D = 96
+// three 32-column blocks with the 64-byte swizzle, P V an m64n96k16.
 //
 // Why no producer warp: with a producer warpgroup beside the two (384
 // threads), ptxas (CUDA 12.9) held every thread to 168 registers with or
@@ -244,10 +248,10 @@ struct Geo : Swizzle<D> {
   static constexpr int BQ = 128, BK = 128;
   static constexpr int Q_BYTES = BQ * D * 2;
   static constexpr int KV_BYTES = BK * D * 2;  // one of K, V
-  // as many stages as fit (3 at D = 128, 5 at D = 80), at most 4; each
-  // stage has a full barrier and a counter, then the q-tile's barrier,
-  // and 1024 bytes of slack align the base to the 128-byte swizzle's
-  // period, which TMA and the descriptors assume
+  // as many stages as fit (3 at D = 128, 4 at D = 96, 5 at D = 80), at
+  // most 4; each stage has a full barrier and a counter, then the
+  // q-tile's barrier, and 1024 bytes of slack align the base to the
+  // 128-byte swizzle's period, which TMA and the descriptors assume
   static constexpr int STAGES_FIT =
       (kSmemMax - 1024 - 8 - Q_BYTES) / (2 * KV_BYTES + 16);
   static constexpr int STAGES = STAGES_FIT < 4 ? STAGES_FIT : 4;
@@ -585,6 +589,7 @@ extern "C" int flash_attention_launch(
     case 32: err = launch<32>(dtype, q, k, v, o, B, H, st, p, s); break;
     case 64: err = launch<64>(dtype, q, k, v, o, B, H, st, p, s); break;
     case 80: err = launch<80>(dtype, q, k, v, o, B, H, st, p, s); break;
+    case 96: err = launch<96>(dtype, q, k, v, o, B, H, st, p, s); break;
     case 128: err = launch<128>(dtype, q, k, v, o, B, H, st, p, s); break;
     default: err = cudaErrorInvalidValue;
   }
@@ -600,6 +605,7 @@ extern "C" int flash_attention_kernel_info(int dtype, int D, int* info) {
     case 32: return info_of<32>(dtype, info);
     case 64: return info_of<64>(dtype, info);
     case 80: return info_of<80>(dtype, info);
+    case 96: return info_of<96>(dtype, info);
     case 128: return info_of<128>(dtype, info);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }

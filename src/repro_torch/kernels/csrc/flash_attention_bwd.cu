@@ -18,7 +18,7 @@
 // dk and dv sum over the H / Hkv query heads of that group.
 //
 // Two halves after FlashAttention-2's split, a fixed function of the
-// dtype at every head dim of the forward (16, 32, 64, 80, 128):
+// dtype at every head dim of the forward (16, 32, 64, 80, 96, 128):
 //  - dq: one block per (b, h, 64-row q-tile).  It writes delta for its
 //    rows, then walks the kv tiles its rows can see, recomputing S and P
 //    from the LSE, and accumulates dq.
@@ -85,7 +85,10 @@
 //    training call and 0.81 / 0.47 / 0.51 / 0.52 ms at (2, 4096) for 1
 //    / 2 / 3 / 6 parts: the rule's 3 and 2.
 //  Lowest causal kv tiles and heaviest q-tiles go first.  TMA's zero fill
-//  stands in for rows >= Sq and >= Sk, which the masks also drop.
+//  stands in for rows >= Sq and >= Sk, which the masks also drop, so a
+//  non-causal call takes any Sk (whisper's Sk = 1500): no dk or dv row
+//  >= Sk is written.  At D = 96 the tiles are three 32-column blocks
+//  with the 64-byte swizzle and dQ, dK, dV are m64n96k16 products.
 //
 // float32: flash_bwd_dq and flash_bwd_dkdv, scalar float32 FMAs from
 // shared memory (a float32 product on the tensor cores would be TF32 and
@@ -990,6 +993,7 @@ cudaError_t launch_dkdv_bf16(const void* q, const void* k, const void* v,
     case 32: return CALL(32);                                        \
     case 64: return CALL(64);                                        \
     case 80: return CALL(80);                                        \
+    case 96: return CALL(96);                                        \
     case 128: return CALL(128);                                      \
     default: return cudaErrorInvalidValue;                           \
   }

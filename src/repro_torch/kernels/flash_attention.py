@@ -11,10 +11,12 @@ head dim goes to ``flash_fwd_tma`` (TMA ring, wgmma), float32 to
 
 q is (B, Sq, H, D), k and v are (B, Sk, Hkv, D) with H % Hkv == 0 (GQA:
 query head h reads kv head h // (H // Hkv)).  Masks: causal (row >= col)
-and, for ``window > 0``, row - col < window.  The output is (B, Sq, H, D)
-in q's dtype.  A query row that sees no key at all (possible only when
-Sq > Sk + window) gets zeros from the bf16 kernel, where the plain version
-averages every value row; the model never makes such a call (Sq == Sk).
+and, for ``window > 0``, row - col < window; none for ``causal=False``
+(whisper's encoder and cross-attention), at any Sk.  The output is
+(B, Sq, H, D) in q's dtype.  A query row that sees no key at all
+(possible only when Sq > Sk + window) gets zeros from the bf16 kernel,
+where the plain version averages every value row; the model never makes
+such a call (Sq == Sk, or non-causal).
 
 :func:`flash_attention` launches the kernel on CUDA tensors and raises on
 anything else; :func:`flash_attention_ref` is the same function as dense
@@ -56,11 +58,10 @@ import torch
 from repro_torch.kernels import _build
 
 NEG_INF = -1e30
-HEAD_DIMS = (16, 32, 64, 80, 128)
+HEAD_DIMS = (16, 32, 64, 80, 96, 128)
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 # the kernel each dtype launches, at every head dim (csrc/flash_attention.cu)
 KERNELS = {torch.float32: "flash_fwd_f32", torch.bfloat16: "flash_fwd_tma"}
-BLOCK_K = 128  # the TPU kernel's kv block, which sets its padding contract
 # the kernels each backward wrapper launches, per dtype, at every head dim
 # (csrc/flash_attention_bwd.cu); flash_bwd_dkdv_sum only when
 # dkdv_splits(...) > 1
@@ -78,10 +79,11 @@ DKDV_BLOCKS_PER_SM = 2
 H100_SMS = 132
 
 
-def check_args(q, k, v, *, causal: bool, window: int) -> None:
+def check_args(q, k, v, *, window: int) -> None:
     """Shape contract shared by both versions: 4-D (B, S, H, D) tensors of
-    one dtype, H % Hkv == 0, and -- the TPU kernel's contract, kept --
-    no non-causal call whose Sk its kv block would have to pad."""
+    one dtype, H % Hkv == 0, window >= 0.  The TPU kernel also refuses a
+    non-causal call whose Sk its 128-row kv block would pad; the port
+    masks the columns >= Sk in both versions and takes any Sk."""
     if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
         raise ValueError("flash_attention takes (B, S, H, D) tensors, got "
                          f"{tuple(q.shape)}, {tuple(k.shape)}, "
@@ -95,12 +97,6 @@ def check_args(q, k, v, *, causal: bool, window: int) -> None:
                          f"{k.shape[2]} kv heads")
     if not q.dtype == k.dtype == v.dtype:
         raise ValueError(f"mixed dtypes {q.dtype}, {k.dtype}, {v.dtype}")
-    sk = k.shape[1]
-    block_k = min(BLOCK_K, max(sk, 8))
-    if not causal and sk % block_k:
-        raise NotImplementedError(
-            "non-causal attention with Sk not a multiple of the kv block "
-            f"({sk} % {block_k}) needs an explicit kv mask")
     if window < 0:
         raise ValueError(f"window must be >= 0, got {window}")
 
@@ -108,7 +104,7 @@ def check_args(q, k, v, *, causal: bool, window: int) -> None:
 def flash_attention_ref(q, k, v, *, causal: bool = True, window: int = 0):
     """Plain torch version: dense masked softmax in float32, output in
     q.dtype."""
-    check_args(q, k, v, causal=causal, window=window)
+    check_args(q, k, v, window=window)
     return _out_ref(_scores_ref(q, k, causal, window), v).to(q.dtype)
 
 
@@ -118,7 +114,7 @@ def flash_attention_lse_ref(q, k, v, *, causal: bool = True,
     q.dtype, lse (B, H, Sq) float32 of the scaled scores over the visible
     columns; -1e30 plus the log of Sk for a row that sees no key, whose
     masked columns all weigh the same)."""
-    check_args(q, k, v, causal=causal, window=window)
+    check_args(q, k, v, window=window)
     s = _scores_ref(q, k, causal, window)
     return _out_ref(s, v).to(q.dtype), torch.logsumexp(s, dim=-1)
 
@@ -158,7 +154,7 @@ def flash_attention_bwd_ref(q, k, v, o, do, lse, *, causal: bool = True,
     dq = dS k scale, dk = dS^T q scale and dv = P^T dO, each summed over
     the query heads of a GQA group.  Equal to autograd through
     :func:`flash_attention_ref` wherever every row sees a key."""
-    check_args(q, k, v, causal=causal, window=window)
+    check_args(q, k, v, window=window)
     b, sq, h, d = q.shape
     sk, hkv = k.shape[1], k.shape[2]
     rep, scale = h // hkv, 1.0 / math.sqrt(d)
@@ -202,7 +198,7 @@ def flash_bwd_dkdv_split_ref(q, k, v, do, lse, delta, *, splits: int,
     (splits, B, Sk, Hkv, D), which are added in split order, as
     ``flash_bwd_dkdv_sum`` adds them.  delta is rowsum(dO o) (B, H, Sq).
     Returns (dk, dv) in k's dtype."""
-    check_args(q, k, v, causal=causal, window=window)
+    check_args(q, k, v, window=window)
     b, sq, h, d = q.shape
     sk, hkv = k.shape[1], k.shape[2]
     group, scale = h // hkv, 1.0 / math.sqrt(d)
@@ -280,8 +276,8 @@ def _check_cuda_layout(x, name: str, dev) -> None:
 
 def flash_attention(q, k, v, *, causal: bool = True, window: int = 0):
     """Launch the CUDA kernel: q (B, Sq, H, D), k and v (B, Sk, Hkv, D),
-    float32 or bfloat16 on one CUDA device, D in 16/32/64/80/128, the head
-    dim contiguous.  Returns (B, Sq, H, D) in q's dtype.
+    float32 or bfloat16 on one CUDA device, D in 16/32/64/80/96/128, the
+    head dim contiguous.  Returns (B, Sq, H, D) in q's dtype.
 
     Adds one to ``flash_attention.launches`` for each launch.  Raises on
     a CPU tensor, another dtype, head dim or layout, or a launch the
@@ -298,11 +294,11 @@ def flash_attention_with_lse(q, k, v, *, causal: bool = True,
     return _forward(q, k, v, causal, window, want_lse=True)
 
 
-def _check_cuda(q, k, v, causal, window, name):
+def _check_cuda(q, k, v, window, name):
     dev = q.device
     if dev.type != "cuda":
         raise ValueError(f"{name} launches on CUDA tensors, got {dev}")
-    check_args(q, k, v, causal=causal, window=window)
+    check_args(q, k, v, window=window)
     if q.dtype not in DTYPES:
         raise ValueError(f"{name} takes float32 or bfloat16, got {q.dtype}")
     if q.shape[3] not in HEAD_DIMS:
@@ -312,7 +308,7 @@ def _check_cuda(q, k, v, causal, window, name):
 
 
 def _forward(q, k, v, causal, window, want_lse):
-    _check_cuda(q, k, v, causal, window, "flash_attention")
+    _check_cuda(q, k, v, window, "flash_attention")
     dev = q.device
     b, sq, h, d = q.shape
     sk, hkv = k.shape[1], k.shape[2]
@@ -406,7 +402,7 @@ def flash_bwd_dq(q, k, v, o, do, lse, *, causal: bool = True,
     q, k, v, o and dO of one dtype, lse from the forward.  Returns (dq in
     q's dtype, delta = rowsum(dO o) as (B, H, Sq) float32), and adds one
     to ``flash_bwd_dq.launches``."""
-    _check_cuda(q, k, v, causal, window, "flash_bwd_dq")
+    _check_cuda(q, k, v, window, "flash_bwd_dq")
     _check_bwd((q, k, v, o, do), q, (lse,), "flash_bwd_dq")
     if o.shape != q.shape or do.shape != q.shape:
         raise ValueError(f"o {tuple(o.shape)} and dO {tuple(do.shape)} must "
@@ -433,7 +429,7 @@ def flash_bwd_dkdv(q, k, v, do, lse, delta, *, causal: bool = True,
     ``flash_bwd_dkdv.launches``.  In bf16 with ``dkdv_splits`` > 1 it
     allocates the float32 partials (2, splits, B, Sk, Hkv, D) and the
     call also launches ``flash_bwd_dkdv_sum``."""
-    _check_cuda(q, k, v, causal, window, "flash_bwd_dkdv")
+    _check_cuda(q, k, v, window, "flash_bwd_dkdv")
     _check_bwd((q, k, v, do), q, (lse, delta), "flash_bwd_dkdv")
     if do.shape != q.shape:
         raise ValueError(f"dO {tuple(do.shape)} must have q's shape "

@@ -30,8 +30,7 @@ def _needs_grad(*tensors) -> bool:
 
 def flash_attention(q, k, v, *, causal: bool = True, window: int = 0):
     """Blocked attention forward: q (B, Sq, H, D), k and v (B, Sk, Hkv, D)
-    -> (B, Sq, H, D) in q's dtype.  Non-causal with Sk not a multiple of
-    the kv block raises ``NotImplementedError`` on either device."""
+    -> (B, Sq, H, D) in q's dtype; ``causal=False`` takes any Sk."""
     if q.device.type == "cpu":
         return flash_attention_ref(q, k, v, causal=causal, window=window)
     return FlashAttentionFn.apply(q, k, v, causal, window,

@@ -5,7 +5,9 @@ the port of ``repro.launch.serve``.
 
 Serves the reduced config on one card: prefill a batch of prompts by
 teacher-forcing them through the decode step, then decode tokens step by
-step.  With --gridpilot, an FFR trigger fired mid-decode sheds the token
+step.  An enc-dec arch (whisper-medium) first encodes a batch of frames
+drawn from the run's generator and fills the cache's cross K/V from the
+encoder's output.  With --gridpilot, an FFR trigger fired mid-decode sheds the token
 budget (batch thinning) within one decode step -- the serving-side
 analogue of the trainer's duty-cycle shed.
 
@@ -77,6 +79,15 @@ def run_serve(args, *, cfg=None, device="cuda") -> dict:
         with trace.span("serve.prefill", arch=args.arch, batch=b,
                         prompt_len=s):
             cache = model.init_cache(b, total)
+            if cfg.family == "encdec":
+                from repro_torch.models import encdec as encdec_lib
+                frames = 0.02 * torch.randn(b, cfg.encoder_seq, cfg.d_model,
+                                            generator=gen, device=dev)
+                with torch.no_grad():
+                    enc = encdec_lib.encode(cfg, params, frames,
+                                            dtype=torch.float32)
+                    cache["xk"], cache["xv"] = \
+                        encdec_lib.precompute_cross_kv(cfg, params, enc)
             for i in range(s):
                 _, cache = model.decode_step(params, cache, tokens[:, i])
             _sync(dev)

@@ -11,6 +11,7 @@ import dataclasses
 import math
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
 from repro_torch.sharding.rules import (P, axis_sizes, entry_size,
@@ -61,6 +62,14 @@ def init_tree(specs, generator: torch.Generator, device):
             else init_tree(s, generator, device) for k, s in specs.items()}
 
 
+def shapes_tree(specs):
+    """Nested dict of ParamSpec -> the same dict of TensorSpec (no
+    allocation)."""
+    return {k: TensorSpec(tuple(s.shape), s.dtype)
+            if isinstance(s, ParamSpec) else shapes_tree(s)
+            for k, s in specs.items()}
+
+
 # ---------------------------------------------------------------------------
 # Sharding helper
 # ---------------------------------------------------------------------------
@@ -107,6 +116,16 @@ def rmsnorm(x, scale, eps=1e-5):
     return (x * scale.float()).to(dt)
 
 
+def layernorm(x, scale, bias, eps=1e-5):
+    """Layer norm computed in float32, returned in x's dtype."""
+    dt = x.dtype
+    x = x.float()
+    mu = torch.mean(x, dim=-1, keepdim=True)
+    var = torch.mean((x - mu) ** 2, dim=-1, keepdim=True)
+    y = (x - mu) * torch.rsqrt(var + eps)
+    return (y * scale.float() + bias.float()).to(dt)
+
+
 # ---------------------------------------------------------------------------
 # RoPE
 # ---------------------------------------------------------------------------
@@ -128,6 +147,20 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
     x1, x2 = x.float().chunk(2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
     return out.to(x.dtype)
+
+
+def sinusoidal_positions(seq: int, d_model: int,
+                         device=None) -> torch.Tensor:
+    """Whisper-style fixed sinusoidal embeddings (S, d_model) float32, with
+    the reference's divisor d_model / 2 - 1: computed in float64 with
+    numpy, as the reference computes them, so both give the same bits."""
+    pos = np.arange(seq)[:, None]
+    dim = np.arange(d_model // 2)[None, :]
+    inv = 1.0 / (10_000 ** (dim / max(d_model // 2 - 1, 1)))
+    ang = pos * inv
+    return torch.as_tensor(np.concatenate([np.sin(ang), np.cos(ang)],
+                                          axis=-1), dtype=torch.float32,
+                           device=device)
 
 
 # ---------------------------------------------------------------------------
@@ -223,3 +256,10 @@ def gated_mlp(x, wi, wg, wo):
     h = x @ wi
     g = x @ wg
     return (torch.nn.functional.silu(g) * h) @ wo
+
+
+def gelu_mlp(x, w1, b1, w2, b2):
+    """GELU MLP with biases; the reference's GELU is the tanh form
+    (``jax.nn.gelu(approximate=True)``), not torch's default erf."""
+    h = torch.nn.functional.gelu(x @ w1 + b1, approximate="tanh")
+    return h @ w2 + b2

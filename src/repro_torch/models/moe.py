@@ -1,0 +1,172 @@
+"""Mixture-of-Experts FFN, GShard-style capacity dispatch: the port of
+``repro.models.moe``.
+
+Training and prefill use the reference's formulation step by step: the
+router product in float32, its softmax, the Switch load-balancing aux
+loss, top-k gates renormalised, each (token, slot)'s position in its
+expert's capacity buffer from a cumsum in (k, s) order (so lower k-slots
+win across the dispatch group), slots past the capacity dropped, then
+one-hot ``dispatch`` and ``combine`` tensors (G, S, E, C) in x's dtype
+and four einsums: dispatch, the two expert input products, the expert
+output product, combine.  The expert products are batched over the
+experts (``bmm``), outside any kernel of the port.  ``dispatch`` and
+``combine`` are scattered straight from the routing -- a token's k slots
+name k distinct experts, so each (token, expert, position) holds at most
+one slot and the reference's sum over k of one-hots is that one value --
+without its (G, S, k, E, C) intermediate.  Decode uses dense
+all-experts compute, exact (no capacity drops).
+
+Ties in the top-k and in the aux loss's argmax go to the lower expert
+index, as ``jax.lax.top_k`` and ``jnp.argmax`` give them: the top-k is a
+stable descending sort, and its first pick is the argmax.
+
+The reference's ``shard`` calls on the expert tensors are not threaded
+(ROADMAP 11c).
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+
+from repro_torch.models.layers import ParamSpec
+
+CAPACITY_FACTOR = 1.25
+GROUP_SIZE = 2048  # tokens per dispatch group
+
+
+def moe_specs(cfg, n_layers: int, dtype) -> dict:
+    d, f, e = cfg.d_model, cfg.d_ff, cfg.n_experts
+    L = (n_layers,)
+    return {
+        "router": ParamSpec(L + (d, e), ("layers", "embed", None), dtype),
+        "moe_wi": ParamSpec(L + (e, d, f),
+                            ("layers", "experts", "embed", "moe_mlp"), dtype),
+        "moe_wg": ParamSpec(L + (e, d, f),
+                            ("layers", "experts", "embed", "moe_mlp"), dtype),
+        "moe_wo": ParamSpec(L + (e, f, d),
+                            ("layers", "experts", "moe_mlp", "embed"), dtype),
+    }
+
+
+def _capacity(tokens_per_group: int, n_experts: int, top_k: int) -> int:
+    c = int(math.ceil(CAPACITY_FACTOR * top_k * tokens_per_group / n_experts))
+    return max(4, int(math.ceil(c / 4) * 4))
+
+
+def route(router, x, top_k: int, topi=None):
+    """(gates (..., E) float32, topv (..., k) renormalised, topi (..., k))
+    of tokens ``x`` (..., D) through ``router`` (D, E), the product in
+    float32.  ``topi`` pins the picks (a test feeds the reference's
+    routing where the two frameworks' last-bit gates would pick apart):
+    its gates are then gathered from this router's softmax."""
+    logits = x.float() @ router.float()
+    gates = torch.softmax(logits, dim=-1)
+    if topi is None:
+        # stable: equal gates keep their order, so ties go to the lower
+        # expert index
+        topi = torch.sort(gates, dim=-1, descending=True,
+                          stable=True).indices[..., :top_k]
+    topv = torch.gather(gates, -1, topi)
+    topv = topv / torch.clamp(topv.sum(-1, keepdim=True), min=1e-9)
+    return gates, topv, topi
+
+
+def capacity_positions(topi, n_experts: int, cap: int):
+    """(pos, in_cap), each (G, S, k): the position of each (token, slot)
+    in its expert's buffer, counted over the group in (k, s) order, and
+    whether it lies inside the capacity ``cap``."""
+    g, s, k = topi.shape
+    mask = torch.nn.functional.one_hot(topi.long(), n_experts)  # (G,S,k,E)
+    # (G, E, k S): the count runs along the innermost dim, where a scan
+    # is one pass (along the outer dim torch's scan took 6.3 ms a layer
+    # at olmoe-1b-7b's prefill on an H100)
+    flat = mask.permute(0, 3, 2, 1).reshape(g, n_experts, k * s)
+    pos = (torch.cumsum(flat, dim=-1) - 1).reshape(g, n_experts, k, s) \
+        .permute(0, 3, 2, 1)                                 # (G,S,k,E)
+    pos = torch.gather(pos, -1, topi.long()[..., None])[..., 0]
+    return pos, pos < cap
+
+
+def dispatch_combine(topi, topv, n_experts: int, cap: int, dtype):
+    """The one-hot ``dispatch`` and ``combine`` tensors (G, S, E, C) in
+    ``dtype`` of a group's routing: slot j of token s sets (topi, pos) to
+    1, or to its gate in ``combine``, where pos lies inside ``cap``."""
+    g, s, _ = topi.shape
+    pos, in_cap = capacity_positions(topi, n_experts, cap)
+    col = topi.long() * cap + torch.where(in_cap, pos, 0)
+    keep = in_cap.to(dtype)
+    zeros = torch.zeros(g, s, n_experts * cap, dtype=dtype,
+                        device=topi.device)
+    dispatch = zeros.scatter(-1, col, keep).reshape(g, s, n_experts, cap)
+    combine = zeros.scatter(-1, col, keep * topv.to(dtype)) \
+        .reshape(g, s, n_experts, cap)
+    return dispatch, combine
+
+
+def moe_ffn(cfg, lp: dict, x, *, topi=None):
+    """x: (B, S, D) -> (out (B, S, D), aux loss float32 scalar), capacity
+    dispatch over groups of GROUP_SIZE tokens.  ``topi`` (G, S, k) pins
+    the routing (see :func:`route`)."""
+    b, s, d = x.shape
+    e, k = cfg.n_experts, cfg.top_k
+    tokens = b * s
+    sg = min(GROUP_SIZE, tokens)
+    g = tokens // sg
+    if tokens % sg:
+        raise ValueError(f"{tokens} tokens do not split into dispatch "
+                         f"groups of {sg}")
+    xg = x.reshape(g, sg, d)
+    gates, topv, topi = route(lp["router"], xg, k, topi)
+
+    # load-balancing auxiliary loss (Switch-style); topi[..., 0] is the
+    # argmax of the gates
+    me = gates.mean(dim=(0, 1))
+    ce = torch.nn.functional.one_hot(topi[..., 0].long(), e).float() \
+        .mean(dim=(0, 1))
+    aux = e * torch.sum(me * ce)
+
+    dispatch, combine = dispatch_combine(topi, topv, e, _capacity(sg, e, k),
+                                         x.dtype)
+    xe = torch.einsum("gsec,gsd->egcd", dispatch, xg)
+    del dispatch
+    h = torch.einsum("egcd,edf->egcf", xe, lp["moe_wi"])
+    gt = torch.einsum("egcd,edf->egcf", xe, lp["moe_wg"])
+    del xe
+    h = torch.nn.functional.silu(gt) * h
+    del gt
+    ye = torch.einsum("egcf,efd->egcd", h, lp["moe_wo"])
+    del h
+    y = torch.einsum("egcd,gsec->gsd", ye, combine)
+    return y.reshape(b, s, d), aux.float()
+
+
+def dropped_slots(cfg, lp: dict, x):
+    """(B, S) int: how many of each token's k slots the capacity drops
+    when ``x`` (B, S, D) enters this layer (the forward's routing, without
+    its products)."""
+    b, s, d = x.shape
+    sg = min(GROUP_SIZE, b * s)
+    _, _, topi = route(lp["router"], x.reshape(b * s // sg, sg, d),
+                       cfg.top_k)
+    _, in_cap = capacity_positions(topi, cfg.n_experts,
+                                   _capacity(sg, cfg.n_experts, cfg.top_k))
+    return (~in_cap).sum(-1).reshape(b, s)
+
+
+def moe_ffn_decode(cfg, lp: dict, x, *, topi=None):
+    """x: (B, D) single-token MoE: the dense all-experts weighted combine.
+
+    Exact (no capacity drops).  At decode every expert's weights are read
+    once either way, so the extra products cost little on the
+    memory-bound step.  ``topi`` (B, k) pins the routing (see
+    :func:`route`)."""
+    e, k = cfg.n_experts, cfg.top_k
+    _, topv, topi = route(lp["router"], x, k, topi)
+    w = torch.zeros(x.shape[0], e, dtype=topv.dtype, device=x.device) \
+        .scatter(-1, topi, topv)                        # (B, E) sparse
+    h = torch.einsum("bd,edf->ebf", x, lp["moe_wi"])
+    g = torch.einsum("bd,edf->ebf", x, lp["moe_wg"])
+    h = torch.nn.functional.silu(g) * h
+    y = torch.einsum("ebf,efd->ebd", h, lp["moe_wo"])
+    return torch.einsum("ebd,be->bd", y, w.to(x.dtype))

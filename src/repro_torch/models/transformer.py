@@ -1,5 +1,5 @@
-"""Decoder-only LM, dense, SSM and hybrid families: the port of
-``repro.models.transformer``.
+"""Decoder-only LM, the dense, MoE, SSM, hybrid and VLM families: the port
+of ``repro.models.transformer``.
 
 Parameters are stacked over layers, as the reference stores them (the
 hybrid family over (n_chunks, period) with one ``shared`` attention+MLP
@@ -12,22 +12,29 @@ state) in a dict of tensors that ``lm_decode_step`` updates in place, and
 the decode position ``cache["cur"]`` is a Python int, so no index waits
 on the device.
 
-Training: ``lm_loss`` is the reference's next-token cross-entropy with
-its z-loss, in float32; ``lm_forward`` returns the logits and the aux
-loss term, 0 for every ported family.  ``lm_trunk`` honours
-``cfg.plan.remat`` with ``torch.utils.checkpoint`` per layer, as the
-reference's ``jax.checkpoint`` policies do: ``"none"`` saves every
-activation, ``"full"`` recomputes the whole layer in the backward, and
-``"dots"`` saves the outputs of the matrix products that have no batch
-dimension (the projections and the MLP: ``aten.mm``) and recomputes the
-rest, attention included -- so with ``"dots"`` or ``"full"`` the
-attention forward runs twice per training step.  Remat moves memory,
-never the numbers.
+The MoE family (olmoe-1b-7b, mixtral-8x22b) replaces the dense FFN by
+``models/moe.py``'s capacity-dispatch layer, whose router aux loss the
+trunk sums over the layers; its decode step runs every expert
+(``moe_ffn_decode``).  The VLM family (phi-3-vision-4.2b) prepends its
+``frontend_tokens`` image embeddings, projected by ``frontend_proj``, to
+the token embeddings: positions run over both, and the loss skips the
+frontend positions.  The enc-dec family (whisper-medium) is
+``models/encdec.py``.
 
-The MoE, enc-dec and VLM families are a later slice of the port: their
-configs raise ``NotImplementedError`` naming the ROADMAP item.  With them
-go the reference's MoE aux loss and VLM frontend embeddings, which the
-ported families do not have.
+Training: ``lm_loss`` is the reference's next-token cross-entropy with
+its z-loss and ``AUX_LOSS_WEIGHT`` times the aux loss, in float32;
+``lm_forward`` returns the logits and the aux loss (a float32 0 for
+every family but MoE).  ``lm_trunk`` honours ``cfg.plan.remat`` with
+``torch.utils.checkpoint`` per layer, as the reference's
+``jax.checkpoint`` policies do: ``"none"`` saves every activation,
+``"full"`` recomputes the whole layer in the backward, and ``"dots"``
+saves the outputs of the matrix products that have no batch dimension
+(the projections, the dense MLP and the MoE router: ``aten.mm``) and
+recomputes the rest -- attention, and the MoE's dispatch, expert and
+combine products, which are batched (``aten.bmm``), as the reference's
+``dots_with_no_batch_dims_saveable`` recomputes them.  So with
+``"dots"`` or ``"full"`` the attention forward runs twice per training
+step.  Remat moves memory, never the numbers.
 """
 from __future__ import annotations
 
@@ -39,23 +46,24 @@ from torch.utils import checkpoint as ckpt_lib
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.kernels import ops
+from repro_torch.models import moe as moe_lib
 from repro_torch.models import ssd as ssd_lib
 from repro_torch.models.layers import ParamSpec, TensorSpec, apply_rope, \
     gated_mlp, rmsnorm
 
-PORTED = ("dense", "ssm", "hybrid")
+PORTED = ("dense", "moe", "ssm", "hybrid", "vlm")  # the decoder-only ones
 AUX_LOSS_WEIGHT = 0.01
 Z_LOSS_WEIGHT = 1e-4
 REMAT_POLICIES = ("none", "dots", "full")
 
 
 def check_family(cfg: ArchConfig) -> None:
-    """Raise ``NotImplementedError`` for a family the port has not yet."""
+    """Raise ``ValueError`` for a family this module does not build: the
+    enc-dec family is ``models/encdec.py``'s."""
     if cfg.family not in PORTED:
-        raise NotImplementedError(
-            f"{cfg.name}: the {cfg.family!r} family is not ported yet "
-            f"(ROADMAP A13c); the port runs the {', '.join(PORTED)} "
-            "families")
+        raise ValueError(
+            f"{cfg.name}: the {cfg.family!r} family is not a decoder-only "
+            f"LM; this module builds the {', '.join(PORTED)} families")
 
 
 # ---------------------------------------------------------------------------
@@ -103,6 +111,9 @@ def lm_specs(cfg: ArchConfig, dtype=torch.float32) -> dict:
     if not cfg.tie_embeddings:
         specs["unembed"] = ParamSpec((d, cfg.padded_vocab),
                                      ("embed", "vocab"), dtype)
+    if cfg.frontend != "none":
+        # stub adapter: precomputed patch/frame embeddings -> model space
+        specs["frontend_proj"] = ParamSpec((d, d), ("embed", None), dtype)
     L = (cfg.num_layers,)
     if cfg.family == "ssm":
         specs["layers"] = {
@@ -132,7 +143,8 @@ def lm_specs(cfg: ArchConfig, dtype=torch.float32) -> dict:
         "ln1": ParamSpec(L + (d,), ("layers", None), dtype, "ones"),
         "ln2": ParamSpec(L + (d,), ("layers", None), dtype, "ones"),
         **attn_specs(cfg, L, dtype),
-        **dense_ffn_specs(cfg, L, dtype),
+        **(moe_lib.moe_specs(cfg, cfg.num_layers, dtype) if cfg.is_moe
+           else dense_ffn_specs(cfg, L, dtype)),
     }
     return specs
 
@@ -164,24 +176,35 @@ def attn_block(cfg, lp, x, positions, *, window: int):
     return out @ lp["wo"], k, v
 
 
+def _zero(x):
+    return torch.zeros((), dtype=torch.float32, device=x.device)
+
+
 def mlp_block(cfg, lp, x):
-    """Dense SwiGLU FFN."""
-    return gated_mlp(x, lp["wi"], lp["wg"], lp["wo_mlp"])
+    """The FFN: (out, aux) -- the MoE layer and its router aux loss, or
+    the dense SwiGLU and a float32 0."""
+    if cfg.is_moe:
+        return moe_lib.moe_ffn(cfg, lp, x)
+    return gated_mlp(x, lp["wi"], lp["wg"], lp["wo_mlp"]), _zero(x)
 
 
-def _cast(lp: dict, dtype) -> dict:
-    return {k: p.to(dtype) for k, p in lp.items()}
+def _cast(tree: dict, dtype) -> dict:
+    """A (nested) dict of parameters cast to ``dtype``."""
+    return {k: _cast(p, dtype) if isinstance(p, dict) else p.to(dtype)
+            for k, p in tree.items()}
 
 
 def _layer(cfg, x, lp, positions):
+    """One layer: (x, aux)."""
     # mixed precision: params stored f32, computed in x.dtype (bf16)
     lp = _cast(lp, x.dtype)
     h = rmsnorm(x, lp["ln1"], cfg.norm_eps)
     if cfg.family in ("ssm", "hybrid"):  # hybrid inner layers are Mamba-2
-        return x + ssd_lib.ssd_block(cfg, lp, h, cfg.norm_eps)
+        return x + ssd_lib.ssd_block(cfg, lp, h, cfg.norm_eps), _zero(x)
     a, _, _ = attn_block(cfg, lp, h, positions, window=cfg.sliding_window)
     x = x + a
-    return x + mlp_block(cfg, lp, rmsnorm(x, lp["ln2"], cfg.norm_eps))
+    m, aux = mlp_block(cfg, lp, rmsnorm(x, lp["ln2"], cfg.norm_eps))
+    return x + m, aux
 
 
 def shared_block(cfg, sp, x, positions, window):
@@ -190,7 +213,8 @@ def shared_block(cfg, sp, x, positions, window):
     h = rmsnorm(x, sp["ln1"], cfg.norm_eps)
     a, _, _ = attn_block(cfg, sp, h, positions, window=window)
     x = x + a
-    return x + mlp_block(cfg, sp, rmsnorm(x, sp["ln2"], cfg.norm_eps))
+    return x + gated_mlp(rmsnorm(x, sp["ln2"], cfg.norm_eps), sp["wi"],
+                         sp["wg"], sp["wo_mlp"])
 
 
 def _layer_params(params, *idx) -> dict:
@@ -208,6 +232,20 @@ def embed_tokens(params, tokens, dtype):
     """Gather, then cast: the same values as casting the table first,
     without a cast copy of the whole vocabulary."""
     return params["embed"][tokens].to(dtype)
+
+
+def embed_inputs(cfg, params, tokens, extra_embeds, dtype):
+    """The token embeddings, and for a frontend (the VLM's image patches)
+    ``frontend_proj`` of ``extra_embeds`` (B, frontend_tokens, D) in
+    front of them."""
+    x = embed_tokens(params, tokens, dtype)
+    if cfg.frontend == "none":
+        return x
+    if extra_embeds is None:
+        raise ValueError(f"{cfg.name} takes its {cfg.frontend_tokens} "
+                         "frontend embeddings with the tokens")
+    fe = extra_embeds.to(dtype) @ params["frontend_proj"].to(dtype)
+    return torch.cat([fe, x], dim=1)
 
 
 def _dots_policy(ctx, func, *args, **kwargs):
@@ -240,25 +278,29 @@ def _remat(fn, policy: str):
 
 
 def lm_trunk(cfg: ArchConfig, params, x, positions):
-    """Embeddings -> final norm. x: (B,S,D).  Each layer (each Mamba-2
-    layer of the hybrid family, as in the reference) runs under
-    ``cfg.plan.remat``."""
+    """Embeddings -> final norm. x: (B,S,D).  Returns (x, the aux loss
+    summed over the layers).  Each layer (each Mamba-2 layer of the
+    hybrid family, as in the reference) runs under ``cfg.plan.remat``."""
     layer = _remat(functools.partial(_layer, cfg), cfg.plan.remat)
     # one unbind per stacked leaf: its backward stacks the layers'
     # gradients once, where indexing layer by layer would add a
     # zero-filled copy of the whole stack per layer
     stacks = {k: p.unbind(0) for k, p in params["layers"].items()}
+    aux = _zero(x)
     if cfg.family == "hybrid":
         for c in range(cfg.num_layers // cfg.hybrid_period):
             x = shared_block(cfg, params["shared"], x, positions,
                              cfg.sliding_window)
             chunk = {k: v[c].unbind(0) for k, v in stacks.items()}
             for j in range(cfg.hybrid_period):
-                x = layer(x, {k: v[j] for k, v in chunk.items()}, positions)
+                x, a = layer(x, {k: v[j] for k, v in chunk.items()},
+                             positions)
+                aux = aux + a
     else:
         for i in range(cfg.num_layers):
-            x = layer(x, {k: v[i] for k, v in stacks.items()}, positions)
-    return rmsnorm(x, params["final_norm"], cfg.norm_eps)
+            x, a = layer(x, {k: v[i] for k, v in stacks.items()}, positions)
+            aux = aux + a
+    return rmsnorm(x, params["final_norm"], cfg.norm_eps), aux
 
 
 def lm_logits(cfg, params, x):
@@ -272,28 +314,32 @@ def lm_logits(cfg, params, x):
     return logits
 
 
-def lm_forward(cfg, params, tokens, *, dtype=torch.bfloat16,
-               last_only=False):
+def lm_forward(cfg, params, tokens, extra_embeds=None, *,
+               dtype=torch.bfloat16, last_only=False):
     """Returns (logits (B, S, V) -- (B, 1, V) with ``last_only`` --, aux
-    loss): the aux term is the MoE router's in the reference, a float32
-    0 for the ported families."""
-    x = embed_tokens(params, tokens, dtype)
+    loss): the MoE router's summed over the layers, a float32 0 for the
+    other families.  The VLM's S counts its frontend positions."""
+    x = embed_inputs(cfg, params, tokens, extra_embeds, dtype)
     b, s = x.shape[:2]
     positions = torch.arange(s, device=x.device)[None, :].expand(b, s)
-    x = lm_trunk(cfg, params, x, positions)
+    x, aux = lm_trunk(cfg, params, x, positions)
     if last_only:
         # serving prefill wants only the next-token distribution: slice
         # BEFORE the unembed so the (B, S, V) logits never materialise.
         x = x[:, -1:, :]
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     return lm_logits(cfg, params, x), aux
 
 
 def lm_loss(cfg, params, batch, *, dtype=torch.bfloat16):
-    """Next-token CE (+ z-loss + aux), in float32.  batch: tokens (B, S).
-    Returns (loss, {"ce", "zloss", "aux"}), each a 0-d tensor."""
+    """Next-token CE (+ z-loss + aux), in float32.  batch: tokens (B, S)
+    and, for the VLM, embeds (B, frontend_tokens, D), whose positions
+    the loss skips.  Returns (loss, {"ce", "zloss", "aux"}), each a 0-d
+    tensor."""
     tokens = batch["tokens"]
-    logits, aux = lm_forward(cfg, params, tokens, dtype=dtype)
+    logits, aux = lm_forward(cfg, params, tokens, batch.get("embeds"),
+                             dtype=dtype)
+    n_front = cfg.frontend_tokens if cfg.frontend != "none" else 0
+    logits = logits[:, n_front:, :]
     # shift: predict tokens[:, 1:]
     logits = logits[:, :-1].float()
     targets = tokens[:, 1:].long()
@@ -338,15 +384,20 @@ def init_cache_specs(cfg: ArchConfig, batch: int, seq_len: int, dtype):
     return specs
 
 
-def init_cache(cfg, batch, seq_len, dtype, device):
-    """Zero K/V, ``pos_buf`` all -1 (the empty sentinel), ``cur`` 0."""
+def cache_of(specs: dict, device) -> dict:
+    """A decode cache of TensorSpecs: zero tensors, ``pos_buf`` all -1
+    (the empty sentinel), ``cur`` 0."""
     cache = {k: torch.full(s.shape, -1, dtype=s.dtype, device=device)
              if not s.dtype.is_floating_point
              else torch.zeros(s.shape, dtype=s.dtype, device=device)
-             for k, s in init_cache_specs(cfg, batch, seq_len,
-                                          dtype).items()}
+             for k, s in specs.items()}
     cache["cur"] = 0
     return cache
+
+
+def init_cache(cfg, batch, seq_len, dtype, device):
+    """Zero K/V, ``pos_buf`` all -1 (the empty sentinel), ``cur`` 0."""
+    return cache_of(init_cache_specs(cfg, batch, seq_len, dtype), device)
 
 
 def _decode_attn(cfg, lp, x, k_cache, v_cache, pos_buf, cur: int, dtype):
@@ -418,7 +469,8 @@ def lm_decode_step(cfg: ArchConfig, params, cache, tokens, *,
                                    pos_buf, cur, dtype)
             x = x + a
             h2 = rmsnorm(x, lp["ln2"], cfg.norm_eps)
-            x = x + gated_mlp(h2, lp["wi"], lp["wg"], lp["wo_mlp"])
+            x = x + (moe_lib.moe_ffn_decode(cfg, lp, h2) if cfg.is_moe
+                     else gated_mlp(h2, lp["wi"], lp["wg"], lp["wo_mlp"]))
     x = rmsnorm(x, params["final_norm"], cfg.norm_eps)
     logits = lm_logits(cfg, params, x[:, None, :])[:, 0]
     cache["cur"] = cur + 1

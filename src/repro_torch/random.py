@@ -37,6 +37,7 @@ BID_PROPOSAL = 11      # the bidder's CEM proposals: (seed, hour, iteration)
 SERVICE_LOAD = 12      # the service's live demand noise: (seed, second, host)
 TOKEN_ZIPF = 13        # the synthetic LM batch's tokens: (seed, step, lane)
 TOKEN_REPEAT = 14      # its repeat-the-previous-token flags
+TOKEN_FRONTEND = 15    # its VLM embeds or enc-dec frames: (seed, step, lane)
 
 
 def _mul32(x: torch.Tensor, c: int) -> torch.Tensor:

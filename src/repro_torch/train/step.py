@@ -47,7 +47,6 @@ from repro_torch.optim.compress import requantize_sum
 from repro_torch.sharding.rules import MeshRules, P
 
 DEFAULT_LR = dict(peak_lr=3e-4, warmup_steps=100, total_steps=10_000)
-METRICS = ("ce", "zloss", "aux")
 
 
 # ---------------------------------------------------------------------------
@@ -184,15 +183,16 @@ def make_train_step(model: Model, *, lr_kw: Optional[dict] = None,
             mb = {k: split(v) for k, v in batch.items()}
             dev = leaves(params)[0].device
             loss = torch.zeros((), dtype=torch.float32, device=dev)
+            # the enc-dec family's loss reports ce alone
             metrics = {k: torch.zeros((), dtype=torch.float32, device=dev)
-                       for k in METRICS}
+                       for k in metrics_spec(model)}
             grads = tree_map(lambda p: torch.zeros(
                 p.shape, dtype=torch.float32, device=p.device), params)
             for i in range(microbatches):
                 li, mi, gi = loss_and_grads(
                     model, params, {k: v[i] for k, v in mb.items()})
                 loss = loss + li
-                metrics = {k: metrics[k] + mi[k] for k in METRICS}
+                metrics = {k: v + mi[k] for k, v in metrics.items()}
                 tree_map(lambda g, x: g.add_(x), grads, gi)
                 # the next microbatch's gradients form without this set
                 del gi

@@ -152,9 +152,13 @@ class Trainer:
 
     def _pipeline(self) -> TokenPipeline:
         c = self.cfg
-        return TokenPipeline(batch=self.shape.global_batch,
-                             seq=self.shape.seq_len, vocab=c.vocab_size,
-                             seed=self.seed, device=self.device)
+        front = c.frontend_tokens if c.frontend != "none" else 0
+        return TokenPipeline(
+            batch=self.shape.global_batch, seq=self.shape.seq_len - front,
+            vocab=c.vocab_size, seed=self.seed, frontend_tokens=front,
+            d_model=c.d_model if front or c.family == "encdec" else 0,
+            encoder_seq=c.encoder_seq if c.family == "encdec" else 0,
+            device=self.device)
 
     def _local(self, batch: dict) -> dict:
         """This rank's share of a global batch."""

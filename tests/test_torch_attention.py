@@ -90,6 +90,26 @@ def test_plain_version_matches_pallas_head_dim_80(dtype):
             _pallas(arrs, dtype, causal=True, window=window), **TOL[dtype])
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_plain_version_matches_blocked_attention_head_dim_96(dtype):
+    """phi-3-vision-4.2b's heads: 3072 / 32 = 96, causal with and without
+    a window, at a length the kernel pads, against the reference's
+    blocked_attention (its model path) and the Pallas kernel."""
+    import jax.numpy as jnp
+    from repro.models.layers import blocked_attention as ref_blocked
+    arrs = _qkv(1, 200, 4, 2, 96, seed=9)
+    jd = jnp.bfloat16 if dtype == torch.bfloat16 else jnp.float32
+    for window in (0, 64):
+        got = _port_ref(arrs, dtype, causal=True, window=window)
+        want = ref_blocked(*(jnp.asarray(a).astype(jd) for a in arrs),
+                           causal=True, window=window)
+        np.testing.assert_allclose(got, np.asarray(want.astype(jnp.float32)),
+                                   **TOL[dtype])
+        np.testing.assert_allclose(
+            got, _pallas(arrs, dtype, causal=True, window=window),
+            **TOL[dtype])
+
+
 @pytest.mark.parametrize("s,window", [(512, 0), (512, 64), (192, 0)])
 def test_blocked_attention_matches_reference(s, window):
     """block_q 128: S 512 runs the blocked loop (with the window's KV
@@ -154,15 +174,29 @@ def test_each_dtype_names_a_kernel_of_the_source(dtype):
 
 
 def test_non_causal_padded_kv_raises():
-    q, k, v = map(torch.from_numpy, _qkv(1, 192, 2, 2, 32))
+    """The Pallas kernel still refuses a non-causal call whose Sk its kv
+    block would pad; the port takes it (whisper's Sk = 1500) and gives the
+    reference's blocked_attention, in both dtypes."""
+    import jax.numpy as jnp
+    from repro.models.layers import blocked_attention as ref_blocked
+    arrs = _qkv(1, 192, 2, 2, 32)
     with pytest.raises(NotImplementedError):
-        ops.flash_attention(q, k, v, causal=False)
-    with pytest.raises(NotImplementedError):
-        fa.flash_attention_ref(q, k, v, causal=False)
-    # a whole number of kv blocks is fine without the causal mask
-    q, k, v = map(torch.from_numpy, _qkv(1, 256, 2, 2, 32))
-    out = ops.flash_attention(q, k, v, causal=False)
-    assert out.shape == q.shape and torch.isfinite(out).all()
+        _pallas(arrs, torch.float32, causal=False)
+    for dtype in (torch.float32, torch.bfloat16):
+        jd = jnp.bfloat16 if dtype == torch.bfloat16 else jnp.float32
+        want = np.asarray(ref_blocked(
+            *(jnp.asarray(a).astype(jd) for a in arrs),
+            causal=False).astype(jnp.float32))
+        got = ops.flash_attention(*(torch.from_numpy(a).to(dtype)
+                                    for a in arrs), causal=False)
+        np.testing.assert_allclose(got.float().numpy(), want, **TOL[dtype])
+        np.testing.assert_allclose(_port_ref(arrs, dtype, causal=False),
+                                   want, **TOL[dtype])
+    # a whole number of kv blocks: the Pallas kernel's own case
+    arrs = _qkv(1, 256, 2, 2, 32)
+    np.testing.assert_allclose(_port_ref(arrs, torch.float32, causal=False),
+                               _pallas(arrs, torch.float32, causal=False),
+                               **TOL[torch.float32])
 
 
 # ---------------------------------------------------------------------------
@@ -210,7 +244,24 @@ CARD_CASES = ([(s, dt, 0, None) for s in CAUSAL_SHAPES
               # the small head dims, with windows and Sk > Sq
               + [((1, 300, 2, 1, 16), torch.bfloat16, 100, None),
                  ((1, 300, 2, 2, 32), torch.bfloat16, 16, None),
-                 ((1, 300, 4, 2, 64), torch.bfloat16, 100, 340)])
+                 ((1, 300, 4, 2, 64), torch.bfloat16, 100, 340)]
+              # head dim 96 (phi-3-vision-4.2b): ragged Sq, a window,
+              # Sq > Sk, and at prefill length
+              + [((1, 200, 4, 2, 96), dt, w, None)
+                 for dt in (torch.float32, torch.bfloat16) for w in (0, 64)]
+              + [((1, 200, 4, 4, 96), torch.bfloat16, 0, 100),
+                 ((1, 4160, 2, 2, 96), torch.bfloat16, 0, None)])
+
+# non-causal calls whose Sk no kv tile divides: whisper-medium's encoder
+# (Sq = Sk = 1500) and cross-attention (Sq 448 against Sk 1500), head
+# dim 96, Sk under one tile
+NON_CAUSAL_CASES = [((1, 1500, 4, 4, 64), dt, None)
+                    for dt in (torch.float32, torch.bfloat16)] + \
+    [((1, 448, 4, 4, 64), torch.bfloat16, 1500),
+     ((1, 448, 4, 4, 64), torch.float32, 1500),
+     ((1, 300, 4, 2, 96), torch.bfloat16, 1000),
+     ((1, 100, 4, 4, 96), torch.float32, 60),
+     ((1, 40, 2, 1, 128), torch.bfloat16, 70)]
 
 
 @pytest.mark.cuda
@@ -227,7 +278,18 @@ def test_cuda_kernel_matches_plain_version(cuda, shape, dtype, window, sk):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("d", [80, 128])
+@pytest.mark.parametrize("shape,dtype,sk", NON_CAUSAL_CASES)
+def test_cuda_kernel_matches_plain_version_non_causal(cuda, shape, dtype,
+                                                      sk):
+    q, k, v = (torch.from_numpy(a).to(cuda, dtype)
+               for a in _qkv(*shape, seed=6, sk=sk))
+    got = ops.flash_attention(q, k, v, causal=False)
+    want = fa.flash_attention_ref(q, k, v, causal=False)
+    torch.testing.assert_close(got.float(), want.float(), **TOL[dtype])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [80, 96, 128])
 @pytest.mark.parametrize("layout", ["fused_qkv", "bhsd"])
 def test_cuda_kernel_reads_strided_views(cuda, layout, d):
     """q, k, v as views the kernel's tensor maps read through their
@@ -261,17 +323,16 @@ def test_cuda_kernel_info_has_no_spills(cuda, dtype):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("bad", ["head_dim", "float16", "stride",
-                                 "non_causal_padded"])
+                                 "no_keys"])
 def test_cuda_kernel_rejects_what_it_does_not_take(cuda, bad):
     d = 48 if bad == "head_dim" else 32
-    s = 192 if bad == "non_causal_padded" else 64
-    q, k, v = (torch.from_numpy(a).to(cuda) for a in _qkv(1, s, 2, 2, d))
+    q, k, v = (torch.from_numpy(a).to(cuda) for a in _qkv(
+        1, 64, 2, 2, d, sk=0 if bad == "no_keys" else None))
     if bad == "float16":
         q, k, v = q.half(), k.half(), v.half()
     elif bad == "stride":
         q = q.transpose(1, 3).contiguous().transpose(1, 3)
     before = fa.flash_attention.launches
-    err = NotImplementedError if bad == "non_causal_padded" else ValueError
-    with pytest.raises(err):
-        fa.flash_attention(q, k, v, causal=bad != "non_causal_padded")
+    with pytest.raises(ValueError):
+        fa.flash_attention(q, k, v, causal=bad != "no_keys")
     assert fa.flash_attention.launches == before

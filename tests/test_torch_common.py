@@ -400,7 +400,8 @@ def _port_sources():
                 "experiments.py", "train/trainer.py", "train/step.py",
                 "ckpt/manager.py", "data/tokens.py", "optim/adamw.py",
                 "workload/actuator.py", "launch/train.py",
-                "launch/mesh.py", "sharding/rules.py"):
+                "launch/mesh.py", "sharding/rules.py", "models/moe.py",
+                "models/encdec.py", "models/api.py", "models/layers.py"):
         assert PORT / sub in files, sub
     return files
 
@@ -433,7 +434,8 @@ def test_importing_the_engine_loads_neither_jax_nor_repro():
             "repro_torch.train.trainer, repro_torch.launch.train, "
             "repro_torch.ckpt, repro_torch.data, repro_torch.optim, "
             "repro_torch.launch.mesh, repro_torch.sharding, "
-            "repro_torch.train.step; "
+            "repro_torch.train.step, repro_torch.models.moe, "
+            "repro_torch.models.encdec, repro_torch.models.api; "
             "import repro_torch.core as c, repro_torch.grid as g; "
             "[getattr(m, k) for m in (c, g) for k in m.__all__]; "
             "bad = [m for m in sys.modules if m == 'jax' or "
@@ -475,11 +477,14 @@ def _constant_pairs():
     import repro_torch.obs.telemetry as p_tel
     import repro_torch.workload.model as p_wl
     import repro.models.transformer as r_tr
+    import repro.models.moe as r_moe
+    import repro_torch.models.moe as p_moe
     import repro.data.m100 as r_m100
     import repro_torch.models.transformer as p_tr
     import repro_torch.data.m100 as p_m100
     names = {
         (r_tr, p_tr): "AUX_LOSS_WEIGHT Z_LOSS_WEIGHT",
+        (r_moe, p_moe): "CAPACITY_FACTOR GROUP_SIZE",
         (r_m100, p_m100): "M100_NODE_POWER_W",
         (r_plant, p_plant): (
             "P_IDLE ALPHA BETA GAMMA TDP CAP_MIN CAP_MAX F_MAX F_MIN F_VMIN "
@@ -561,6 +566,23 @@ def test_packages_export_the_references_names(pkg):
                and not hasattr(port, k)]
     assert not missing, missing
     assert set(ref.__all__) - a14 <= set(port.__all__)
+
+
+@pytest.mark.parametrize("module", ["moe", "encdec", "layers", "api"])
+def test_model_modules_export_the_references_names(module):
+    """Every public name that ``repro.models.<module>`` defines (or takes
+    in, as encdec's Z_LOSS_WEIGHT) resolves in ``repro_torch.models.
+    <module>``; ROADMAP C lists no exception."""
+    import importlib
+    import inspect
+    ref = importlib.import_module(f"repro.models.{module}")
+    port = importlib.import_module(f"repro_torch.models.{module}")
+    names = [k for k, v in vars(ref).items() if not k.startswith("_")
+             and not inspect.ismodule(v)
+             and getattr(v, "__module__", ref.__name__) == ref.__name__]
+    assert names
+    missing = [k for k in names if not hasattr(port, k)]
+    assert not missing, missing
 
 
 def test_pid_gains_come_from_the_constants():

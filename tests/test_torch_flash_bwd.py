@@ -84,6 +84,42 @@ def test_plain_gradient_matches_jax_grad_of_blocked_attention(shape,
         np.testing.assert_allclose(g.numpy(), np.asarray(w), **F32_GRAD)
 
 
+@pytest.mark.parametrize("shape,causal,window,sk", [
+    ((1, 40, 4, 2, 96), True, 0, None),     # phi-3-vision's head dim
+    ((2, 48, 4, 4, 96), True, 8, None),
+    ((1, 150, 2, 2, 64), False, 0, None),   # whisper's encoder, ragged Sk
+    ((1, 24, 2, 2, 64), False, 0, 150),     # its cross-attention
+    ((1, 40, 4, 2, 96), False, 0, 70),
+])
+def test_plain_gradient_matches_jax_grad_head_dim_96_and_non_causal(
+        shape, causal, window, sk):
+    """The calls of the VLM and enc-dec families: head dim 96 and
+    non-causal attention whose Sk is not a multiple of a kv block,
+    against jax.grad of the reference's blocked_attention."""
+    import jax
+    import jax.numpy as jnp
+    from repro.models.layers import blocked_attention
+    q, k, v, do = _arrays(*shape, seed=9, sk=sk)
+
+    def f(q, k, v):
+        out = blocked_attention(q, k, v, causal=causal, window=window)
+        return jnp.sum(out * do)
+
+    want = jax.grad(f, argnums=(0, 1, 2))(*map(jnp.asarray, (q, k, v)))
+    got = _plain_grads(*map(torch.from_numpy, (q, k, v, do)),
+                       causal=causal, window=window)[1:]
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), **F32_GRAD)
+    # and the kernels' formulas give the same gradient
+    qt, kt, vt, dot = map(torch.from_numpy, (q, k, v, do))
+    out, lse = fa.flash_attention_lse_ref(qt, kt, vt, causal=causal,
+                                          window=window)
+    for g, w in zip(fa.flash_attention_bwd_ref(qt, kt, vt, out, dot, lse,
+                                               causal=causal, window=window),
+                    got):
+        torch.testing.assert_close(g, w, **F32_GRAD)
+
+
 @pytest.mark.parametrize("shape,window,sk", [
     ((1, 64, 4, 4, 32), 0, None),
     ((2, 48, 6, 2, 16), 8, None),
@@ -273,7 +309,16 @@ CARD_CASES = ([((1, 128, 4, 4, 32), dt, 0, None) for dt in (F32, BF16)]
                  ((1, 300, 2, 2, 32), BF16, 16, None),
                  ((1, 256, 6, 1, 128), BF16, 0, None),  # GQA group 6
                  ((2, 1024, 12, 2, 128), BF16, 0, None),
-                 ((2, 2048, 12, 2, 128), BF16, 0, None)])  # the training call
+                 ((2, 2048, 12, 2, 128), BF16, 0, None)]  # the training call
+              # head dim 96 (phi-3-vision-4.2b), S not a multiple of 64
+              + [((1, 200, 4, 2, 96), dt, w, None) for dt in (F32, BF16)
+                 for w in (0, 24)]
+              + [((1, 2048, 32, 32, 96), BF16, 0, None)])
+# non-causal, Sk not a multiple of the 64-row tiles: whisper-medium's
+# encoder (Sq = Sk = 1500) and cross-attention (Sq 448 against 1500)
+NON_CAUSAL_CASES = [((1, 1500, 4, 4, 64), dt, None) for dt in (F32, BF16)] \
+    + [((1, 448, 4, 4, 64), dt, 1500) for dt in (F32, BF16)] \
+    + [((1, 300, 4, 2, 96), BF16, 1000), ((1, 100, 4, 4, 96), F32, 60)]
 
 
 @pytest.mark.cuda
@@ -294,6 +339,22 @@ def test_cuda_backward_matches_plain_autograd(cuda, shape, dtype, window,
                                              window=window)
     torch.testing.assert_close(lse, want_lse, atol=1e-3, rtol=1e-4)
     want = _plain_grads(q, k, v, do, causal=True, window=window)[1:]
+    for g, w in zip(got, want):
+        assert g.dtype == dtype and g.shape == w.shape
+        torch.testing.assert_close(g.float(), w.float(), **CARD_TOL[dtype])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,dtype,sk", NON_CAUSAL_CASES)
+def test_cuda_backward_matches_plain_autograd_non_causal(cuda, shape, dtype,
+                                                         sk):
+    """No dk or dv row >= Sk is written, and the rows TMA zero-fills past
+    Sk read as masked, not as scores of 0."""
+    q, k, v, do = (torch.from_numpy(a).to(cuda, dtype)
+                   for a in _arrays(*shape, seed=8, sk=sk))
+    out, lse = fa.flash_attention_with_lse(q, k, v, causal=False)
+    got = fa.flash_attention_bwd(q, k, v, out, do, lse, causal=False)
+    want = _plain_grads(q, k, v, do, causal=False)[1:]
     for g, w in zip(got, want):
         assert g.dtype == dtype and g.shape == w.shape
         torch.testing.assert_close(g.float(), w.float(), **CARD_TOL[dtype])

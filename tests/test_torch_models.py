@@ -2,9 +2,16 @@
 numpy from a seed, carried into the port by ``convert.model_params``)
 through both packages' forward and decode steps, at the reduced widths of
 qwen2-1.5b (GQA + QKV bias + tied embeddings), smollm-135m, yi-9b,
-mamba2-1.3b (SSM) and zamba2-2.7b (hybrid: Mamba-2 layers and a shared
-attention block); and every full-size arch's parameter shapes and count,
-without allocating them."""
+mamba2-1.3b (SSM), zamba2-2.7b (hybrid: Mamba-2 layers and a shared
+attention block), olmoe-1b-7b and mixtral-8x22b (MoE; mixtral's sliding
+window), phi-3-vision-4.2b (VLM: image embeddings in front of the tokens)
+and, in the forward, whisper-medium (enc-dec, with its frames; its decode
+is tests/test_torch_encdec.py's); and every full-size arch's parameter
+shapes and count, without allocating them.
+
+MoE routing is a discrete pick: the forward tests hold both packages'
+picks equal in f32 and feed the reference's picks to the port in bf16
+(``test_torch_moe.PinnedRouting``)."""
 import dataclasses
 
 import jax
@@ -22,8 +29,13 @@ import repro_torch.models.transformer as p_tr
 from repro_torch import convert
 from repro_torch.models import build_model as p_build
 
-ARCHS = ["qwen2-1.5b", "smollm-135m", "yi-9b", "mamba2-1.3b", "zamba2-2.7b"]
+ARCHS = ["qwen2-1.5b", "smollm-135m", "yi-9b", "mamba2-1.3b", "zamba2-2.7b",
+         "olmoe-1b-7b", "mixtral-8x22b", "phi-3-vision-4.2b"]
 SSM_ARCHS = ["mamba2-1.3b", "zamba2-2.7b"]
+MOE_ARCHS = ["olmoe-1b-7b", "mixtral-8x22b"]
+# the VLM's forward needs its image embeddings, which a decode step does
+# not take: it has no decode-vs-forward check (ROADMAP C)
+DECODE_VS_FORWARD_ARCHS = [a for a in ARCHS if a != "phi-3-vision-4.2b"]
 F32 = dict(atol=1e-4, rtol=1e-4)
 BF16 = dict(atol=2e-2, rtol=2e-2)
 # The SSM families' bf16 rounding noise exceeds BF16 element by element:
@@ -34,6 +46,7 @@ BF16 = dict(atol=2e-2, rtol=2e-2)
 # distance from its f32 forward.
 SSM_BF16_REL = 2e-2
 SSM_BF16_VS_REF_NOISE = 1.25
+MOE_BF16_REL = 2e-2   # norm-relative, on the reference's routing
 DEC = dict(atol=2e-3, rtol=2e-3)   # decode vs forward (tests/test_models.py)
 
 
@@ -43,7 +56,7 @@ def _params_np(ref_cfg, seed=0):
     nonzero biases, so the logits are O(1) and every term of the layer
     shows in them."""
     rng = np.random.default_rng(seed)
-    specs = r_tr.lm_specs(ref_cfg)
+    specs = r_build(ref_cfg).specs()
 
     def fill(s):
         if s.init == "ones":
@@ -73,32 +86,58 @@ def _tokens(cfg, b=2, s=16):
             % cfg.vocab_size).astype(np.int32)
 
 
-@pytest.mark.parametrize("arch", ARCHS)
+def _batch_np(cfg, b=2, s=16, seed=0):
+    """The tokens and, for a frontend, its inputs as the reference's
+    batches carry them: the VLM's ``embeds`` (b, frontend_tokens, D), the
+    enc-dec family's ``frames`` (b, encoder_seq, D), 0.02 x normals."""
+    out = {"tokens": _tokens(cfg, b, s)}
+    rng = np.random.default_rng(seed)
+    if cfg.family == "encdec":
+        out["frames"] = (0.02 * rng.standard_normal(
+            (b, cfg.encoder_seq, cfg.d_model))).astype(np.float32)
+    elif cfg.frontend != "none":
+        out["embeds"] = (0.02 * rng.standard_normal(
+            (b, cfg.frontend_tokens, cfg.d_model))).astype(np.float32)
+    return out
+
+
+@pytest.mark.parametrize("arch", ARCHS + ["whisper-medium"])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-def test_forward_matches_reference(arch, dtype):
+def test_forward_matches_reference(arch, dtype, monkeypatch):
     rc, pc, rp, pp = _both(arch)
-    rm = r_build(rc, compute_dtype=getattr(jnp, dtype))
+    moe = arch in MOE_ARCHS
+    # the MoE forward unrolled, so each layer's routing is recorded
+    rm = r_build(rc, compute_dtype=getattr(jnp, dtype), unroll=moe)
     pm = p_build(pc, compute_dtype=getattr(torch, dtype), device=CPU)
-    tok = _tokens(rc)
+    batch = _batch_np(rc)
+    rb = {k: jnp.asarray(x) for k, x in batch.items()}
+    pb = {k: torch.from_numpy(x) for k, x in batch.items()}
     tol = F32 if dtype == "float32" else BF16
     noise_floor = dtype == "bfloat16" and arch in SSM_ARCHS
+    from test_torch_moe import PinnedRouting  # it imports this module
+    pinned = PinnedRouting(monkeypatch, rc) if moe else None
     for last_only in (False, True):
-        want = rm.forward(rp, {"tokens": jnp.asarray(tok)},
-                          last_only=last_only)
-        got = pm.forward(pp, {"tokens": torch.from_numpy(tok)},
-                         last_only=last_only)
+        if pinned:
+            pinned.start()
+        want = rm.forward(rp, rb, last_only=last_only)
+        got = pm.forward(pp, pb, last_only=last_only)
         assert tuple(got.shape) == tuple(want.shape)
         assert got.dtype == getattr(torch, dtype)
         v = rc.vocab_size  # the padded columns are -1e30 in both
         g = got.float().numpy()[..., :v]
         w = np.asarray(want, np.float32)[..., :v]
+        if pinned:
+            assert pinned.i == len(pinned.ref) == rc.num_layers
+        if pinned and dtype == "float32":
+            assert pinned.flips == 0   # both route alike
         if noise_floor:
             f32 = np.asarray(r_build(rc, compute_dtype=jnp.float32).forward(
-                rp, {"tokens": jnp.asarray(tok)}, last_only=last_only))[
-                ..., :v]
+                rp, rb, last_only=last_only))[..., :v]
             assert np.linalg.norm(g - w) / np.linalg.norm(w) < SSM_BF16_REL
             assert np.abs(g - f32).max() <= \
                 SSM_BF16_VS_REF_NOISE * np.abs(w - f32).max()
+        elif moe and dtype == "bfloat16":
+            assert np.linalg.norm(g - w) / np.linalg.norm(w) < MOE_BF16_REL
         else:
             np.testing.assert_allclose(g, w, **tol)
         assert (got.float().numpy()[..., v:] == -1e30).all()
@@ -156,20 +195,50 @@ def test_ring_buffer_matches_reference():
             ..., :rc.vocab_size], **F32)
 
 
-@pytest.mark.parametrize("arch", ARCHS)
-def test_port_decode_matches_port_forward(arch):
+def drop_free_prefix(monkeypatch, pm, pp, batch):
+    """The forward's logits and the number of leading positions before
+    the first one whose token lost a slot to the capacity in some MoE
+    layer (every position for the other families)."""
+    import repro_torch.models.moe as p_moe
+    first = [batch["tokens"].shape[1]]
+    orig = p_moe.moe_ffn
+
+    def record(cfg, lp, x, topi=None):
+        lost = p_moe.dropped_slots(cfg, lp, x).sum(0).nonzero()
+        if len(lost):
+            first[0] = min(first[0], int(lost[0, 0]))
+        return orig(cfg, lp, x, topi=topi)
+
+    monkeypatch.setattr(p_moe, "moe_ffn", record)
+    full = pm.forward(pp, batch)
+    monkeypatch.setattr(p_moe, "moe_ffn", orig)
+    return full, first[0]
+
+
+@pytest.mark.parametrize("arch,b,s", [(a, 2, 8)
+                                      for a in DECODE_VS_FORWARD_ARCHS]
+                         + [(a, 1, 4) for a in MOE_ARCHS])
+def test_port_decode_matches_port_forward(arch, b, s, monkeypatch):
     """Teacher-forced decode logits equal the full forward's (causality
-    and cache), the check of tests/test_models.py on the port alone."""
+    and cache), the check of tests/test_models.py on the port alone.  The
+    MoE forward drops the slots over capacity and the decode step drops
+    none, so they are held on the positions before the first drop: a
+    prefix that may not be empty at this size, and every position of a
+    (1, 4) call, whose group of 4 tokens cannot drop."""
     _, pc, _, pp = _both(arch)
     pm = p_build(pc, compute_dtype=torch.float32, device=CPU)
-    tok = torch.from_numpy(_tokens(pc, s=8))
-    full = pm.forward(pp, {"tokens": tok})
-    cache = pm.init_cache(2, 8)
+    tok = torch.from_numpy(_tokens(pc, b=b, s=s))
+    full, keep = drop_free_prefix(monkeypatch, pm, pp, {"tokens": tok})
+    assert keep >= 1
+    if b * s <= 4:
+        assert keep == s
+    cache = pm.init_cache(b, s)
     dec = []
-    for i in range(8):
+    for i in range(s):
         logits, cache = pm.decode_step(pp, cache, tok[:, i])
         dec.append(logits)
-    torch.testing.assert_close(torch.stack(dec, 1), full, **DEC)
+    torch.testing.assert_close(torch.stack(dec, 1)[:, :keep],
+                               full[:, :keep], **DEC)
 
 
 def test_decode_continues_from_a_converted_reference_cache():
@@ -247,23 +316,26 @@ def test_full_size_specs_and_param_count_match_reference(arch):
     assert pc.param_count() == rc.param_count()
     assert pc.active_param_count() == rc.active_param_count()
     assert pc.padded_vocab == rc.padded_vocab
-    if pc.family not in p_tr.PORTED:
-        with pytest.raises(NotImplementedError, match="ROADMAP A13c"):
-            p_tr.lm_specs(pc)
-        with pytest.raises(NotImplementedError, match="ROADMAP A13c"):
-            p_build(pc, device=CPU)
-        return
     want = {"/".join(k.key for k in path): s.shape for path, s in
             jax.tree_util.tree_flatten_with_path(
-                r_tr.lm_specs(rc), is_leaf=lambda x: hasattr(x, "init"))[0]}
-    got = _spec_shapes(p_tr.lm_specs(pc))
+                r_build(rc).specs(),
+                is_leaf=lambda x: hasattr(x, "init"))[0]}
+    pm = p_build(pc, device=CPU)   # every family builds; nothing allocated
+    got = _spec_shapes(pm.specs())
     assert got == want
+    assert _spec_shapes(pm.abstract_params()) == want
     total = sum(int(np.prod(s)) for s in got.values())
-    if pc.family == "dense":
-        assert total == pc.param_count()
-    else:  # the analytic count leaves out dt_bias and gate_norm
+    if pc.family in ("ssm", "hybrid"):
+        # the analytic count leaves out dt_bias and gate_norm
         assert total == pc.param_count() + pc.num_layers * (
             pc.ssm_n_heads + pc.ssm_d_inner)
+    elif pc.family in ("dense", "moe"):
+        assert total == pc.param_count()
+    else:
+        # the VLM's and the enc-dec family's analytic counts are
+        # estimates (frontend, padding, biases): the count is the
+        # reference's spec tree's
+        assert total == sum(int(np.prod(s)) for s in want.values())
 
 
 def test_entry_points_default_to_cuda():

@@ -89,6 +89,37 @@ def test_ffr_shed_on_the_ssm_family():
     assert trace.metrics.counters.get("serve.sheds") == 1
 
 
+@pytest.mark.parametrize("arch", ["whisper-medium", "olmoe-1b-7b"])
+def test_ffr_shed_on_the_encdec_and_moe_families(arch):
+    """whisper-medium encodes a batch of frames and fills the cross K/V
+    before its teacher-forced prompt; olmoe-1b-7b decodes through every
+    expert.  Both thin the batch at the same step, under the budget, and
+    the enc-dec cache holds the encoder's cross K/V."""
+    import repro_torch.models.encdec as p_ed
+    trace.get_tracer().clear()
+    seen = []
+    orig = p_ed.precompute_cross_kv
+
+    def record(cfg, params, enc_out):
+        seen.append(tuple(enc_out.shape))
+        return orig(cfg, params, enc_out)
+
+    p_ed.precompute_cross_kv = record
+    try:
+        out = run_serve(_args(arch=arch), device=CPU)
+    finally:
+        p_ed.precompute_cross_kv = orig
+    assert out["shed_at"] == 8 // 2
+    assert 1 <= out["active"] < out["batch"]
+    assert out["response_ms"] < float(
+        markets.BUDGET_MS[markets.PRODUCT_ORDER.index("FFR")])
+    assert len(trace.get_tracer().events("serve.shed")) == 1
+    from repro_torch.configs import get_arch
+    cfg = get_arch(arch).reduced()
+    assert seen == ([(4, cfg.encoder_seq, cfg.d_model)]
+                    if arch == "whisper-medium" else [])
+
+
 def test_no_gridpilot_no_shed():
     trace.get_tracer().clear()
     out = run_serve(_args(gridpilot=False, decode_tokens=4), device=CPU)

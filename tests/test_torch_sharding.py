@@ -8,7 +8,7 @@ The rules are held on every ``ParamSpec`` of all ten arch configs (the
 reference builds every family; both rule sets get the reference model's
 axes and shapes), which covers expert parallelism on olmoe-1b-7b and TP
 experts on mixtral-8x22b.  The spec trees of a ``StepBundle`` are held
-leaf by leaf for the six archs whose family the port builds.  Then
+leaf by leaf for all ten, every family of which the port builds.  Then
 ``layers.shard``'s resolution, DTensor placements, and the elastic
 checkpoint restore onto a (1, 1) ``DeviceMesh``."""
 import dataclasses
@@ -28,6 +28,7 @@ from repro.configs import list_archs
 from repro.configs.base import SHAPES as R_SHAPES
 from repro.models import build_model as r_build
 from repro.sharding.rules import MeshRules as RMeshRules
+import repro_torch.models.api as p_api
 import repro_torch.train.step as p_step
 from repro_torch.configs import get_arch as p_arch
 from repro_torch.configs.base import SHAPES as P_SHAPES
@@ -40,9 +41,8 @@ from test_torch_common import CPU
 MESHES = [((1, 1), ("data", "model")), ((2, 4), ("data", "model")),
           ((4, 2), ("data", "model")), ((2, 16, 16), ("pod", "data", "model"))]
 ARCHS = list_archs()
-# the families the port builds (ROADMAP A13c adds moe, encdec and vlm)
-BUILT = [a for a in ARCHS
-         if r_arch(a).family in ("dense", "ssm", "hybrid")]
+# the archs whose family the port builds: every one
+BUILT = [a for a in ARCHS if r_arch(a).family in p_api.FAMILIES]
 
 
 def _abstract(shape, axes):
@@ -63,9 +63,13 @@ def _param_specs(arch):
 
 
 def test_built_families_are_the_six():
+    """Once the six archs of the dense, SSM and hybrid families; now all
+    ten, the MoE, VLM and enc-dec families with them."""
     assert sorted(BUILT) == sorted(
         ["command-r-plus-104b", "mamba2-1.3b", "qwen2-1.5b",
-         "smollm-135m", "yi-9b", "zamba2-2.7b"])
+         "smollm-135m", "yi-9b", "zamba2-2.7b", "olmoe-1b-7b",
+         "mixtral-8x22b", "phi-3-vision-4.2b", "whisper-medium"])
+    assert len(set(BUILT)) == len(ARCHS) == 10
 
 
 @pytest.mark.parametrize("mesh_shape,axes", MESHES,

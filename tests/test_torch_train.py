@@ -1,8 +1,10 @@
 """The port's training path against ``repro``: ``Model.loss`` and its
 gradients, one ``make_train_step`` step (with and without microbatches)
-from the same parameters, batch and a non-trivial AdamW state, the remat
-policies, the smoke loss-and-grad of every ported arch, and the step's
-FLOP count against ``torch.utils.flop_counter`` on the plain path.
+from the same parameters, batch and a non-trivial AdamW state (and
+whisper-medium's, whose metrics are {"ce"} alone), the remat policies,
+the smoke loss-and-grad of every arch (for the MoE, VLM and enc-dec
+families against ``jax.grad``), and the step's FLOP count against
+``torch.utils.flop_counter`` on the plain path.
 
 The parameters are the reference's tree filled from a numpy seed
 (``test_torch_models._params_np``), carried over by
@@ -19,15 +21,13 @@ import torch
 from torch.utils.flop_counter import FlopCounterMode
 
 from test_torch_common import CPU
-from test_torch_models import _both, _params_np, _tokens
-import repro.models.transformer as r_tr
+from test_torch_models import _batch_np, _both, _params_np, _tokens
 from repro.configs import get_arch as r_arch
 from repro.models import build_model as r_build
 from repro.optim import AdamWState as RAdamWState
 from repro.train.step import make_train_step as r_make_train_step
 import repro_torch.configs as p_configs
 import repro_torch.core.plant as p_plant
-import repro_torch.models.transformer as p_tr
 from repro_torch import convert
 from repro_torch._tree import leaves_with_paths
 from repro_torch.models import build_model as p_build
@@ -106,7 +106,7 @@ def _adamw_np(ref_cfg, seed=3, step=150):
     """A non-trivial AdamW state past warm-up: numpy moments (nu > 0) of
     the parameters' shapes, step 150."""
     rng = np.random.default_rng(seed)
-    specs = r_tr.lm_specs(ref_cfg)
+    specs = r_build(ref_cfg).specs()
     is_spec = dict(is_leaf=lambda x: hasattr(x, "init"))
     mu = jax.tree.map(lambda s: (1e-3 * rng.standard_normal(s.shape))
                       .astype(np.float32), specs, **is_spec)
@@ -154,7 +154,8 @@ def _loss_grads(pc, pp, pb):
     return loss_and_grads(pm, pp, pb)
 
 
-@pytest.mark.parametrize("arch", ["qwen2-1.5b", "zamba2-2.7b"])
+@pytest.mark.parametrize("arch", ["qwen2-1.5b", "zamba2-2.7b",
+                                  "olmoe-1b-7b"])
 def test_remat_policies_change_no_number(arch):
     rc, pc, rp, pp = _both(arch)
     _, pb = _batch(rc, seed=5)
@@ -221,24 +222,81 @@ def test_load_from_cost_analysis_uses_the_h100():
     assert p_plant.attention_pairs(10, window=4) == 1 + 2 + 3 + 4 + 6 * 4
 
 
+# the MoE, VLM and enc-dec families: their smoke case also holds the
+# loss and every gradient against the reference's jax.grad
+NEW_FAMILIES = ("moe", "vlm", "encdec")
+
+
 @pytest.mark.parametrize("arch", p_configs.list_archs())
 def test_smoke_loss_and_grad(arch):
-    """tests/test_models.py's smoke test on every arch the port runs."""
+    """tests/test_models.py's smoke test on every arch: a finite loss and
+    finite, nonzero gradients of a (2, 16) batch (with the VLM's embeds
+    or the enc-dec family's frames); for the MoE, VLM and enc-dec
+    families, the loss and gradients against ``jax.grad`` of the same
+    parameters."""
     import repro_torch.configs.archs  # noqa: F401  (registry)
     cfg = p_configs.get_arch(arch).reduced()
-    if cfg.family not in p_tr.PORTED:
-        with pytest.raises(NotImplementedError, match="A13c"):
-            p_build(cfg, compute_dtype=torch.float32, device=CPU)
-        return
-    model = p_build(cfg, compute_dtype=torch.float32, device=CPU)
-    params = model.init(0)
-    tokens = (torch.arange(2 * 16).reshape(2, 16) % cfg.vocab_size).to(
-        torch.int32)
-    loss, metrics, grads = loss_and_grads(model, params, {"tokens": tokens})
+    if cfg.family in NEW_FAMILIES:
+        rc, cfg, rp, params, rm, model = _models(arch)
+    else:
+        model = p_build(cfg, compute_dtype=torch.float32, device=CPU)
+        params = model.init(0)
+    batch = _batch_np(cfg, seed=10)
+    batch["tokens"] = (np.arange(2 * 16).reshape(2, 16)
+                       % cfg.vocab_size).astype(np.int32)
+    loss, metrics, grads = loss_and_grads(
+        model, params, {k: torch.from_numpy(v) for k, v in batch.items()})
     assert torch.isfinite(loss) and float(loss) > 0
     g = [x for _, x in leaves_with_paths(grads)]
     assert all(torch.isfinite(x).all() for x in g)
     assert any(float(x.abs().max()) > 0 for x in g)
+    assert set(metrics) == ({"ce"} if cfg.family == "encdec"
+                            else {"ce", "zloss", "aux"})
+    if cfg.family not in NEW_FAMILIES:
+        return
+    (want_loss, want_m), want = jax.jit(jax.value_and_grad(
+        rm.loss, has_aux=True))(rp, {k: jnp.asarray(v)
+                                     for k, v in batch.items()})
+    np.testing.assert_allclose(float(loss), float(want_loss), **LOSS_F32)
+    for k in want_m:
+        np.testing.assert_allclose(float(metrics[k]), float(want_m[k]),
+                                   **LOSS_F32, err_msg=k)
+    if cfg.family == "moe":
+        assert float(metrics["aux"]) > 0
+    want, got = _flat(want), _flat(grads)
+    assert set(got) == set(want)
+    for k in want:
+        np.testing.assert_allclose(got[k], want[k], **GRAD_F32, err_msg=k)
+
+
+def test_encdec_train_step_matches_reference():
+    """One make_train_step step of whisper-medium (reduced) over two
+    microbatches from the same parameters, batch and AdamW state: the
+    step accumulates {"ce"} alone, as the reference's does."""
+    rc, pc, rp, pp, rm, pm = _models("whisper-medium")
+    batch = _batch_np(rc, b=4, seed=11)
+    st = _adamw_np(rc)
+    r_opt = RAdamWState(step=jnp.int32(st["step"]),
+                        mu=jax.tree.map(jnp.asarray, st["mu"]),
+                        nu=jax.tree.map(jnp.asarray, st["nu"]))
+    step = int(st["step"])
+    r_params, r_opt, r_m = jax.jit(r_make_train_step(rm, microbatches=2))(
+        rp, r_opt, {k: jnp.asarray(v) for k, v in batch.items()},
+        jnp.int32(step))
+    p_params, p_opt, p_m = make_train_step(pm, microbatches=2)(
+        pp, convert.adamw_state(st, device=CPU),
+        {k: torch.from_numpy(v) for k, v in batch.items()}, step)
+    assert set(p_m) == set(r_m)
+    assert "zloss" not in p_m and "aux" not in p_m
+    for k in ("loss", "ce", "grad_norm", "lr"):
+        np.testing.assert_allclose(float(p_m[k]), float(r_m[k]), rtol=1e-5,
+                                   err_msg=k)
+    for name, want, got in (("params", r_params, p_params),
+                            ("mu", r_opt.mu, p_opt.mu)):
+        want, got = _flat(want), _flat(got)
+        for k in want:
+            np.testing.assert_allclose(got[k], want[k], **STEP_F32,
+                                       err_msg=f"{name}/{k}")
 
 
 @pytest.mark.parametrize("policy,per_layer", [("none", 1), ("dots", 2),

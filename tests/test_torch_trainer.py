@@ -98,6 +98,40 @@ def test_pipeline_token_override():
     p = TokenPipeline(batch=2, seq=16, vocab=100, device=CPU,
                       tokens=lambda step: ref + step)
     np.testing.assert_array_equal(p.batch_at(3)["tokens"].numpy(), ref + 3)
+    # a dict carries the reference's embeds or frames beside the tokens
+    frames = np.linspace(-1, 1, 2 * 5 * 4, dtype=np.float32).reshape(2, 5, 4)
+    p = TokenPipeline(batch=2, seq=16, vocab=100, device=CPU,
+                      tokens=lambda step: {"tokens": ref + step,
+                                           "frames": frames * step})
+    got = p.batch_at(2)
+    assert set(got) == {"tokens", "frames"}
+    assert got["tokens"].dtype == torch.int32
+    assert got["frames"].dtype == torch.float32
+    np.testing.assert_array_equal(got["frames"].numpy(), frames * 2)
+
+
+@pytest.mark.parametrize("key", ["embeds", "frames"])
+def test_data_pipeline_draws_frontend_inputs(key):
+    """The VLM's embeds and the enc-dec family's frames: the same for the
+    same (seed, step), 0.02 x standard normals (mean 0, spread 0.02)."""
+    from repro_torch.data.tokens import TokenPipeline, synthetic_batch
+    kw = {"embeds": dict(frontend_tokens=64), "frames": dict(
+        encoder_seq=64)}[key]
+    p = TokenPipeline(batch=2, seq=16, vocab=100, seed=3, d_model=128,
+                      device=CPU, **kw)
+    a, b, c = (p.batch_at(s) for s in (7, 7, 8))
+    assert set(a) == {"tokens", key}
+    assert tuple(a[key].shape) == (2, 64, 128)
+    assert a[key].dtype == torch.float32
+    assert torch.equal(a[key], b[key]) and not torch.equal(a[key], c[key])
+    assert torch.equal(a[key], synthetic_batch(3, 7, 2, 16, 100, d_model=128,
+                                               **kw)[key])
+    # the tokens are the token-only pipeline's
+    assert torch.equal(a["tokens"], TokenPipeline(
+        batch=2, seq=16, vocab=100, seed=3, device=CPU).batch_at(7)["tokens"])
+    x = a[key].double()
+    assert abs(float(x.mean())) < 5e-4
+    assert float(x.std()) == pytest.approx(0.02, rel=0.02)
 
 
 class _FakeGP:
@@ -203,6 +237,24 @@ def test_launcher_cli(capsys):
                  "--device", "cpu"]) == 0
     out = capsys.readouterr().out
     assert "done: 3 steps" in out and "skipped 0" in out
+
+
+@pytest.mark.parametrize("arch", ["olmoe-1b-7b", "phi-3-vision-4.2b",
+                                  "whisper-medium"])
+def test_launcher_cli_trains_moe_vlm_and_encdec(arch, capsys):
+    """The MoE, VLM and enc-dec families through the launcher (reduced, on
+    the CPU): the trainer's pipeline draws the VLM's embeds (its seq less
+    the frontend positions) and whisper's frames, every step runs, the
+    losses finite."""
+    from repro_torch.launch.train import main
+    assert main(["--arch", arch, "--steps", "3", "--batch", "2", "--seq",
+                 "32", "--device", "cpu"]) == 0
+    out = capsys.readouterr().out
+    assert "done: 3 steps" in out and "skipped 0" in out
+    done = out[out.index("done:"):]
+    first, last = (float(v) for v in
+                   done.split("loss ")[1].split(",")[0].split(" -> "))
+    assert np.isfinite(first) and np.isfinite(last)
 
 
 @pytest.mark.parametrize("arch", ["mamba2-1.3b", "zamba2-2.7b"])
