@@ -5,8 +5,8 @@
     python3 chip_smoke.py --flash-only   # build and flash_attention only
     python3 chip_smoke.py --ssd-only     # build and ssd_scan only
     python3 chip_smoke.py --train-only   # build, flash_bwd, train, ssd_bwd,
-                                         # train_ssm, train_hybrid and
-                                         # train_cuts only
+                                         # train_ssm, train_fsdp,
+                                         # train_hybrid and train_cuts only
 
 Phases, each printing one JSON line; any failure ends the run with a
 nonzero exit and no result line:
@@ -177,6 +177,34 @@ nonzero exit and no result line:
               weights alone to bf16 moving their f32 gradient more than
               2e-2) may miss 2e-2 if the kernels' bf16 gradient lies no
               farther from float64 than the plain versions' does
+  train_fsdp  the sharded training state (after train_ssm): (a) the
+              Trainer at full mamba2-1.3b width and depth on
+              make_local_mesh() -- a world of one on NCCL, (1, 1) -- its
+              parameters and moments DTensors placed by the fsdp_tp plan,
+              for 3 steps of train_ssm's (4, 2048) tokens in 4
+              microbatches: fails on a non-finite loss, on other than 384
+              / 192 scan launches a step, on resident bytes other than
+              the shards' by placement, or on losses more than 2e-2 from
+              train_ssm's at the same steps (same seed and tokens); ms a
+              step against train_ssm's (the DTensor path's host cost),
+              peak memory, the collectives' bytes and seconds; (b) two
+              worker processes of this script sharing the card on gloo
+              under the REPRO_* contract, a (data 2, model 1) mesh,
+              mamba2-1.3b at full width cut to 2 layers, a global batch of
+              (8, 2048) in 4 microbatches, in bf16 and in f32: 4
+              replicated steps past the warm-up (ids 146-149, lr 3e-4)
+              give both runs nonzero moments and moved weights, then
+              steps 150 and 151 run sharded and replicated from that
+              state; fails unless each rank's resident bytes equal its
+              shards' by placement, every loss is finite, and the
+              losses, grad norms and every leaf after the steps meet
+              one process's replicated step on the same global batch
+              (f32 1e-4 norm-relative per leaf, the parameters' change
+              over the two steps too; bf16 2e-2); the collectives are
+              torch.distributed's
+              on CUDA tensors over gloo (DTensor's own redistribution
+              faults there on torch 2.11), their bytes and seconds
+              printed
   train_cuts  one step's loss and gradient at full width, 2 layers (and
               2 encoder layers), through the kernels and through the plain
               versions, every leaf held at 2e-2 norm-relative in bf16 and
@@ -247,7 +275,7 @@ nonzero exit and no result line:
               under AllocationChurn (printed, not enforced)
   twin        Fig. 4 (benchmarks/cluster_24h.py): 100 hosts x 3 chips on the
               DE grid, seeds 0-2 as one run_twin_batch over 24 h or the
-              longest whole number of hours the phase's 65 s allow
+              longest whole number of hours the phase's 55 s allow
               (printed as a cut): scenario-seconds per wall second, ms per
               tick, one tick's device time and launches, peak memory, seed
               0's summary beside the paper's, the net-CO2 decomposition at
@@ -264,6 +292,13 @@ nonzero exit and no result line:
               per design) beside the paper's 2.5-5.8 pp (not enforced);
               the fast batch on the CPU and on the card (totals and CFE
               rtol 1e-3, pp 1e-3, picks equal but for near-ties)
+
+  dryrun      (started after the train phases, in two CPU processes
+              beside the remaining phases; read last) python -m repro_torch.launch.dryrun
+              --mesh single for mamba2-1.3b x train_4k and qwen2-1.5b x
+              decode_32k: one step each as rank 0 of a fake 256-rank
+              world on meta tensors; fails unless both exit 0 with status
+              ok; their records printed
 
 Then a {"kernels": [...]} line, the card's name and power limit as
 nvidia-smi reports them, and the last line
@@ -284,9 +319,10 @@ import numpy as np
 ROOT = os.path.dirname(os.path.abspath(__file__))
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM data sheet
 L2_BYTES = 50 * 2**20              # H100 SXM, where torch does not report it
-# wall time the 24 h rollout may spend (cut from 150 s, then 100, to make
-# room for the later phases; the horizon it allows is printed as a cut)
-ENGINE_BUDGET_S = 70.0
+# wall time the 24 h rollout may spend (cut from 150 s, then 100, then 70,
+# to make room for the later phases; the horizon it allows is printed as a
+# cut)
+ENGINE_BUDGET_S = 60.0
 KERNEL_TOL = dict(atol=1e-4, rtol=1e-5)
 # E4's closed loop through pid_update against the same loop through its
 # plain version: a 1-ulp change of every tick's PID outputs moves the
@@ -355,7 +391,7 @@ SERVICE_MAX_RSS_GROWTH_MB = 64.0
 PROFILED_STEPS = 8               # opt steps in the bidder's profiled run
 # the paper's experiments (benchmarks/e2, e4, e7, cluster_24h, e9)
 FR_LATENCY_PORT = 47661          # UDP port of fr_latency's island
-TWIN_BUDGET_S = 65.0             # wall time of the whole twin phase (was 80)
+TWIN_BUDGET_S = 55.0             # wall time of the whole twin phase (was 65)
 TWIN_SEEDS = (0, 1, 2)
 TWIN_PAPER = {"ar4_mae_norm": 0.036, "ar4_p95_norm": 0.09, "q_ffr": 1.0,
               "mean_mu_green": 0.90, "mean_mu_dirty": 0.40,
@@ -387,7 +423,7 @@ def cuda_time_ms(torch, fn, reps=100):
     return statistics.median(times)
 
 
-def profile_calls(torch, fn, reps, match=(), groups=None):
+def profile_calls(torch, fn, reps, match=(), groups=None, require=()):
     """Run ``fn`` ``reps`` times under torch.profiler (CUPTI): device time
     and kernel launches per call, the device time per call and per launch
     of the kernels whose name holds each string of ``match`` (the latter
@@ -395,7 +431,11 @@ def profile_calls(torch, fn, reps, match=(), groups=None):
     label of ``groups`` the device time per call of the kernels whose
     base name (``kernel_base``) is one of its names, each kernel's mean
     per launch times its launches per call rounded, and the five ops with
-    the most host time (inflated by the profiler; for ranking only)."""
+    the most host time (inflated by the profiler; for ranking only).  A
+    window is taken again (three at most) where CUPTI lost so many events
+    that the rounded time per call reads zero, where a grouped kernel's
+    events were mostly lost, or where a group of ``require`` has no
+    kernel in it."""
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.obs.trace import kernel_base
     cuda = torch.autograd.DeviceType.CUDA
@@ -404,9 +444,22 @@ def profile_calls(torch, fn, reps, match=(), groups=None):
         return getattr(e, "self_device_time_total", None) or \
             getattr(e, "self_cuda_time_total", 0.0)
 
+    def whole(kernels):
+        # device time in the window, per call once the rounding drops what
+        # CUPTI lost, and no grouped kernel mostly lost
+        return sum(dev_us(e) / max(e.count, 1) * round(e.count / reps)
+                   for e in kernels) > 0 and not any(
+            e.count and not round(e.count / reps) for e in kernels
+            if any(kernel_base(e.key) in n for n in (groups or {}).values()))
+
+    def seen(kernels, names):
+        return any(kernel_base(e.key) in names for e in kernels)
+
     fn()
     torch.cuda.synchronize()
-    for _ in range(3):  # CUPTI now and then delivers no device events
+    # CUPTI now and then delivers no device events, or drops most of a
+    # kernel's: a window where a group's kernels are missing is taken again
+    for _ in range(3):
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             for i in range(reps):
@@ -414,11 +467,12 @@ def profile_calls(torch, fn, reps, match=(), groups=None):
             torch.cuda.synchronize()
         ev = prof.key_averages()
         kernels = [e for e in ev if e.device_type == cuda]
-        if sum(dev_us(e) for e in kernels) > 0:
+        if whole(kernels) and all(seen(kernels, groups[label])
+                                  for label in require):
             break
     else:
-        raise RuntimeError("the profiler recorded no device time in three "
-                           "windows")
+        raise RuntimeError("the profiler recorded no device time, or none "
+                           "of a group's kernels, in three windows")
     top = sorted((e for e in ev if e.key.startswith("aten::")),
                  key=lambda e: e.self_cpu_time_total, reverse=True)[:5]
     return {
@@ -1547,42 +1601,6 @@ def mesh_worker(out_dir):
     return 0
 
 
-def spawn_mesh_workers(out_dir, n=2):
-    """``n`` workers of this script under the REPRO_* contract on a free
-    localhost port; fails if one fails or outlives its timeout (all are
-    killed then)."""
-    import socket
-    with socket.socket() as sk:
-        sk.bind(("127.0.0.1", 0))
-        port = sk.getsockname()[1]
-    procs = []
-    try:
-        for r in range(n):
-            env = dict(os.environ, REPRO_COORD_ADDR=f"127.0.0.1:{port}",
-                       REPRO_NUM_PROCESSES=str(n), REPRO_PROCESS_ID=str(r))
-            procs.append(subprocess.Popen(
-                [sys.executable, os.path.abspath(__file__), "--mesh-worker",
-                 out_dir], env=env, stdout=subprocess.PIPE,
-                stderr=subprocess.STDOUT, text=True))
-        deadline = time.monotonic() + MESH_WORKER_TIMEOUT_S
-        for r, p in enumerate(procs):
-            out, _ = p.communicate(
-                timeout=max(deadline - time.monotonic(), 1.0))
-            if p.returncode != 0:
-                raise RuntimeError(f"mesh: worker {r} exited "
-                                   f"{p.returncode}: {out[-3000:]}")
-    finally:
-        for p in procs:
-            if p.poll() is None:
-                p.kill()
-                p.communicate()
-    recs = []
-    for r in range(n):
-        with open(os.path.join(out_dir, f"rank{r}.json")) as f:
-            recs.append(json.load(f))
-    return recs
-
-
 def mesh_compare(got, want, hourly):
     """Finalized sweep metrics against the single process's: hourly at
     rtol 1e-4 / atol 1e-5; the seconds tier at 1e-3 for energy and money,
@@ -1629,7 +1647,7 @@ def phase_mesh(torch):
     torch.cuda.empty_cache()   # the workers open contexts of their own
     with tempfile.TemporaryDirectory(prefix="chip_smoke_mesh_") as d:
         t0 = time.perf_counter()
-        recs = spawn_mesh_workers(d)
+        recs = spawn_workers("--mesh-worker", d, MESH_WORKER_TIMEOUT_S)
         workers_s = time.perf_counter() - t0
     rec = {"phase": "mesh", "workers_s": workers_s,
            "workers": [{"rank": r["rank"], "world": r["world"],
@@ -2445,7 +2463,7 @@ def time_flash_bwd(torch, g, shape, plain_reps, causal=True, sk=None):
     kept = []
     groups = fa.BWD_KERNELS[torch.bfloat16]
     prof_k = profile_calls(torch, cycled(sets, kernels, kept), 10,
-                           groups=groups)
+                           groups=groups, require=tuple(groups))
     kept.clear()
     sdpa = graphs(lambda q, k, v: F.scaled_dot_product_attention(
         q, k, v, is_causal=causal, enable_gqa=True),
@@ -3228,6 +3246,7 @@ def run_trainer(torch, phase, cfg, batch_shape, steps, trigger_after, port,
             "remat": cfg.plan.remat,
             "plan": {"mu": plan.mu, "rho": plan.rho},
             "losses": losses, "ms_per_step": ms,
+            "loss_by_step": {h["step"]: h["loss"] for h in hist},
             "step_ms": [d * 1e3 for d in dts], "wall_s": wall_s,
             "tokens_per_s": b * s / (ms * 1e-3), "peak_gb": peak_gb,
             "launches": launches, "launches_expected": want,
@@ -3449,7 +3468,6 @@ def phase_train_dp(torch, train):
     from repro_torch.configs.base import ShapeConfig
     from repro_torch.data.tokens import TokenPipeline
     from repro_torch.launch.mesh import make_local_mesh
-    from repro_torch.optim import adamw_init
     from repro_torch.sharding.rules import MeshRules
     from repro_torch.train import step as st
     t_phase = time.perf_counter()
@@ -3461,8 +3479,9 @@ def phase_train_dp(torch, train):
         bundle = st.build_step_bundle(
             cfg, ShapeConfig("smoke_train_dp", s, b, "train"),
             device="cuda", mesh=mesh, compressed=True)
-        params = bundle.model.init(0)
-        opt = adamw_init(params)
+        # the moments ZeRO-1 DTensors, as the reference's compressed
+        # bundle places them (whole on a world of one)
+        params, opt = bundle.init_state(0)
         res = st.init_residual(bundle.model, bundle.rules)
         n_leaves = len(leaves(params))
         pipe = TokenPipeline(b, s, cfg.vocab_size, device="cuda")
@@ -3543,8 +3562,8 @@ def phase_train_ssm(torch, phase, arch):
     2048-token sequence) for TRAIN_SSM_STEPS steps of TRAIN_SSM_SHAPE
     tokens, every scan's gradient through ssd_scan_bwd (and the hybrid's
     shared attention through the attention backward); then the 2-layer
-    kernels-vs-plain check on one microbatch.  Returns each kernel's
-    launches in the trainer's run."""
+    kernels-vs-plain check on one microbatch.  Returns the trainer's
+    record (each kernel's launches under "launches")."""
     t_phase = time.perf_counter()
     cfg = get_cfg(arch)
     b, s = TRAIN_SSM_SHAPE
@@ -3560,7 +3579,7 @@ def phase_train_ssm(torch, phase, arch):
                   "why": "one card; the reference's train_4k is 256 x "
                          "4096 on a pod"},
           "cut_check": cut, "seconds": time.perf_counter() - t_phase})
-    return res["launches"]
+    return res
 
 
 E8_REPS = 20                 # timed sweeps of the full batch
@@ -3712,10 +3731,360 @@ def phase_families(torch, flash_rec, free):
     free()
 
 
+TRAIN_FSDP_STEPS = 3              # (a): the sharded trainer's steps
+TRAIN_FSDP_REL = 2e-2             # (a) against train_ssm; (b) bf16 per leaf
+TRAIN_FSDP_F32_REL = 1e-4         # (b) in f32 compute, per leaf
+TRAIN_FSDP_SHAPE = (8, 2048)      # (b): 4 rows a rank, 1 a microbatch
+TRAIN_FSDP_LAYERS = 2             # (b): mamba2-1.3b's 48 layers cut to 2
+TRAIN_FSDP_WARM_IDS = (146, 147, 148, 149)  # (b): replicated, past warm-up
+TRAIN_FSDP_STEP_IDS = (150, 151)  # (b): sharded against replicated
+FSDP_WORKER_TIMEOUT_S = 300
+DRYRUN_CELLS = (("mamba2-1.3b", "train_4k"), ("qwen2-1.5b", "decode_32k"))
+DRYRUN_TIMEOUT_S = 900
+
+
+def fsdp_worker(out_dir):
+    """One rank of train_fsdp (b) (REPRO_* set by the parent; the ranks
+    share the card, so gloo): mamba2-1.3b at full width cut to
+    TRAIN_FSDP_LAYERS layers on make_local_mesh()'s (2, 1) mesh, in bf16
+    and then f32 compute.  One process's replicated step takes the whole
+    TRAIN_FSDP_SHAPE batch through TRAIN_FSDP_WARM_IDS (past the lr's
+    warm-up, so the moments are nonzero and every step moves the
+    weights); that state, placed, takes the sharded step for
+    TRAIN_FSDP_STEP_IDS on this rank's rows, and the replicated step goes
+    on from it beside.  Each rank holds its shard of every leaf against
+    its chunk of the replicated leaf, and the ranks' squared sums are
+    added (each element once), so no leaf is gathered for the
+    comparison."""
+    import dataclasses
+    import torch
+    import torch.distributed as dist
+    sys.path.insert(0, os.path.join(ROOT, "src"))
+    from repro_torch._tree import leaves, leaves_with_paths, tree_map
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.optim import AdamWState
+    from repro_torch.sharding import fsdp
+    from repro_torch.train import step as st
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    mesh = make_local_mesh("cuda")
+    rank = dist.get_rank()
+    cfg = dataclasses.replace(get_cfg("mamba2-1.3b"),
+                              num_layers=TRAIN_FSDP_LAYERS)
+    b, s = TRAIN_FSDP_SHAPE
+    shape = ShapeConfig("smoke_train_fsdp", s, b, "train")
+    tokens = torch.randint(cfg.vocab_size, (b, s), dtype=torch.int32,
+                           generator=torch.Generator().manual_seed(7))
+    rec = {"rank": rank, "world": dist.get_world_size(),
+           "backend": dist.get_backend(),
+           "mesh": dict(zip(mesh.mesh_dim_names, mesh.shape)),
+           "runs": {}}
+    for dname, dtype in (("bfloat16", torch.bfloat16),
+                         ("float32", torch.float32)):
+        kw = dict(compute_dtype=dtype)
+        rb = st.build_step_bundle(cfg, shape, device="cuda", model_kw=kw)
+        p, o = rb.init_state(0)
+        whole = {"tokens": tokens.cuda()}
+        for i in TRAIN_FSDP_WARM_IDS:
+            p, o, _ = rb.step_fn(p, o, whole, i)
+        bundle = st.build_step_bundle(cfg, shape, device="cuda", mesh=mesh,
+                                      model_kw=kw)
+        init = bundle.init_state(0)
+        held = fsdp.shard_bytes((init[0], init[1].mu, init[1].nu))
+        del init
+        want = bundle.state_bytes()
+
+        def put(tree, places):
+            return tree_map(lambda t, pl: fsdp.place(t.clone(), mesh, pl),
+                            tree, places)
+        params = put(p, bundle.param_placements)
+        opt = AdamWState(step=o.step.clone(),
+                         mu=put(o.mu, bundle.opt_placements.mu),
+                         nu=put(o.nu, bundle.opt_placements.nu))
+        places = [(x.placements, fsdp.replicas(x)) if fsdp.is_sharded(x)
+                  else (None, dist.get_world_size())
+                  for x in leaves((params, opt.mu, opt.nu))]
+        n_p = len(leaves(params))
+        before = [fsdp.local(x).detach().to("cpu", copy=True)
+                  for x in leaves(params)]
+        rows = st.batch_rows(bundle.rules, b, mesh.get_coordinate(),
+                             cfg.plan.microbatches)
+        batch = {"tokens": tokens[rows].cuda()}
+        losses, norms, dts = [], [], []
+        coll = fsdp.reset_collective_stats()
+        torch.cuda.synchronize()
+        for i in TRAIN_FSDP_STEP_IDS:
+            t0 = time.perf_counter()
+            params, opt, m = bundle.step_fn(params, opt, batch, i)
+            losses.append(float(m["loss"]))
+            norms.append(float(m["grad_norm"]))
+            dts.append(time.perf_counter() - t0)
+        shards = [fsdp.local(x).detach().cpu()
+                  for x in leaves((params, opt.mu, opt.nu))]
+        del params, opt, bundle
+        torch.cuda.empty_cache()
+        rep, rep_norms = [], []
+        for i in TRAIN_FSDP_STEP_IDS:
+            p, o, m = rb.step_fn(p, o, whole, i)
+            rep.append(float(m["loss"]))
+            rep_norms.append(float(m["grad_norm"]))
+        named = list(leaves_with_paths((p, o.mu, o.nu)))
+        names = ["/".join(path) for path, _ in named]
+        chunks = [(r if pl is None else fsdp.local_chunk(r, mesh, pl))
+                  .detach().cpu() for (_, r), (pl, _) in zip(named, places)]
+        del p, o, rb, named, whole
+        torch.cuda.empty_cache()
+        rels = shard_rels(torch, shards, chunks, places)
+        moved = shard_rels(
+            torch, [a - w for a, w in zip(shards[:n_p], before)],
+            [a - w for a, w in zip(chunks[:n_p], before)], places[:n_p])
+        order = sorted(range(len(rels)), key=lambda k: -rels[k])
+        worst_moved = max(range(n_p), key=lambda k: moved[k])
+        rec["runs"][dname] = {
+            "resident_bytes": held, "placed_bytes": want,
+            "losses": losses, "grad_norms": norms, "step_s": dts,
+            "replicated_losses": rep, "replicated_grad_norms": rep_norms,
+            "loss_rel": max(abs(a - r) / abs(r)
+                            for a, r in zip(losses, rep)),
+            "grad_norm_rel": max(abs(a - r) / abs(r)
+                                 for a, r in zip(norms, rep_norms)),
+            "leaves": len(rels), "worst_leaf_rel": max(rels),
+            "worst_leaf": names[order[0]],
+            "worst_leaves": {names[k]: rels[k] for k in order[:6]},
+            "worst_change_rel": moved[worst_moved],
+            "worst_change_leaf": names[worst_moved],
+            "gathers_and_scatters": {
+                "bytes_by_op_per_step": {k: v / len(dts) for k, v in
+                                         coll["bytes_by_op"].items()},
+                "calls_per_step": coll["calls"] / len(dts),
+                "seconds_per_step": coll["seconds"] / len(dts)}}
+        del shards, chunks, before
+    dist.destroy_process_group()
+    with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+        json.dump(rec, f)
+    return 0
+
+
+def shard_rels(torch, got, want, places) -> list:
+    """Each leaf's |got - want| / |want| over the whole leaf, from this
+    rank's chunks: the squared sums of every rank added by one
+    all-reduce, each divided by the ranks holding the same elements."""
+    import torch.distributed as dist
+    sums = torch.tensor([[float((g.double() - w.double()).square().sum()),
+                          float(w.double().square().sum())]
+                         for g, w in zip(got, want)], dtype=torch.float64)
+    sums /= torch.tensor([[n] for _, n in places], dtype=torch.float64)
+    dist.all_reduce(sums)
+    return [float((d / max(r, 1e-300)) ** 0.5) for d, r in sums.tolist()]
+
+
+def spawn_workers(flag, out_dir, timeout_s, n=2):
+    """``n`` processes of this script with ``flag`` under the REPRO_*
+    contract on a free localhost port; fails if one fails or outlives
+    ``timeout_s`` (all are killed then).  Returns each rank's record."""
+    import socket
+    with socket.socket() as sk:
+        sk.bind(("127.0.0.1", 0))
+        port = sk.getsockname()[1]
+    procs = []
+    try:
+        for r in range(n):
+            env = dict(os.environ, REPRO_COORD_ADDR=f"127.0.0.1:{port}",
+                       REPRO_NUM_PROCESSES=str(n), REPRO_PROCESS_ID=str(r))
+            procs.append(subprocess.Popen(
+                [sys.executable, os.path.abspath(__file__), flag, out_dir],
+                env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                text=True))
+        deadline = time.monotonic() + timeout_s
+        for r, p in enumerate(procs):
+            out, _ = p.communicate(
+                timeout=max(deadline - time.monotonic(), 1.0))
+            if p.returncode != 0:
+                raise RuntimeError(f"{flag}: worker {r} exited "
+                                   f"{p.returncode}: {out[-3000:]}")
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    recs = []
+    for r in range(n):
+        with open(os.path.join(out_dir, f"rank{r}.json")) as f:
+            recs.append(json.load(f))
+    return recs
+
+
+def phase_train_fsdp(torch, ssm):
+    """The sharded training state on the card: (a) the Trainer at full
+    mamba2-1.3b width and depth on make_local_mesh() (a world of one on
+    NCCL) for TRAIN_FSDP_STEPS steps of train_ssm's batch, against
+    ``ssm``, train_ssm's record; (b) two ranks sharing the card on gloo
+    (fsdp_worker).  Returns (a)'s launches."""
+    import tempfile
+    import torch.distributed as dist
+    from repro_torch._tree import leaves
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.sharding import fsdp
+    from repro_torch.train.trainer import Trainer, TrainerConfig
+    t_phase = time.perf_counter()
+    cfg = get_cfg("mamba2-1.3b")
+    b, s = TRAIN_SSM_SHAPE
+    mesh = make_local_mesh("cuda")
+    backend = dist.get_backend()
+    try:
+        trainer = Trainer(cfg, ShapeConfig("smoke_train_fsdp", s, b,
+                                           "train"),
+                          TrainerConfig(steps=TRAIN_FSDP_STEPS, log_every=0),
+                          mesh=mesh, device="cuda")
+        torch.cuda.reset_peak_memory_stats()
+        params, opt = trainer.init_state()
+        held = fsdp.shard_bytes((params, opt.mu, opt.nu))
+        want_bytes = trainer.bundle.state_bytes()
+        sharded = sum(fsdp.is_sharded(x) for x in leaves(params))
+        counters = train_launch_counters()
+        for c in counters.values():
+            c.launches = 0
+        coll = fsdp.reset_collective_stats()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = trainer.train(params, opt)
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t0
+        launches = {k: c.launches for k, c in counters.items()}
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        hist = out["history"]
+        del params, opt, out, trainer
+    finally:
+        dist.destroy_process_group()
+    torch.cuda.empty_cache()
+    losses = [h["loss"] for h in hist]
+    want = train_launches_expected(cfg, len(hist))
+    ref = {int(k): v for k, v in ssm["loss_by_step"].items()}
+    common = [h["step"] for h in hist if h["step"] in ref]
+    rel = {st: abs(h["loss"] - ref[st]) / abs(ref[st])
+           for h in hist for st in [h["step"]] if st in ref}
+    if not all(np.isfinite(losses)) or launches != want or \
+            held != want_bytes or len(common) < 2 or \
+            max(rel.values()) > TRAIN_FSDP_REL:
+        raise RuntimeError(
+            f"train_fsdp: losses {losses}, launches {launches} (expected "
+            f"{want}), resident {held} B (by placement {want_bytes}), "
+            f"against train_ssm at steps {common}: {rel}")
+    ms = statistics.median([h["dt"] for h in hist][1:]) * 1e3
+    world_one = {
+        "backend": backend, "mesh": {"data": 1, "model": 1},
+        "arch": cfg.name, "batch": b, "seq": s,
+        "microbatches": cfg.plan.microbatches, "steps": len(hist),
+        "dtensor_param_leaves": sharded, "resident_bytes": held,
+        "placed_bytes": want_bytes, "losses": losses,
+        "train_ssm_losses": {st: ref[st] for st in common},
+        "loss_rel_to_train_ssm": rel, "ms_per_step": ms,
+        "train_ssm_ms_per_step": ssm["ms_per_step"],
+        "dtensor_host_cost_ms_per_step": ms - ssm["ms_per_step"],
+        "step_ms": [h["dt"] * 1e3 for h in hist], "wall_s": wall_s,
+        "peak_gb": peak_gb, "train_ssm_peak_gb": ssm["peak_gb"],
+        "launches": launches, "launches_expected": want,
+        "gathers_and_scatters": dict(coll)}
+    emit({"phase": "train_fsdp", "part": "world_of_one", **world_one,
+          "seconds": time.perf_counter() - t_phase})
+    # (b): two ranks on the card over gloo
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()   # the workers open contexts of their own
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_fsdp_") as d:
+        t0 = time.perf_counter()
+        recs = spawn_workers("--fsdp-worker", d, FSDP_WORKER_TIMEOUT_S)
+        workers_s = time.perf_counter() - t0
+    failed = []
+    for r in recs:
+        for dname, run in r["runs"].items():
+            tol = TRAIN_FSDP_F32_REL if dname == "float32" else \
+                TRAIN_FSDP_REL
+            ok = run["resident_bytes"] == run["placed_bytes"] and \
+                all(np.isfinite(run["losses"])) and \
+                max(run["loss_rel"], run["grad_norm_rel"],
+                    run["worst_leaf_rel"]) <= tol
+            if dname == "float32":
+                ok = ok and run["worst_change_rel"] <= tol
+            if not ok:
+                failed.append((r["rank"], dname, {k: run[k] for k in (
+                    "loss_rel", "grad_norm_rel", "worst_leaves",
+                    "worst_change_rel", "worst_change_leaf",
+                    "resident_bytes", "placed_bytes")}))
+    emit({"phase": "train_fsdp", "part": "two_ranks", **{
+              "arch": cfg.name, "layers": TRAIN_FSDP_LAYERS,
+              "reduced": f"depth {cfg.num_layers} -> {TRAIN_FSDP_LAYERS}: "
+                         "two ranks on one card over gloo, whose CUDA "
+                         "tensors go through host memory (no "
+                         "deployment's wire)",
+              "batch_x_seq": list(TRAIN_FSDP_SHAPE),
+              "warm_steps": list(TRAIN_FSDP_WARM_IDS),
+              "steps": list(TRAIN_FSDP_STEP_IDS), "workers_s": workers_s,
+              "route": "torch.distributed on CUDA tensors over gloo",
+              "ranks": recs},
+          "seconds": time.perf_counter() - t_phase})
+    if failed:
+        raise RuntimeError(f"train_fsdp: two ranks: {failed}")
+    return launches
+
+
+def start_dryruns():
+    """The dry run of DRYRUN_CELLS, each in a CPU process of its own
+    (python -m repro_torch.launch.dryrun --mesh single), started now and
+    read by phase_dryrun; killed at exit if still running."""
+    import atexit
+    import tempfile
+    d = tempfile.mkdtemp(prefix="chip_smoke_dryrun_")
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"),
+               CUDA_VISIBLE_DEVICES="")
+    runs = []
+    for arch, shape in DRYRUN_CELLS:
+        out = os.path.join(d, f"{arch}_{shape}.json")
+        runs.append((arch, shape, out, subprocess.Popen(
+            [sys.executable, "-m", "repro_torch.launch.dryrun", "--mesh",
+             "single", "--arch", arch, "--shape", shape, "--out", out],
+            cwd=ROOT, env=env, stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True)))
+
+    def stop():
+        for *_, p in runs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    atexit.register(stop)
+    return {"runs": runs, "t0": time.perf_counter(), "stop": stop}
+
+
+def phase_dryrun(dryruns):
+    """The dry-run processes' records: fails unless each exited 0 with
+    its cell's status ok."""
+    recs = []
+    try:
+        for arch, shape, out, p in dryruns["runs"]:
+            left = DRYRUN_TIMEOUT_S - (time.perf_counter() - dryruns["t0"])
+            text, _ = p.communicate(timeout=max(left, 1.0))
+            if p.returncode != 0:
+                raise RuntimeError(f"dryrun {arch} x {shape}: exit "
+                                   f"{p.returncode}: {text[-3000:]}")
+            with open(out) as f:
+                rec = [r for r in json.load(f) if r["status"] != "skip"]
+            if len(rec) != 1 or rec[0]["status"] != "ok":
+                raise RuntimeError(f"dryrun {arch} x {shape}: {rec}")
+            recs.append(rec[0])
+    finally:
+        dryruns["stop"]()
+    emit({"phase": "dryrun", "mesh": "single (16 x 16, a fake world of "
+                                     "256 ranks, meta tensors)",
+          "wall_s": time.perf_counter() - dryruns["t0"], "cells": recs})
+
+
 def main() -> int:
     import torch
     if sys.argv[1:2] == ["--mesh-worker"]:
         return mesh_worker(sys.argv[2])
+    if sys.argv[1:2] == ["--fsdp-worker"]:
+        return fsdp_worker(sys.argv[2])
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this "
               "script runs the port on an NVIDIA GPU", file=sys.stderr)
@@ -3741,7 +4110,8 @@ def main() -> int:
         phase_flash_bwd(torch)
         phase_train_dp(torch, phase_train(torch))
         phase_ssd_bwd(torch)
-        phase_train_ssm(torch, "train_ssm", "mamba2-1.3b")
+        phase_train_fsdp(torch, phase_train_ssm(torch, "train_ssm",
+                                                "mamba2-1.3b"))
         phase_train_ssm(torch, "train_hybrid", "zamba2-2.7b")
         phase_train_cuts(torch)
         return 0
@@ -3792,9 +4162,13 @@ def main() -> int:
     free()
     ssd_bwd_rec = phase_ssd_bwd(torch)
     free()
-    ssm = phase_train_ssm(torch, "train_ssm", "mamba2-1.3b")
+    ssm_rec = phase_train_ssm(torch, "train_ssm", "mamba2-1.3b")
+    ssm = ssm_rec["launches"]
     free()
-    hybrid = phase_train_ssm(torch, "train_hybrid", "zamba2-2.7b")
+    fsdp_launches = phase_train_fsdp(torch, ssm_rec)
+    free()
+    hybrid = phase_train_ssm(torch, "train_hybrid",
+                             "zamba2-2.7b")["launches"]
     free()
     phase_train_cuts(torch)
     free()
@@ -3806,9 +4180,14 @@ def main() -> int:
     flash_rec["launches_train_dp"] = dp_launches["flash_attention"]
     flash_rec["launches_train_hybrid"] = hybrid["flash_attention"]
     ssd_rec["launches_train_ssm"] = ssm["ssd_scan"]
+    ssd_rec["launches_train_fsdp"] = fsdp_launches["ssd_scan"]
     ssd_rec["launches_train_hybrid"] = hybrid["ssd_scan"]
     ssd_bwd_rec["launches"] = ssm["ssd_scan_bwd"]
+    ssd_bwd_rec["launches_train_fsdp"] = fsdp_launches["ssd_scan_bwd"]
     ssd_bwd_rec["launches_train_hybrid"] = hybrid["ssd_scan_bwd"]
+    # on the CPU beside the remaining phases (none checks a kernel's
+    # timing); read last
+    dryruns = start_dryruns()
     engine = phase_engine(torch)
     phase_cpu_vs_gpu(torch)
     phase_sweep(torch)
@@ -3820,6 +4199,7 @@ def main() -> int:
     phase_twin(torch)
     phase_reserve(torch, engine)
     phase_e8(torch)
+    phase_dryrun(dryruns)
     emit({"kernels": [pid_rec, flash_rec, ssd_rec, *bwd_recs, ssd_bwd_rec]})
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",

@@ -19,7 +19,10 @@ Leaves with at least ``n_shards`` rows are split along dim 0 into
 leaf on the caller's ``device``, so a checkpoint written on one device
 restores on another -- or, with ``shardings``, as a DTensor on a
 ``DeviceMesh`` (the elastic restore: a checkpoint written at one
-data-parallel width restores at another).  The atomic rename makes a
+data-parallel width restores at another, sharded state as replicated and
+the reverse).  Leaves are written whole: sharded state is gathered on
+every rank first (``sharding/fsdp.py::full_leaves``), and one rank
+writes.  The atomic rename makes a
 crash mid-save invisible.  The pieces are compressed and decompressed on
 a pool of host threads (zlib lets go of the GIL): level-1 zlib on
 float32 weights runs at tens of MB/s a core, so one thread would take
@@ -40,6 +43,7 @@ import torch
 
 from repro_torch import resolve_device
 from repro_torch._tree import leaves_with_paths, unflatten_like
+from repro_torch.sharding import fsdp
 from repro_torch.sharding.rules import placements
 
 _MANIFEST = "manifest.json"
@@ -52,6 +56,9 @@ def _pool() -> ThreadPoolExecutor:
 def _to_numpy(leaf) -> tuple[np.ndarray, str]:
     """A leaf as a numpy array of its bytes, and its dtype's name
     (bfloat16, which numpy lacks, travels as its 16-bit pattern)."""
+    if fsdp.is_sharded(leaf):
+        raise ValueError("a checkpoint leaf must be whole: gather sharded "
+                         "state on every rank first (fsdp.full_leaves)")
     if isinstance(leaf, torch.Tensor):
         t = leaf.detach().cpu()
         if t.dtype == torch.bfloat16:
@@ -143,8 +150,9 @@ def restore_checkpoint(root: str, tree_like: Any, *,
     checked), every leaf a tensor on ``device`` in the dtype it was saved
     with.  ``shardings``, a tree of ``(DeviceMesh, spec)`` pairs of
     ``tree_like``'s structure, restores each leaf instead as a DTensor on
-    its mesh with ``rules.placements(mesh, spec)``.  Returns (tree, step,
-    extra)."""
+    its mesh with ``rules.placements(mesh, spec)`` -- this rank's shard
+    cut from the leaf, no communication -- and a None pair as a plain
+    tensor on ``device``.  Returns (tree, step, extra)."""
     dev = resolve_device(device)
     if step is None:
         steps = _steps(root)
@@ -171,7 +179,6 @@ def restore_checkpoint(root: str, tree_like: Any, *,
     with _pool() as pool:
         flat = iter(list(pool.map(read, jobs)))
     if shardings is not None:
-        from torch.distributed.tensor import distribute_tensor
         places = iter(_shardings_like(tree_like, shardings))
     out = []
     for meta, (_, leaf) in zip(manifest["leaves"], like):
@@ -183,12 +190,15 @@ def restore_checkpoint(root: str, tree_like: Any, *,
         if tuple(t.shape) != tuple(want):
             raise ValueError(f"{meta['path']}: checkpoint shape "
                              f"{tuple(t.shape)}, expected {tuple(want)}")
-        if shardings is None:
+        pair = None if shardings is None else next(places)
+        if pair is None:
             out.append(t.to(dev))
         else:
-            mesh, spec = next(places)
-            out.append(distribute_tensor(t.to(mesh.device_type), mesh,
-                                         placements(mesh, spec)))
+            mesh, spec = pair
+            pl = placements(mesh, spec)
+            loc = fsdp.local_chunk(t, mesh, pl).to(mesh.device_type,
+                                                   copy=True)
+            out.append(fsdp.from_local(loc.contiguous(), mesh, pl, t.shape))
     return unflatten_like(tree_like, out), step, manifest.get("extra", {})
 
 

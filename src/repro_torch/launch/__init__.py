@@ -1,5 +1,5 @@
-"""Launchers of the port (``serve``, ``train``) and the mesh layer
-(``mesh``) they run on."""
+"""Launchers of the port (``serve``, ``train``, ``dryrun``) and the mesh
+layer (``mesh``) they run on."""
 from repro_torch.launch.mesh import (COORD_ADDR_ENV, NUM_PROCESSES_ENV,
                                      PROCESS_ID_ENV, SCENARIO_AXIS,
                                      ScenarioMesh, distributed_env,

@@ -7,8 +7,13 @@
 Runs the training loop on one device (``--device``, default ``cuda``): the
 reduced config by default, the published one with ``--full``.  Under the
 ``REPRO_COORD_ADDR`` / ``REPRO_NUM_PROCESSES`` / ``REPRO_PROCESS_ID``
-environment (one process per card) it runs data-parallel on
-``launch.mesh.make_local_mesh()``, each rank on its share of every batch.
+environment (one process per card) it trains on
+``launch.mesh.make_local_mesh()``, each rank on its share of every batch,
+the parameters and moments placed by the plan: sharded for an arch whose
+plan is ``fsdp_tp`` (yi-9b, command-r-plus-104b, mamba2-1.3b,
+zamba2-2.7b, phi-3-vision-4.2b, olmoe-1b-7b, mixtral-8x22b at
+``--full``).  One process holds the whole state on its device: a world
+of one would shard nothing and pay the sharded path's host cost.
 With ``--gridpilot`` the GridPilot controller runs alongside: a Tier-3
 plan from a synthetic grid, the safety island armed, FFR triggers
 shedding steps.

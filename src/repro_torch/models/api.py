@@ -54,10 +54,13 @@ class Model:
             return encdec_lib.encdec_specs(self.cfg, self.param_dtype)
         return tr.lm_specs(self.cfg, self.param_dtype)
 
-    def init(self, seed: int = 0):
-        """Random parameters drawn on the model's device from ``seed``."""
+    def init(self, seed: int = 0, *, mesh=None, placements=None):
+        """Random parameters drawn on the model's device from ``seed``;
+        with a ``mesh``, each leaf placed by ``placements`` as it is drawn
+        (``layers.init_tree``)."""
         g = torch.Generator(device=self.device).manual_seed(seed)
-        return init_tree(self.specs(), g, self.device)
+        return init_tree(self.specs(), g, self.device, mesh=mesh,
+                         placements=placements)
 
     def abstract_params(self):
         return shapes_tree(self.specs())

@@ -15,6 +15,11 @@ Decoding keeps the self-attention K/V and the cross K/V of every layer
 ``encdec_decode_step`` updates in place; its attention is the plain
 softmax over the cache, and the decode position ``cache["cur"]`` is a
 Python int.
+
+Sharded parameters are gathered where they are used
+(``sharding/fsdp.py``): a layer's leaves by ``_cast``, the embedding,
+``frontend_proj`` and the final norms where they are applied.  ``shard``
+is called where the reference calls it, with its specs.
 """
 from __future__ import annotations
 
@@ -25,8 +30,11 @@ import torch
 from repro_torch.configs.base import ArchConfig
 from repro_torch.kernels import ops
 from repro_torch.models.layers import (ParamSpec, TensorSpec, gelu_mlp,
-                                       layernorm, sinusoidal_positions)
-from repro_torch.models.transformer import Z_LOSS_WEIGHT, _cast
+                                       layernorm, shard,
+                                       sinusoidal_positions)
+from repro_torch.models.transformer import Z_LOSS_WEIGHT, _cast, \
+    embed_tokens
+from repro_torch.sharding import fsdp
 
 # ---------------------------------------------------------------------------
 # Specs
@@ -99,7 +107,7 @@ def encdec_specs(cfg: ArchConfig, dtype=torch.float32) -> dict:
 def _unstack(stack: dict) -> list:
     """The layers of a stacked (nested) tree, one dict each: one unbind
     per leaf, whose backward stacks the layers' gradients once."""
-    per = {k: _unstack(v) if isinstance(v, dict) else v.unbind(0)
+    per = {k: _unstack(v) if isinstance(v, dict) else fsdp.unstack(v)
            for k, v in stack.items()}
     n = len(next(iter(per.values())))
     return [{k: v[i] for k, v in per.items()} for i in range(n)]
@@ -115,6 +123,7 @@ def _mha(cfg, lp, xq, xkv, *, causal, prefix=""):
     q = (xq @ lp[prefix + "wq"]).reshape(b, sq, cfg.n_heads, h)
     k = (xkv @ lp[prefix + "wk"]).reshape(b, xkv.shape[1], cfg.n_kv_heads, h)
     v = (xkv @ lp[prefix + "wv"]).reshape(b, xkv.shape[1], cfg.n_kv_heads, h)
+    q = shard(q, "batch", None, "heads", None)
     out = ops.flash_attention(q, k, v, causal=causal)
     return out.reshape(b, sq, cfg.n_heads * h) @ lp[prefix + "wo"]
 
@@ -126,23 +135,24 @@ def _mlp_apply(lp, x):
 def encode(cfg, params, frames, *, dtype=torch.bfloat16):
     """frames: (B, Senc, D) precomputed embeddings (conv stub upstream),
     cast to ``dtype`` before ``frontend_proj``."""
-    x = frames.to(dtype) @ params["frontend_proj"].to(dtype)
+    x = frames.to(dtype) @ fsdp.gather(params["frontend_proj"], dtype)
     x = x + sinusoidal_positions(x.shape[1], cfg.d_model,
                                  x.device).to(dtype)[None]
+    x = shard(x, "batch", None, None)
     for lp in _unstack(params["enc"]):
         lp = _cast(lp, dtype)
         h = _ln_apply(cfg, x, lp["ln1"])
         x = x + _mha(cfg, lp, h, h, causal=False)
         h = _ln_apply(cfg, x, lp["ln2"])
         x = x + _mlp_apply(lp, h)
-    return _ln_apply(cfg, x, params["enc_norm"])
+    return _ln_apply(cfg, x, fsdp.gather_tree(params["enc_norm"]))
 
 
 def _logits(cfg, params, x):
-    logits = x @ params["embed"].to(x.dtype).T
+    logits = x @ fsdp.gather(params["embed"], x.dtype).T
     if cfg.padded_vocab != cfg.vocab_size:
         logits[..., cfg.vocab_size:] = -1e30  # fresh tensor: in place
-    return logits
+    return shard(logits, "batch", None, "vocab")
 
 
 def decode_train(cfg, params, tokens, enc_out, *, dtype=torch.bfloat16,
@@ -150,9 +160,10 @@ def decode_train(cfg, params, tokens, enc_out, *, dtype=torch.bfloat16,
     """Teacher-forced decoder: (B, S, V) logits (B, 1, V with
     ``last_only``), the padded vocabulary at -1e30, the embedding tied as
     the unembedding."""
-    x = params["embed"][tokens].to(dtype)
+    x = embed_tokens(params, tokens, dtype)
     x = x + sinusoidal_positions(x.shape[1], cfg.d_model,
                                  x.device).to(dtype)[None]
+    x = shard(x, "batch", None, None)
     for lp in _unstack(params["dec"]):
         lp = _cast(lp, dtype)
         h = _ln_apply(cfg, x, lp["ln1"])
@@ -161,7 +172,7 @@ def decode_train(cfg, params, tokens, enc_out, *, dtype=torch.bfloat16,
         x = x + _mha(cfg, lp, h, enc_out, causal=False, prefix="x_")
         h = _ln_apply(cfg, x, lp["ln2"])
         x = x + _mlp_apply(lp, h)
-    x = _ln_apply(cfg, x, params["dec_norm"])
+    x = _ln_apply(cfg, x, fsdp.gather_tree(params["dec_norm"]))
     if last_only:
         x = x[:, -1:, :]
     return _logits(cfg, params, x)
@@ -208,10 +219,12 @@ def precompute_cross_kv(cfg, params, enc_out):
     dec = params["dec"]
     dt = torch.promote_types(enc_out.dtype, dec["x_wk"].dtype)
     x = enc_out.to(dt)
-    xk = torch.stack([(x @ w.to(dt)).reshape(b, s, cfg.n_kv_heads, h)
-                      for w in dec["x_wk"]])
-    xv = torch.stack([(x @ w.to(dt)).reshape(b, s, cfg.n_kv_heads, h)
-                      for w in dec["x_wv"]])
+    xk = torch.stack([(x @ fsdp.gather(w, dt))
+                      .reshape(b, s, cfg.n_kv_heads, h)
+                      for w in fsdp.unstack(dec["x_wk"])])
+    xv = torch.stack([(x @ fsdp.gather(w, dt))
+                      .reshape(b, s, cfg.n_kv_heads, h)
+                      for w in fsdp.unstack(dec["x_wv"])])
     return xk, xv
 
 
@@ -234,7 +247,7 @@ def encdec_decode_step(cfg, params, cache, tokens, *, dtype=torch.bfloat16):
     b = tokens.shape[0]
     h = cfg.resolved_head_dim
     pos_buf = cache["pos_buf"]
-    x = params["embed"][tokens].to(dtype)
+    x = embed_tokens(params, tokens, dtype)
     # row cur of the (seq_len, D) table: each element is computed alone
     x = x + sinusoidal_positions(cur + 1, cfg.d_model,
                                  x.device).to(dtype)[cur][None]
@@ -258,6 +271,6 @@ def encdec_decode_step(cfg, params, cache, tokens, *, dtype=torch.bfloat16):
         x = x + a.reshape(b, cfg.n_heads * h) @ lp["x_wo"]
         # mlp
         x = x + _mlp_apply(lp, _ln_apply(cfg, x, lp["ln2"]))
-    x = _ln_apply(cfg, x, params["dec_norm"])
+    x = _ln_apply(cfg, x, fsdp.gather_tree(params["dec_norm"]))
     cache["cur"] = cur + 1
     return _logits(cfg, params, x), cache

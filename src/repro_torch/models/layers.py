@@ -55,11 +55,25 @@ class TensorSpec(NamedTuple):
     dtype: torch.dtype
 
 
-def init_tree(specs, generator: torch.Generator, device):
+def init_tree(specs, generator: torch.Generator, device, *, mesh=None,
+              placements=None):
     """Nested dict of ParamSpec -> the same dict of tensors, each drawn in
-    turn from ``generator`` on ``device``."""
-    return {k: s.initialize(generator, device) if isinstance(s, ParamSpec)
-            else init_tree(s, generator, device) for k, s in specs.items()}
+    turn from ``generator`` on ``device``.  With a ``mesh`` and a
+    ``placements`` tree of the same structure, each tensor is placed on
+    the mesh (``fsdp.place``: this rank's shard) as soon as it is drawn,
+    so the whole leaves never exist together."""
+    from repro_torch.sharding import fsdp
+    out = {}
+    for k, s in specs.items():
+        if isinstance(s, ParamSpec):
+            t = s.initialize(generator, device)
+            out[k] = t if mesh is None else \
+                fsdp.place(t, mesh, placements[k])
+        else:
+            out[k] = init_tree(s, generator, device, mesh=mesh,
+                               placements=None if mesh is None
+                               else placements[k])
+    return out
 
 
 def shapes_tree(specs):
@@ -93,8 +107,12 @@ def resolve_spec(spec, shape, sizes: dict) -> tuple:
 def shard(x, *spec):
     """Redistribute a DTensor over its own mesh to ``spec`` (resolved by
     :func:`resolve_spec`); a plain tensor comes back unchanged.  The
-    port's models hold plain tensors, so their code calls no ``shard``
-    yet."""
+    models call it where the reference does, with its specs, on
+    activations: those are plain tensors of this rank's rows (sharded
+    parameters are gathered before use, ``sharding/fsdp.py``), so the
+    calls change no value -- as the reference's logical names
+    (``"batch"``, ``"heads"``) are no mesh axes and resolve to
+    replicated."""
     from torch.distributed.tensor import DTensor
     if not isinstance(x, DTensor):
         return x

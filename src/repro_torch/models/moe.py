@@ -20,8 +20,9 @@ Ties in the top-k and in the aux loss's argmax go to the lower expert
 index, as ``jax.lax.top_k`` and ``jnp.argmax`` give them: the top-k is a
 stable descending sort, and its first pick is the argmax.
 
-The reference's ``shard`` calls on the expert tensors are not threaded
-(ROADMAP 11c).
+``shard`` is called on the expert tensors where the reference calls it,
+with its specs; on the plain activations of the port's step it changes
+nothing (``layers.shard``).
 """
 from __future__ import annotations
 
@@ -29,7 +30,8 @@ import math
 
 import torch
 
-from repro_torch.models.layers import ParamSpec
+from repro_torch.models.layers import ParamSpec, shard
+from repro_torch.sharding import fsdp
 
 CAPACITY_FACTOR = 1.25
 GROUP_SIZE = 2048  # tokens per dispatch group
@@ -120,23 +122,28 @@ def moe_ffn(cfg, lp: dict, x, *, topi=None):
     gates, topv, topi = route(lp["router"], xg, k, topi)
 
     # load-balancing auxiliary loss (Switch-style); topi[..., 0] is the
-    # argmax of the gates
-    me = gates.mean(dim=(0, 1))
-    ce = torch.nn.functional.one_hot(topi[..., 0].long(), e).float() \
-        .mean(dim=(0, 1))
+    # argmax of the gates.  The expert loads are means over the global
+    # batch, as the reference takes them: on a sharded step, over every
+    # rank's rows (``fsdp.batch_mean``)
+    me = fsdp.batch_mean(gates.mean(dim=(0, 1)))
+    ce = fsdp.batch_mean(torch.nn.functional.one_hot(
+        topi[..., 0].long(), e).float().mean(dim=(0, 1)))
     aux = e * torch.sum(me * ce)
 
     dispatch, combine = dispatch_combine(topi, topv, e, _capacity(sg, e, k),
                                          x.dtype)
     xe = torch.einsum("gsec,gsd->egcd", dispatch, xg)
     del dispatch
+    xe = shard(xe, "experts", None, None, None)
     h = torch.einsum("egcd,edf->egcf", xe, lp["moe_wi"])
     gt = torch.einsum("egcd,edf->egcf", xe, lp["moe_wg"])
     del xe
     h = torch.nn.functional.silu(gt) * h
     del gt
+    h = shard(h, "experts", None, None, "moe_mlp")
     ye = torch.einsum("egcf,efd->egcd", h, lp["moe_wo"])
     del h
+    ye = shard(ye, "experts", None, None, None)
     y = torch.einsum("egcd,gsec->gsd", ye, combine)
     return y.reshape(b, s, d), aux.float()
 

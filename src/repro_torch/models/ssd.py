@@ -7,8 +7,8 @@ is ``kernels.ops.ssd_scan``: the hand-written CUDA kernel on the card,
 the chunked dual form on the CPU.  ``ssd_chunked`` is that dual form
 (``kernels.ssd_scan.ssd_scan_ref``), re-exported under the reference's
 name, so the algorithm has one copy.  B and C are group-shared
-(``ngroups=1``).  The reference's sharding constraint has no counterpart
-on one card.
+(``ngroups=1``).  ``shard`` is called on the heads before the scan, as
+in the reference.
 """
 from __future__ import annotations
 
@@ -18,7 +18,8 @@ import torch.nn.functional as F
 from repro_torch.kernels import ops
 from repro_torch.kernels.ssd_scan import segsum as _segsum  # noqa: F401
 from repro_torch.kernels.ssd_scan import ssd_scan_ref as ssd_chunked
-from repro_torch.models.layers import ParamSpec, TensorSpec, rmsnorm
+from repro_torch.models.layers import ParamSpec, TensorSpec, rmsnorm, \
+    shard
 
 __all__ = ["ssd_specs", "ssd_chunked", "ssd_block", "ssd_decode_state_specs",
            "ssd_block_decode"]
@@ -89,6 +90,7 @@ def ssd_block(cfg, lp: dict, x, eps: float):
 
     A = -torch.exp(lp["A_log"].float())                      # (nh,)
     xh = xin.reshape(b, s, nh, hd)
+    xh = shard(xh, "batch", None, "ssm_heads", None)
     y = ops.ssd_scan(xh, dt, A, B_mat, C_mat, chunk=cfg.ssm_chunk)
     y = y + xh * lp["D"].to(x.dtype)[None, None, :, None]
     y = y.reshape(b, s, di)

@@ -35,6 +35,15 @@ combine products, which are batched (``aten.bmm``), as the reference's
 ``dots_with_no_batch_dims_saveable`` recomputes them.  So with
 ``"dots"`` or ``"full"`` the attention forward runs twice per training
 step.  Remat moves memory, never the numbers.
+
+Sharded parameters (DTensors placed by the sharding rules,
+``sharding/fsdp.py``) are gathered where they are used: a layer's
+leaves by ``_cast`` inside the layer -- so under ``"dots"`` or
+``"full"`` the backward gathers them again, as FSDP reshards after the
+forward, while ``"none"`` keeps every layer's gathered leaves until the
+backward --, the hybrid's shared block once per forward, the embeddings,
+``frontend_proj``, ``final_norm`` and the head where they are applied.
+``shard`` is called where the reference calls it, with its specs.
 """
 from __future__ import annotations
 
@@ -49,7 +58,8 @@ from repro_torch.kernels import ops
 from repro_torch.models import moe as moe_lib
 from repro_torch.models import ssd as ssd_lib
 from repro_torch.models.layers import ParamSpec, TensorSpec, apply_rope, \
-    gated_mlp, rmsnorm
+    gated_mlp, rmsnorm, shard
+from repro_torch.sharding import fsdp
 
 PORTED = ("dense", "moe", "ssm", "hybrid", "vlm")  # the decoder-only ones
 AUX_LOSS_WEIGHT = 0.01
@@ -170,6 +180,7 @@ def attn_block(cfg, lp, x, positions, *, window: int):
     q, k, v = _qkv(cfg, lp, x)
     q = apply_rope(q, positions, cfg.rope_theta)
     k = apply_rope(k, positions, cfg.rope_theta)
+    q = shard(q, "batch", None, "heads", None)
     out = ops.flash_attention(q, k, v, causal=True, window=window)
     b, s = x.shape[:2]
     out = out.reshape(b, s, cfg.n_heads * cfg.resolved_head_dim)
@@ -189,9 +200,11 @@ def mlp_block(cfg, lp, x):
 
 
 def _cast(tree: dict, dtype) -> dict:
-    """A (nested) dict of parameters cast to ``dtype``."""
-    return {k: _cast(p, dtype) if isinstance(p, dict) else p.to(dtype)
-            for k, p in tree.items()}
+    """A (nested) dict of parameters, each gathered whole
+    (``fsdp.gather``: the identity on a plain tensor) and cast to
+    ``dtype``."""
+    return {k: _cast(p, dtype) if isinstance(p, dict)
+            else fsdp.gather(p, dtype) for k, p in tree.items()}
 
 
 def _layer(cfg, x, lp, positions):
@@ -220,7 +233,8 @@ def shared_block(cfg, sp, x, positions, window):
 def _layer_params(params, *idx) -> dict:
     """One layer's parameters: index ``(i,)``, or ``(chunk, j)`` of the
     hybrid family's (n_chunks, period) stack."""
-    return {k: p[idx] for k, p in params["layers"].items()}
+    return {k: fsdp.layer_slice(p, *idx)
+            for k, p in params["layers"].items()}
 
 
 # ---------------------------------------------------------------------------
@@ -230,8 +244,12 @@ def _layer_params(params, *idx) -> dict:
 
 def embed_tokens(params, tokens, dtype):
     """Gather, then cast: the same values as casting the table first,
-    without a cast copy of the whole vocabulary."""
-    return params["embed"][tokens].to(dtype)
+    without a cast copy of the whole vocabulary (a sharded table is
+    gathered whole, in ``dtype``)."""
+    emb = params["embed"]
+    if fsdp.is_plain(emb):
+        return emb[tokens].to(dtype)
+    return fsdp.gather(emb, dtype)[tokens]
 
 
 def embed_inputs(cfg, params, tokens, extra_embeds, dtype):
@@ -244,7 +262,8 @@ def embed_inputs(cfg, params, tokens, extra_embeds, dtype):
     if extra_embeds is None:
         raise ValueError(f"{cfg.name} takes its {cfg.frontend_tokens} "
                          "frontend embeddings with the tokens")
-    fe = extra_embeds.to(dtype) @ params["frontend_proj"].to(dtype)
+    fe = extra_embeds.to(dtype) @ fsdp.gather(params["frontend_proj"],
+                                              dtype)
     return torch.cat([fe, x], dim=1)
 
 
@@ -285,13 +304,14 @@ def lm_trunk(cfg: ArchConfig, params, x, positions):
     # one unbind per stacked leaf: its backward stacks the layers'
     # gradients once, where indexing layer by layer would add a
     # zero-filled copy of the whole stack per layer
-    stacks = {k: p.unbind(0) for k, p in params["layers"].items()}
+    stacks = {k: fsdp.unstack(p) for k, p in params["layers"].items()}
     aux = _zero(x)
     if cfg.family == "hybrid":
+        # gathered once: every chunk applies the same block
+        shared = fsdp.gather_tree(params["shared"], x.dtype)
         for c in range(cfg.num_layers // cfg.hybrid_period):
-            x = shared_block(cfg, params["shared"], x, positions,
-                             cfg.sliding_window)
-            chunk = {k: v[c].unbind(0) for k, v in stacks.items()}
+            x = shared_block(cfg, shared, x, positions, cfg.sliding_window)
+            chunk = {k: fsdp.unstack(v[c]) for k, v in stacks.items()}
             for j in range(cfg.hybrid_period):
                 x, a = layer(x, {k: v[j] for k, v in chunk.items()},
                              positions)
@@ -300,15 +320,16 @@ def lm_trunk(cfg: ArchConfig, params, x, positions):
         for i in range(cfg.num_layers):
             x, a = layer(x, {k: v[i] for k, v in stacks.items()}, positions)
             aux = aux + a
-    return rmsnorm(x, params["final_norm"], cfg.norm_eps), aux
+    return rmsnorm(x, fsdp.gather(params["final_norm"]), cfg.norm_eps), aux
 
 
 def lm_logits(cfg, params, x):
     dtype = x.dtype
     if cfg.tie_embeddings:
-        logits = x @ params["embed"].to(dtype).T
+        logits = x @ fsdp.gather(params["embed"], dtype).T
     else:
-        logits = x @ params["unembed"].to(dtype)
+        logits = x @ fsdp.gather(params["unembed"], dtype)
+    logits = shard(logits, "batch", None, "vocab")
     if cfg.padded_vocab != cfg.vocab_size:
         logits[..., cfg.vocab_size:] = -1e30  # fresh tensor: in place
     return logits
@@ -320,6 +341,7 @@ def lm_forward(cfg, params, tokens, extra_embeds=None, *,
     loss): the MoE router's summed over the layers, a float32 0 for the
     other families.  The VLM's S counts its frontend positions."""
     x = embed_inputs(cfg, params, tokens, extra_embeds, dtype)
+    x = shard(x, "batch", None, None)
     b, s = x.shape[:2]
     positions = torch.arange(s, device=x.device)[None, :].expand(b, s)
     x, aux = lm_trunk(cfg, params, x, positions)
@@ -413,6 +435,10 @@ def _decode_attn(cfg, lp, x, k_cache, v_cache, pos_buf, cur: int, dtype):
     sc = k_cache.shape[1]
     k_cache[:, cur % sc] = k
     v_cache[:, cur % sc] = v[:, 0]
+    if cfg.plan.decode_seq_constraint:
+        # the reference keeps the cache sequence-sharded here
+        k_cache = shard(k_cache, "data", "model", None, None)
+        v_cache = shard(v_cache, "data", "model", None, None)
 
     ages = cur - pos_buf       # pos_buf already holds this step's position
     valid = (pos_buf >= 0) & (ages >= 0)
@@ -424,6 +450,8 @@ def _decode_attn(cfg, lp, x, k_cache, v_cache, pos_buf, cur: int, dtype):
     qg = q.reshape(b, cfg.n_kv_heads, rep, h)
     scores = torch.einsum("bgrd,bkgd->bgrk", qg.float(),
                           k_cache.float()) / math.sqrt(h)
+    if cfg.plan.decode_seq_constraint:
+        scores = shard(scores, "data", None, None, "model")
     scores = torch.where(valid, scores, -1e30)
     probs = torch.softmax(scores, dim=-1).to(dtype)
     out = torch.einsum("bgrk,bkgd->bgrd", probs, v_cache)
@@ -471,7 +499,7 @@ def lm_decode_step(cfg: ArchConfig, params, cache, tokens, *,
             h2 = rmsnorm(x, lp["ln2"], cfg.norm_eps)
             x = x + (moe_lib.moe_ffn_decode(cfg, lp, h2) if cfg.is_moe
                      else gated_mlp(h2, lp["wi"], lp["wg"], lp["wo_mlp"]))
-    x = rmsnorm(x, params["final_norm"], cfg.norm_eps)
+    x = rmsnorm(x, fsdp.gather(params["final_norm"]), cfg.norm_eps)
     logits = lm_logits(cfg, params, x[:, None, :])[:, 0]
     cache["cur"] = cur + 1
     return logits, cache

@@ -12,14 +12,24 @@ small (zamba2-2.7b's largest leaf is 5.7 GB; whole, its temporaries
 would take several times that); every element's arithmetic is the same.
 The numbers are the reference's: moments in float32, the update computed
 in float32 and cast back to each parameter's dtype.
+
+Sharded state (``sharding/fsdp.py``): every leaf may be a DTensor, and
+each rank updates its own shards.  Where the moments shard a parameter
+that is replicated (ZeRO-1, the ``dp_only`` plans), each rank updates
+the rows its moments cover and the parameter's rows are all-gathered
+back.  ``global_norm`` of a sharded tree is the norm of the whole
+gradient: each rank's shards summed, every element counted once however
+many ranks hold it, and one all-reduce.
 """
 from __future__ import annotations
 
 from typing import NamedTuple
 
 import torch
+import torch.distributed as dist
 
 from repro_torch._tree import leaves, tree_map
+from repro_torch.sharding import fsdp
 
 
 UPDATE_SLICE = 1 << 26    # elements of one slice of a leaf's update
@@ -32,20 +42,33 @@ class AdamWState(NamedTuple):
 
 
 def adamw_init(params) -> AdamWState:
-    """Zero moments beside the parameters, on their devices."""
+    """Zero moments beside the parameters, on their devices (a DTensor
+    parameter's placed as it is)."""
     def zeros(p):
+        if fsdp.is_sharded(p):
+            return fsdp.placed_zeros(p.shape, torch.float32, p.device_mesh,
+                                     p.placements, fsdp.local(p).device)
         return torch.zeros(p.shape, dtype=torch.float32, device=p.device)
     first = leaves(params)
-    dev = first[0].device if first else None
+    dev = fsdp.local(first[0]).device if first else None
     return AdamWState(step=torch.zeros((), dtype=torch.int32, device=dev),
                       mu=tree_map(zeros, params),
                       nu=tree_map(zeros, params))
 
 
 def global_norm(tree) -> torch.Tensor:
-    """sqrt of the sum of squares of every leaf, in float32."""
-    return torch.sqrt(sum(torch.sum(torch.square(g.float()))
-                          for g in leaves(tree)))
+    """sqrt of the sum of squares of every leaf, in float32.  With any
+    DTensor leaf, each rank sums its shards, each divided by how many
+    ranks hold it (``fsdp.replicas``: a plain leaf, by the world), and
+    one all-reduce adds the ranks' sums."""
+    flat = leaves(tree)
+    if not any(fsdp.is_sharded(g) for g in flat):
+        return torch.sqrt(sum(torch.sum(torch.square(g.float()))
+                              for g in flat))
+    total = sum(torch.sum(torch.square(fsdp.local(g).float()))
+                / fsdp.replicas(g) for g in flat)
+    dist.all_reduce(total)
+    return torch.sqrt(total)
 
 
 @torch.no_grad()
@@ -70,14 +93,26 @@ def adamw_update(grads, state: AdamWState, params, *, lr,
         delta = (m / b1c) / (torch.sqrt(v / b2c) + eps) + weight_decay * pf
         p.copy_(pf - lr * delta)
 
-    def upd(p, g, m, v):
+    def upd_local(p, g, m, v):
         if not (p.is_contiguous() and m.is_contiguous()
                 and v.is_contiguous()):
             upd_slice(p, g, m, v)
-            return p
+            return
         flat = p.view(-1), g.reshape(-1), m.view(-1), v.view(-1)
         for i in range(0, p.numel(), UPDATE_SLICE):
             upd_slice(*(t[i:i + UPDATE_SLICE] for t in flat))
+
+    def upd(p, g, m, v):
+        pl, gl, ml, vl = (fsdp.local(t) for t in (p, g, m, v))
+        if ml.shape == pl.shape:
+            upd_local(pl, gl, ml, vl)
+            return p
+        # ZeRO-1: this rank's rows of a replicated parameter, then every
+        # rank's rows gathered back into it
+        lo, hi = fsdp.row_range(m)
+        upd_local(pl[lo:hi], gl[lo:hi], ml, vl)
+        pl.copy_(fsdp.full(fsdp.from_local(pl[lo:hi], m.device_mesh,
+                                           m.placements, pl.shape)))
         return p
 
     tree_map(upd, params, grads, state.mu, state.nu)

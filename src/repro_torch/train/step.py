@@ -7,17 +7,26 @@ flash_attention backward kernels), gradient accumulation over
 ``microbatches`` as the reference's ``lax.scan`` does it (sum the
 microbatches' losses, gradients and metrics, then scale by 1/m), the
 warm-up-cosine learning rate, and AdamW, which updates the parameters and
-moments in place.  With ``data_parallel`` each rank runs it on its share
-of the batch and the gradients, loss and metrics are averaged over the
-world with ``all_reduce``: the value the reference's pjit computes on the
-global batch.  ``make_prefill_step`` and ``make_decode_step`` are the
+moments in place.  ``make_prefill_step`` and ``make_decode_step`` are the
 serving steps.
 
 The partition specs (``param_pspecs``, ``opt_pspecs``, ``batch_pspec``,
 ``cache_pspecs``, ...) are the reference's, from a
-:class:`~repro_torch.sharding.rules.MeshRules`.  The port's parameters
-and moments stay replicated on every rank; the specs place a restored
-checkpoint and a rank's batch share.
+:class:`~repro_torch.sharding.rules.MeshRules`.  On a mesh the bundle
+places the training state by them, as the reference's ``in_shardings``
+do (``sharding/fsdp.py``): ``fsdp_tp`` parameters and moments sharded
+(FSDP over the data axes, the ``model`` axis sharding the stored leaves
+too), ``dp_only`` parameters replicated and their moments ZeRO-1 (dim 0
+over the data axes).  A sharded leaf is a DTensor of this rank's shard;
+a replicated one a plain tensor.  Each rank runs the step on its share
+of the batch (``batch_rows``).  The models gather a sharded leaf where
+they use it, and its gradient comes back reduce-scattered: ``Partial``
+over the axes the batch is split over (``StepBundle.batch_axes``), then
+divided by their width.  A plain leaf's gradient, the loss and the
+metrics are averaged over the world with ``all_reduce``.  The values are
+those of the replicated step on the global batch; products run on the
+gathered leaves, where the reference's GSPMD computes them sharded over
+``model``.
 
 ``make_compressed_train_step`` is the int8 error-feedback data-parallel
 step: local gradients, ``ef_compress`` against this rank's residual, the
@@ -31,6 +40,7 @@ mesh (``mesh``, ``rules``).
 """
 from __future__ import annotations
 
+import math
 from dataclasses import dataclass
 from typing import Callable, Optional
 
@@ -41,9 +51,11 @@ from repro_torch import resolve_device
 from repro_torch._tree import leaves, tree_map, unflatten_like
 from repro_torch.configs.base import ArchConfig, ShapeConfig
 from repro_torch.models.api import Model, build_model
-from repro_torch.optim import (AdamWState, adamw_update, dequantize_int8,
-                               quantize_int8, warmup_cosine)
+from repro_torch.optim import (AdamWState, adamw_init, adamw_update,
+                               dequantize_int8, quantize_int8,
+                               warmup_cosine)
 from repro_torch.optim.compress import requantize_sum
+from repro_torch.sharding import fsdp
 from repro_torch.sharding.rules import MeshRules, P
 
 DEFAULT_LR = dict(peak_lr=3e-4, warmup_steps=100, total_steps=10_000)
@@ -84,6 +96,29 @@ def batch_share(rules: MeshRules, batch_size: int,
         idx = idx * rules.axis_size(a) + where[a]
     rows = batch_size // rules.axis_size(axes)
     return idx * rows, (idx + 1) * rows
+
+
+def batch_rows(rules: MeshRules, batch_size: int, coordinate,
+               microbatches: int = 1):
+    """The rows of a ``batch_size`` batch that the rank at ``coordinate``
+    takes for a step of ``microbatches``: its :func:`batch_share` of each
+    microbatch in turn (an index tensor), so that its i-th local
+    microbatch is its share of the global i-th, the rows the reference's
+    step accumulates together -- which matters where a microbatch's
+    statistic is no mean over its rows (the MoE router's expert loads).
+    With one microbatch, :func:`batch_share`'s ``(lo, hi)``."""
+    if microbatches == 1:
+        return batch_share(rules, batch_size, coordinate)
+    axes = batch_axes_for(rules, batch_size)
+    n, per = rules.axis_size(axes), batch_size // microbatches
+    if batch_size % microbatches or per % n:
+        raise ValueError(f"a batch of {batch_size} does not split into "
+                         f"{microbatches} microbatches over {n} ranks")
+    lo, _ = batch_share(rules, batch_size, coordinate)
+    r = lo // (batch_size // n)           # this rank's index over the axes
+    return torch.cat([torch.arange(i * per + r * (per // n),
+                                   i * per + (r + 1) * (per // n))
+                      for i in range(microbatches)])
 
 
 # ---------------------------------------------------------------------------
@@ -157,21 +192,44 @@ def _world_mean(x, n: int, group=None):
     return x / n
 
 
-def loss_and_grads(model: Model, params, batch):
+def _div_local(g, n: int):
+    """A sharded gradient's shard divided by ``n`` in place."""
+    if n != 1:
+        fsdp.local(g).div_(n)
+    return g
+
+
+def loss_and_grads(model: Model, params, batch, partial=None):
     """(loss, metrics, grads) of one batch, all detached; the gradients
-    have the parameters' structure and dtypes."""
+    have the parameters' structure and dtypes.  With ``partial``, (mesh,
+    the axes of its dims the batch is split over), a sharded leaf's
+    gradient is summed over those axes and placed as the leaf
+    (``fsdp.grad_partial``)."""
     flat = leaves(params)
-    with torch.enable_grad():
-        ps = [p.detach().requires_grad_(True) for p in flat]
-        loss, metrics = model.loss(unflatten_like(params, ps), batch)
+    with torch.enable_grad(), fsdp.grad_partial(*(partial or (None, ()))):
+        # a sharded leaf enters as its local shard (fsdp.LocalShard): the
+        # gradient is taken on plain tensors, then placed as the leaf
+        ps = [fsdp.local(p).detach().requires_grad_(True) for p in flat]
+        loss, metrics = model.loss(unflatten_like(params, [
+            fsdp.as_input(q, p) for q, p in zip(ps, flat)]), batch)
         gs = torch.autograd.grad(loss, ps)
     return (loss.detach(), {k: v.detach() for k, v in metrics.items()},
-            unflatten_like(params, gs))
+            unflatten_like(params, [fsdp.like(g, p)
+                                    for g, p in zip(gs, flat)]))
 
 
 def make_train_step(model: Model, *, lr_kw: Optional[dict] = None,
-                    microbatches: int = 1, data_parallel: bool = False):
+                    microbatches: int = 1, data_parallel: bool = False,
+                    rules: Optional[MeshRules] = None, batch_axes=()):
+    """The train step.  With ``data_parallel`` each rank runs it on its
+    share of the batch: a sharded leaf's gradient is summed over the mesh
+    axes ``batch_axes`` of ``rules`` (those the batch is split over) and
+    divided by their width; a plain leaf's gradient, the loss and the
+    metrics are averaged over the world."""
     lr_kw = lr_kw or DEFAULT_LR
+    partial = (rules.mesh, tuple(batch_axes)) if data_parallel and rules \
+        else None
+    n_b = rules.axis_size(tuple(batch_axes)) if partial else 1
 
     def train_step(params, opt_state, batch, step):
         if microbatches > 1:
@@ -181,30 +239,38 @@ def make_train_step(model: Model, *, lr_kw: Optional[dict] = None,
                                  + tuple(x.shape[1:]))
 
             mb = {k: split(v) for k, v in batch.items()}
-            dev = leaves(params)[0].device
+            flat = leaves(params)
+            dev = fsdp.local(flat[0]).device
             loss = torch.zeros((), dtype=torch.float32, device=dev)
             # the enc-dec family's loss reports ce alone
             metrics = {k: torch.zeros((), dtype=torch.float32, device=dev)
                        for k in metrics_spec(model)}
-            grads = tree_map(lambda p: torch.zeros(
-                p.shape, dtype=torch.float32, device=p.device), params)
+            acc = [torch.zeros(fsdp.local(p).shape, dtype=torch.float32,
+                               device=dev) for p in flat]
             for i in range(microbatches):
                 li, mi, gi = loss_and_grads(
-                    model, params, {k: v[i] for k, v in mb.items()})
+                    model, params, {k: v[i] for k, v in mb.items()},
+                    partial)
                 loss = loss + li
                 metrics = {k: v + mi[k] for k, v in metrics.items()}
-                tree_map(lambda g, x: g.add_(x), grads, gi)
+                for a, g in zip(acc, leaves(gi)):
+                    a.add_(fsdp.local(g))
                 # the next microbatch's gradients form without this set
                 del gi
             inv = 1.0 / microbatches
             loss = loss * inv
-            grads = tree_map(lambda g: g.mul_(inv), grads)
+            grads = unflatten_like(params, [fsdp.like(a.mul_(inv), p)
+                                            for a, p in zip(acc, flat)])
+            del acc
             metrics = {k: v * inv for k, v in metrics.items()}
         else:
-            loss, metrics, grads = loss_and_grads(model, params, batch)
+            loss, metrics, grads = loss_and_grads(model, params, batch,
+                                                  partial)
         if data_parallel:
             n = dist.get_world_size()
-            grads = tree_map(lambda g: _world_mean(g, n), grads)
+            grads = tree_map(lambda g: _div_local(g, n_b)
+                             if fsdp.is_sharded(g) else _world_mean(g, n),
+                             grads)
             loss = _world_mean(loss, n)
             metrics = {k: _world_mean(v, n) for k, v in metrics.items()}
         lr = warmup_cosine(step, **lr_kw)
@@ -306,7 +372,12 @@ def make_decode_step(model: Model):
 @dataclass
 class StepBundle:
     """One (arch x shape) cell: the model and its step, on one device or
-    on a mesh (``rules`` its sharding rules)."""
+    on a mesh (``rules`` its sharding rules).  On a mesh
+    ``param_placements`` and ``opt_placements`` (an ``AdamWState`` of
+    trees) hold each leaf's DTensor placements, from ``param_pspecs`` and
+    ``opt_pspecs``: the counterparts of the reference's
+    ``in_shardings[0:2]``; ``batch_axes`` are the mesh axes the global
+    batch is split over."""
 
     cfg: ArchConfig
     shape: ShapeConfig
@@ -316,6 +387,75 @@ class StepBundle:
     device: torch.device
     mesh: object = None
     rules: Optional[MeshRules] = None
+    param_placements: object = None
+    opt_placements: object = None
+    batch_axes: tuple = ()
+
+    def _zeros(self, spec, places, device, dtype=None):
+        return tree_map(lambda s, pl: fsdp.placed_zeros(
+            s.shape, dtype or s.dtype, self.mesh, pl, device),
+            spec, places)
+
+    def init_state(self, seed: int = 0):
+        """Parameters drawn from ``seed`` as ``Model.init`` draws them and
+        zero AdamW moments.  On a mesh each leaf is placed as soon as it
+        is drawn, so a rank holds one whole leaf at most, and only while
+        it is cut to this rank's shard; the values are the replicated
+        init's."""
+        if self.mesh is None:
+            params = self.model.init(seed)
+            return params, adamw_init(params)
+        params = self.model.init(seed, mesh=self.mesh,
+                                 placements=self.param_placements)
+        return params, self._moments(self.device)
+
+    def _moments(self, device) -> AdamWState:
+        specs = self.model.specs()
+        return AdamWState(
+            step=torch.zeros((), dtype=torch.int32, device=device),
+            mu=self._zeros(specs, self.opt_placements.mu, device,
+                           torch.float32),
+            nu=self._zeros(specs, self.opt_placements.nu, device,
+                           torch.float32))
+
+    def state_bytes(self) -> int:
+        """This rank's bytes of parameters and moments by the placements
+        alone: each leaf's shard shape (``fsdp.local_shape``) times its
+        itemsize."""
+        sizes = []
+        for places, itemsize in ((self.param_placements, None),
+                                 (self.opt_placements.mu, 4),
+                                 (self.opt_placements.nu, 4)):
+            tree_map(lambda sp, pl, n=itemsize: sizes.append(
+                (n or sp.dtype.itemsize) * math.prod(
+                    fsdp.local_shape(sp.shape, self.mesh, pl))),
+                self.model.specs(), places)
+        return sum(sizes)
+
+    def abstract_state(self):
+        """The placed state on ``meta``: the shapes, dtypes and placements
+        of :meth:`init_state`, nothing allocated."""
+        params = self._zeros(self.model.specs(), self.param_placements,
+                             "meta")
+        return params, self._moments("meta")
+
+    def state_shardings(self):
+        """``(DeviceMesh, spec)`` of each sharded leaf of the state (None
+        for a replicated leaf), for ``restore_checkpoint(shardings=)``;
+        None off a mesh."""
+        if self.mesh is None:
+            return None
+
+        def pair(spec, places):
+            return None if fsdp.replicated(places) else (self.mesh, spec)
+        p_spec = param_pspecs(self.model, self.rules)
+        o_spec = opt_pspecs(self.model, self.rules)
+        return (tree_map(pair, p_spec, self.param_placements),
+                AdamWState(step=None,
+                           mu=tree_map(pair, o_spec.mu,
+                                       self.opt_placements.mu),
+                           nu=tree_map(pair, o_spec.nu,
+                                       self.opt_placements.nu)))
 
 
 def build_step_bundle(cfg: ArchConfig, shape: ShapeConfig, *,
@@ -323,12 +463,24 @@ def build_step_bundle(cfg: ArchConfig, shape: ShapeConfig, *,
                       lr_kw: Optional[dict] = None,
                       model_kw: Optional[dict] = None) -> StepBundle:
     """The step of ``shape``'s kind.  On a ``mesh`` (a ``DeviceMesh``
-    over the world) a train shape's step averages its gradients over the
-    ranks, or with ``compressed`` is :func:`make_compressed_train_step`
-    (its step takes and returns the residual, :func:`init_residual`)."""
+    over the world) the bundle carries the placements of the state, and a
+    train shape's step reduces its gradients over the ranks, or with
+    ``compressed`` is :func:`make_compressed_train_step` (its step takes
+    and returns the residual, :func:`init_residual`; its moments ZeRO-1,
+    as the reference's compressed bundle places them)."""
     dev = resolve_device(device)
     model = build_model(cfg, device=dev, **(model_kw or {}))
     rules = None if mesh is None else MeshRules(cfg.plan, mesh)
+    places = {}
+    if rules is not None:
+        o_spec = opt_pspecs(model, rules)
+        places = dict(
+            param_placements=tree_map(rules.placements,
+                                      param_pspecs(model, rules)),
+            opt_placements=AdamWState(
+                step=(), mu=tree_map(rules.placements, o_spec.mu),
+                nu=tree_map(rules.placements, o_spec.nu)),
+            batch_axes=batch_axes_for(rules, shape.global_batch))
     if compressed and shape.kind == "train":
         if rules is None:
             raise ValueError("the compressed step needs a mesh")
@@ -336,10 +488,13 @@ def build_step_bundle(cfg: ArchConfig, shape: ShapeConfig, *,
     elif shape.kind == "train":
         step_fn = make_train_step(model, lr_kw=lr_kw,
                                   microbatches=cfg.plan.microbatches,
-                                  data_parallel=mesh is not None)
+                                  data_parallel=mesh is not None,
+                                  rules=rules,
+                                  batch_axes=places.get("batch_axes", ()))
     elif shape.kind == "prefill":
         step_fn = make_prefill_step(model)
     else:
         step_fn = make_decode_step(model)
     return StepBundle(cfg=cfg, shape=shape, model=model, kind=shape.kind,
-                      step_fn=step_fn, device=dev, mesh=mesh, rules=rules)
+                      step_fn=step_fn, device=dev, mesh=mesh, rules=rules,
+                      **places)

@@ -24,13 +24,16 @@ throughput curve the offline engine accumulates and Tier-3 prices:
 Fault tolerance: per-host heartbeats and a step deadline (a multiple of
 the median step time) flag stragglers (``straggler_step``).
 
-Data parallelism: on a ``mesh`` (a ``DeviceMesh`` over the world, e.g.
+Sharded training: on a ``mesh`` (a ``DeviceMesh`` over the world, e.g.
 ``launch.mesh.make_local_mesh()``) each rank takes its ``batch_pspec``
-share of every batch and the gradients are averaged over the ranks with
-``all_reduce`` -- the value the reference's pjit computes on the global
-batch.  Parameters and AdamW moments stay replicated on every rank
-(FSDP, TP and ZeRO-1 placements of them wait, ROADMAP A11b); rank 0
-writes the checkpoints.
+share of every batch, and the parameters and AdamW moments are placed by
+the arch's plan (``train/step.py``, ``sharding/fsdp.py``): FSDP over the
+data axes and shards over ``model`` for ``fsdp_tp``, replicated
+parameters and ZeRO-1 moments for ``dp_only``.  The values are the ones
+the reference's pjit computes on the global batch.  A checkpoint gathers
+each leaf on every rank and rank 0 writes it; a restore places each leaf
+by the plan, so state written at one width (or replicated) restores at
+another.
 """
 from __future__ import annotations
 
@@ -48,8 +51,9 @@ from repro_torch.configs.base import ArchConfig, ShapeConfig
 from repro_torch.core.plant import load_from_cost_analysis
 from repro_torch.data.tokens import TokenPipeline
 from repro_torch.obs import trace
-from repro_torch.optim import adamw_init
-from repro_torch.train.step import batch_share, build_step_bundle
+from repro_torch._tree import unflatten_like
+from repro_torch.sharding import fsdp
+from repro_torch.train.step import batch_rows, build_step_bundle
 from repro_torch.workload import RUN_FULL, PowerActuator, StepDecision
 
 
@@ -101,8 +105,8 @@ class HostHealth:
 
 
 class Trainer:
-    """Trainer on one device, or one rank of a data-parallel ``mesh``
-    (bf16 compute over float32 parameters, the model's defaults)."""
+    """Trainer on one device, or one rank of a ``mesh`` (bf16 compute over
+    float32 parameters, the model's defaults)."""
 
     def __init__(self, cfg: ArchConfig, shape: ShapeConfig,
                  tcfg: TrainerConfig = TrainerConfig(),
@@ -137,18 +141,18 @@ class Trainer:
         self.ckpt = (CheckpointManager(tcfg.ckpt_dir)
                      if tcfg.ckpt_dir else None)
         # this rank's rows of every batch, and whether it writes the
-        # checkpoints (every rank holds the same replicated state)
+        # checkpoints (every rank gathers the state, rank 0 writes)
         self._rows = (0, shape.global_batch) if mesh is None else \
-            batch_share(self.bundle.rules, shape.global_batch,
-                        mesh.get_coordinate())
+            batch_rows(self.bundle.rules, shape.global_batch,
+                       mesh.get_coordinate(), cfg.plan.microbatches)
         self._writes = mesh is None or mesh.get_rank() == 0
 
     # -- state ------------------------------------------------------------
     def init_state(self):
         """Parameters drawn from ``seed`` and zero AdamW moments, on the
-        trainer's device."""
-        params = self.bundle.model.init(self.seed)
-        return params, adamw_init(params)
+        trainer's device; on a mesh placed by the plan, leaf by leaf
+        (``StepBundle.init_state``)."""
+        return self.bundle.init_state(self.seed)
 
     def _pipeline(self) -> TokenPipeline:
         c = self.cfg
@@ -161,9 +165,11 @@ class Trainer:
             device=self.device)
 
     def _local(self, batch: dict) -> dict:
-        """This rank's share of a global batch."""
-        lo, hi = self._rows
-        return {k: v[lo:hi] for k, v in batch.items()}
+        """This rank's share of a global batch (``step.batch_rows``)."""
+        if isinstance(self._rows, tuple):
+            lo, hi = self._rows
+            return {k: v[lo:hi] for k, v in batch.items()}
+        return {k: v[self._rows.to(v.device)] for k, v in batch.items()}
 
     # -- events ------------------------------------------------------------
     def _event(self, step: int, name: str, **attrs) -> dict:
@@ -221,7 +227,8 @@ class Trainer:
         start_step = 0
         if self.ckpt and self.ckpt.latest_step() is not None:
             (params, opt), start_step, _ = self.ckpt.restore(
-                (params, opt), device=self.device)
+                (params, opt), device=self.device,
+                shardings=self.bundle.state_shardings())
             self._event(start_step, "restored")
 
         step_fn = self.bundle.step_fn
@@ -277,6 +284,11 @@ class Trainer:
                 "skipped": self.skipped_steps, "events": self.events}
 
     def _save(self, step: int, tree, extra=None) -> None:
+        """Every rank of a mesh takes part in gathering each leaf whole;
+        the writer saves."""
+        if self.mesh is not None:
+            flat = fsdp.full_leaves(tree, keep=self._writes)
+            tree = unflatten_like(tree, flat) if self._writes else None
         if self._writes:
             self.ckpt.save(step, tree, extra=extra)
 
