@@ -5,7 +5,7 @@
     python3 chip_smoke.py --flash-only   # build and flash_attention only
     python3 chip_smoke.py --ssd-only     # build and ssd_scan only
     python3 chip_smoke.py --train-only   # build, flash_bwd, train, ssd_bwd,
-                                         # train_ssm, train_fsdp,
+                                         # train_ssm, train_fsdp, train_tp,
                                          # train_hybrid and train_cuts only
 
 Phases, each printing one JSON line; any failure ends the run with a
@@ -164,7 +164,7 @@ nonzero exit and no result line:
   train_ssm, train_hybrid
               the train phase's Trainer at full mamba2-1.3b and zamba2-2.7b
               width and depth (their plan: remat "dots", 4 microbatches)
-              for 5 steps of (4, 2048) tokens, an FFR trigger after step
+              for 4 steps of (4, 2048) tokens, an FFR trigger after step
               1: fails unless every loss is finite, steps were shed, and
               each step launched the scan's forward twice per Mamba-2
               layer and microbatch, its backward once (and zamba2's shared
@@ -205,6 +205,27 @@ nonzero exit and no result line:
               on CUDA tensors over gloo (DTensor's own redistribution
               faults there on torch 2.11), their bytes and seconds
               printed
+  train_tp    tensor parallelism (after train_fsdp): for each of
+              mamba2-1.3b and yi-9b (both at once) two worker processes
+              of this script sharing the card on gloo under the REPRO_*
+              contract, a (data 1, model 2) mesh, full width cut to 2
+              layers, (8, 2048) in 4
+              microbatches, bf16 and f32: 4 replicated steps warm the state
+              (ids 146-149), then steps 150 and 151 run tensor-parallel --
+              each rank its 32 of 64 scan heads, or its 16 query and 2 kv
+              heads, its MLP and vocabulary columns -- and replicated;
+              fails unless every loss is finite, the losses, grad norms and
+              every leaf meet train_fsdp (b)'s gates, each rank's resident
+              bytes are its shards', every flash_attention / ssd_scan call
+              and backward ran at the rank's head count as often as the
+              plan launches them, the kernels at those shapes meet their
+              plain versions (and the scan backward's float32 dB and dC
+              round to its bf16 ones), and each rank's matmul FLOPs are at
+              most 0.55x the replicated step's; prints the ms, device and
+              GEMM time a step (the four ranks time-slice the card), the
+              forward products' time at a rank's widths with the card to
+              itself, and the all-reduce, all-gather and reduce-scatter
+              bytes and seconds
   train_cuts  one step's loss and gradient at full width, 2 layers (and
               2 encoder layers), through the kernels and through the plain
               versions, every leaf held at 2e-2 norm-relative in bf16 and
@@ -214,6 +235,13 @@ nonzero exit and no result line:
               printed), phi-3-vision-4.2b on 576 embeddings and 1,472
               tokens (the D = 96 backward), whisper-medium on (1, 448)
               tokens and (1, 1500, 1024) frames (the non-causal backward)
+  The phases engine to e8 below are host-bound: they run in three
+  processes of this script (--host-group 0: engine, sweep, reserve;
+  1: mesh, service, fr_latency, e8, cpu_vs_gpu; 2: bidding,
+  tier1_bench, twin) started beside the build, and their records are printed when
+  they are joined, before kernel, followed by
+  host_groups each group's phases and seconds, and the wait for them
+
   engine      engine_rollout(reduce="summary") on the full E9 batch (288
               scenarios, 6 countries x 3 seeds x 2 products x 4 bands x 2
               event draws) over 24 h, or the longest whole number of hours
@@ -236,7 +264,8 @@ nonzero exit and no result line:
               lanes of the card (6 scenarios) against mesh=None; each
               worker's seconds and backend
   bidding     the reference bidding bench's three arms on its fast E9 slice
-              (SE/DE/PL, 6 h, FFR, bands 0/0.2, event draw 0): the
+              (SE/DE/PL, FFR, bands 0/0.2, event draw 0; 6 h cut to 2 h):
+              the
               price-blind and price-aware Tier-3 grid searches and
               bids_for_batch (n_ens 8, n_iter 48), all settled by one
               engine_rollout(ops=...) on a stacked copy of the slice per
@@ -275,7 +304,7 @@ nonzero exit and no result line:
               under AllocationChurn (printed, not enforced)
   twin        Fig. 4 (benchmarks/cluster_24h.py): 100 hosts x 3 chips on the
               DE grid, seeds 0-2 as one run_twin_batch over 24 h or the
-              longest whole number of hours the phase's 55 s allow
+              longest whole number of hours the phase's 25 s allow
               (printed as a cut): scenario-seconds per wall second, ms per
               tick, one tick's device time and launches, peak memory, seed
               0's summary beside the paper's, the net-CO2 decomposition at
@@ -284,7 +313,7 @@ nonzero exit and no result line:
   reserve     E9's separate replay: reserve_replay_batch over the full E9
               batch (288 x 24 h), 8 lanes against the per-event oracle,
               the event counts against the engine phase's, then
-              report.sweep_telemetry(fast=True) rendered
+              report.sweep_telemetry(fast=True, hours=2) rendered
   e8          E8 (benchmarks/e8_multicountry.py, paper Fig. 5 with E9's
               PUE design axis): the full 144-scenario x 672 h batch on the
               card in one batched sweep, its median time and scenarios/s,
@@ -293,8 +322,8 @@ nonzero exit and no result line:
               the fast batch on the CPU and on the card (totals and CFE
               rtol 1e-3, pp 1e-3, picks equal but for near-ties)
 
-  dryrun      (started after the train phases, in two CPU processes
-              beside the remaining phases; read last) python -m repro_torch.launch.dryrun
+  dryrun      (started after ssd_bwd, in two CPU processes beside the
+              train phases; read last) python -m repro_torch.launch.dryrun
               --mesh single for mamba2-1.3b x train_4k and qwen2-1.5b x
               decode_32k: one step each as rank 0 of a fake 256-rank
               world on meta tensors; fails unless both exit 0 with status
@@ -320,9 +349,9 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM data sheet
 L2_BYTES = 50 * 2**20              # H100 SXM, where torch does not report it
 # wall time the 24 h rollout may spend (cut from 150 s, then 100, then 70,
-# to make room for the later phases; the horizon it allows is printed as a
-# cut)
-ENGINE_BUDGET_S = 60.0
+# then 60, then 45, then 30, to make room for the later phases; the
+# horizon it allows is printed as a cut)
+ENGINE_BUDGET_S = 30.0
 KERNEL_TOL = dict(atol=1e-4, rtol=1e-5)
 # E4's closed loop through pid_update against the same loop through its
 # plain version: a 1-ulp change of every tick's PID outputs moves the
@@ -391,7 +420,10 @@ SERVICE_MAX_RSS_GROWTH_MB = 64.0
 PROFILED_STEPS = 8               # opt steps in the bidder's profiled run
 # the paper's experiments (benchmarks/e2, e4, e7, cluster_24h, e9)
 FR_LATENCY_PORT = 47661          # UDP port of fr_latency's island
-TWIN_BUDGET_S = 55.0             # wall time of the whole twin phase (was 65)
+TWIN_BUDGET_S = 25.0             # wall time of the whole twin phase (was 55)
+SLICE_HOURS = 2                  # the fast E9 slice's 6 h, in bidding and
+                                 # reserve's report: its seconds tier settles
+                                 # at about 3.5 ms a tick
 TWIN_SEEDS = (0, 1, 2)
 TWIN_PAPER = {"ar4_mae_norm": 0.036, "ar4_p95_norm": 0.09, "q_ffr": 1.0,
               "mean_mu_green": 0.90, "mean_mu_dirty": 0.40,
@@ -402,7 +434,14 @@ RESERVE_ORACLE_LANES = 8
 RESERVE_FLOAT_RTOL = 1e-3
 
 
+T_START = time.perf_counter()
+
+
 def emit(obj):
+    """One JSON line; a phase's record also gets ``t_s``, this process's
+    seconds since it started."""
+    if "phase" in obj:
+        obj = {**obj, "t_s": time.perf_counter() - T_START}
     print(json.dumps(obj), flush=True)
 
 
@@ -432,10 +471,11 @@ def profile_calls(torch, fn, reps, match=(), groups=None, require=()):
     base name (``kernel_base``) is one of its names, each kernel's mean
     per launch times its launches per call rounded, and the five ops with
     the most host time (inflated by the profiler; for ranking only).  A
-    window is taken again (three at most) where CUPTI lost so many events
+    window is taken again (six at most) where CUPTI lost so many events
     that the rounded time per call reads zero, where a grouped kernel's
     events were mostly lost, or where a group of ``require`` has no
-    kernel in it."""
+    kernel in it.  Under start_host_groups the windows of the groups'
+    processes take turns (PROFILE_LOCK_ENV)."""
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.obs.trace import kernel_base
     cuda = torch.autograd.DeviceType.CUDA
@@ -455,24 +495,36 @@ def profile_calls(torch, fn, reps, match=(), groups=None, require=()):
     def seen(kernels, names):
         return any(kernel_base(e.key) in names for e in kernels)
 
+    def windows(fn):
+        # CUPTI now and then delivers no device events, or drops most of
+        # a kernel's: a window where a group's kernels are missing is taken
+        # again (three in a row once lost flash_bwd's whisper cross call)
+        for _ in range(6):
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                for i in range(reps):
+                    fn(i)
+                torch.cuda.synchronize()
+            ev = prof.key_averages()
+            kernels = [e for e in ev if e.device_type == cuda]
+            if whole(kernels) and all(seen(kernels, groups[label])
+                                      for label in require):
+                return ev, kernels
+        raise RuntimeError("the profiler recorded no device time, or none "
+                           "of a group's kernels, in six windows")
+
     fn()
     torch.cuda.synchronize()
-    # CUPTI now and then delivers no device events, or drops most of a
-    # kernel's: a window where a group's kernels are missing is taken again
-    for _ in range(3):
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            for i in range(reps):
-                fn(i)
-            torch.cuda.synchronize()
-        ev = prof.key_averages()
-        kernels = [e for e in ev if e.device_type == cuda]
-        if whole(kernels) and all(seen(kernels, groups[label])
-                                  for label in require):
-            break
-    else:
-        raise RuntimeError("the profiler recorded no device time, or none "
-                           "of a group's kernels, in three windows")
+    lock = os.environ.get(PROFILE_LOCK_ENV)
+    if lock:
+        import fcntl
+        held = open(lock, "a")
+        fcntl.flock(held, fcntl.LOCK_EX)
+    try:
+        ev, kernels = windows(fn)
+    finally:
+        if lock:
+            held.close()            # releases the lock
     top = sorted((e for e in ev if e.key.startswith("aten::")),
                  key=lambda e: e.self_cpu_time_total, reverse=True)[:5]
     return {
@@ -497,6 +549,9 @@ def profile_calls(torch, fn, reps, match=(), groups=None, require=()):
             label: sorted({kernel_base(e.key) for e in kernels
                            if kernel_base(e.key) in names})
             for label, names in (groups or {}).items()},
+        "matched_launches_per_call": {
+            m: sum(e.count for e in kernels if m in e.key) / reps
+            for m in match},
         "launches_per_call": sum(e.count for e in kernels) / reps,
         "kernels": {e.key[:60]: dev_us(e) / max(e.count, 1)
                     for e in sorted(kernels, key=dev_us, reverse=True)[:5]},
@@ -967,10 +1022,14 @@ def phase_ssd_kernel(torch):
         prof_p = profile_calls(torch, cycled(
             sets, lambda *a: sk.ssd_scan_ref(*a, chunk)[0], kept), 3)
         kept.clear()
-        # CUPTI may drop an event of the window: the count is rounded, and
-        # the time is the sum of the three kernels' means per launch
+        # each kernel launches once a call: CUPTI may drop an event of the
+        # window, which lowers the launches seen (so each kernel's count is
+        # rounded), while another kernel (a fill) would raise them; the
+        # time is the sum of the three kernels' means per launch
         per_launch = prof_k["matched_us_per_launch"]
-        if round(prof_k["launches_per_call"]) != len(sk.KERNELS) or \
+        if any(round(n) != 1 for n in
+               prof_k["matched_launches_per_call"].values()) or \
+                prof_k["launches_per_call"] > len(sk.KERNELS) or \
                 not all(per_launch.values()):
             raise RuntimeError(f"ssd_scan at {shape}: "
                                f"{prof_k['launches_per_call']} device "
@@ -1720,11 +1779,12 @@ def phase_mesh(torch):
 
 
 def bid_specs():
-    """The reference bidding bench's fast E9 slice: SE/DE/PL, seed 0, 6 h,
-    FFR, bands 0 and 0.2, event draw 0 (benchmarks/e9_reserve.py)."""
+    """The reference bidding bench's fast E9 slice: SE/DE/PL, seed 0, FFR,
+    bands 0 and 0.2, event draw 0 (benchmarks/e9_reserve.py), its 6 h cut
+    to SLICE_HOURS."""
     from repro_torch.grid.scenarios import product_specs
     return product_specs(countries=("SE", "DE", "PL"), seeds=(0,),
-                         horizon_h=6, products=("FFR",),
+                         horizon_h=SLICE_HOURS, products=("FFR",),
                          reserve_rhos=(0.0, 0.2), event_seeds=(0,))
 
 
@@ -2212,7 +2272,8 @@ def phase_reserve(torch, engine):
     the full E9 batch (288 scenarios x 24 h of 1 Hz frequency) at the
     Tier-3 selection's hourly mu; 8 lanes against the per-event oracle;
     the event counts against the fused engine's on the engine phase's
-    horizon; then report.sweep_telemetry(fast=True) rendered."""
+    horizon; then report.sweep_telemetry(fast=True) over SLICE_HOURS
+    rendered."""
     import dataclasses
     import io
     import repro_torch.core.engine as eng
@@ -2281,7 +2342,8 @@ def phase_reserve(torch, engine):
     if not torch.equal(out_e["n_events"], engine["n_events"]):
         raise RuntimeError("reserve: event counts differ from the engine's")
     t0 = time.perf_counter()
-    tel = report.sweep_telemetry(fast=True, device="cuda")
+    tel = report.sweep_telemetry(fast=True, device="cuda",
+                                 hours=SLICE_HOURS)
     buf = io.StringIO()
     report.render_telemetry(tel, out=buf)
     report_s = time.perf_counter() - t0
@@ -2338,10 +2400,10 @@ TRAIN_CUT_F32_REL = 1e-4           # the same cut in f32 compute, per leaf
 # configs' plan (remat "dots", 4 microbatches), one 2048-token sequence per
 # microbatch
 TRAIN_SSM_SHAPE = (4, 2048)
-TRAIN_SSM_STEPS = 5
+TRAIN_SSM_STEPS = 4
 TRAIN_SSM_TRIGGER_AFTER = 1
 # a shed quantum of 2 steps, so the shed skips a step inside so short a run
-# (the trainer's default quantum of 10 would run all of steps 2-4)
+# (the trainer's default quantum of 10 would run all of steps 2-3)
 TRAIN_SSM_DUTY_QUANTUM = 2
 TRAIN_SSM_PORTS = {"train_ssm": 47682, "train_hybrid": 47683}
 CKPT_ARCH, CKPT_SHAPE = "smollm-135m", (2, 512)
@@ -3879,23 +3941,30 @@ def shard_rels(torch, got, want, places) -> list:
     return [float((d / max(r, 1e-300)) ** 0.5) for d, r in sums.tolist()]
 
 
-def spawn_workers(flag, out_dir, timeout_s, n=2):
+def spawn_workers(flag, worlds, timeout_s, n=2):
     """``n`` processes of this script with ``flag`` under the REPRO_*
-    contract on a free localhost port; fails if one fails or outlives
-    ``timeout_s`` (all are killed then).  Returns each rank's record."""
+    contract on a free localhost port, for one world (``worlds`` its out
+    dir) or for several at once (``worlds`` a list of (out dir, the
+    worker's other arguments...), each world on its own port); fails if
+    one fails or outlives ``timeout_s`` (all are killed then).  Returns
+    each rank's record, a list per world for several."""
     import socket
-    with socket.socket() as sk:
-        sk.bind(("127.0.0.1", 0))
-        port = sk.getsockname()[1]
+    single = isinstance(worlds, str)
+    args = [(worlds,)] if single else [tuple(w) for w in worlds]
     procs = []
     try:
-        for r in range(n):
-            env = dict(os.environ, REPRO_COORD_ADDR=f"127.0.0.1:{port}",
-                       REPRO_NUM_PROCESSES=str(n), REPRO_PROCESS_ID=str(r))
-            procs.append(subprocess.Popen(
-                [sys.executable, os.path.abspath(__file__), flag, out_dir],
-                env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-                text=True))
+        for argv in args:
+            with socket.socket() as sk:
+                sk.bind(("127.0.0.1", 0))
+                port = sk.getsockname()[1]
+            for r in range(n):
+                env = dict(os.environ, REPRO_COORD_ADDR=f"127.0.0.1:{port}",
+                           REPRO_NUM_PROCESSES=str(n),
+                           REPRO_PROCESS_ID=str(r))
+                procs.append(subprocess.Popen(
+                    [sys.executable, os.path.abspath(__file__), flag, *argv],
+                    env=env, stdout=subprocess.PIPE,
+                    stderr=subprocess.STDOUT, text=True))
         deadline = time.monotonic() + timeout_s
         for r, p in enumerate(procs):
             out, _ = p.communicate(
@@ -3909,10 +3978,13 @@ def spawn_workers(flag, out_dir, timeout_s, n=2):
                 p.kill()
                 p.communicate()
     recs = []
-    for r in range(n):
-        with open(os.path.join(out_dir, f"rank{r}.json")) as f:
-            recs.append(json.load(f))
-    return recs
+    for argv in args:
+        world = []
+        for r in range(n):
+            with open(os.path.join(argv[0], f"rank{r}.json")) as f:
+                world.append(json.load(f))
+        recs.append(world)
+    return recs[0] if single else recs
 
 
 def phase_train_fsdp(torch, ssm):
@@ -4029,6 +4101,575 @@ def phase_train_fsdp(torch, ssm):
     return launches
 
 
+# train_tp: two ranks on a (data 1, model 2) mesh, tensor parallelism
+TRAIN_TP_ARCHS = ("mamba2-1.3b", "yi-9b")   # scan; attention at GQA 8
+TRAIN_TP_LAYERS = 2               # full width, depth cut to 2 layers
+TRAIN_TP_SHAPE = (8, 2048)        # 4 microbatches of (2, 2048), every row
+TRAIN_TP_MESH = (1, 2)            # on both ranks
+TRAIN_TP_FLOP_RATIO = 0.55        # a rank's matmul FLOPs / replicated
+TP_WORKER_TIMEOUT_S = 420
+
+
+def tp_kernel_calls():
+    """Record the shapes of every call of the model kernels' entry points
+    (``kernels/ops.py``: the forwards; the backwards where the autograd
+    Functions call them): {name: [(shapes), ...]}; each call goes on to
+    its kernel."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import ssd_scan as sk
+    calls = {k: [] for k in ("flash_attention", "flash_attention_bwd",
+                             "ssd_scan", "ssd_scan_bwd")}
+    f_fwd, f_bwd, s_fwd, s_bwd = (ops.flash_attention, fa._bwd,
+                                  ops.ssd_scan, sk.ssd_scan_bwd)
+
+    def flash(q, k, v, **kw):
+        calls["flash_attention"].append((list(q.shape), list(k.shape)))
+        return f_fwd(q, k, v, **kw)
+
+    def flash_bwd(q, k, v, o, do, lse, **kw):
+        calls["flash_attention_bwd"].append((list(q.shape), list(k.shape)))
+        return f_bwd(q, k, v, o, do, lse, **kw)
+
+    def scan(x, dt, A, B, C, **kw):
+        calls["ssd_scan"].append((list(x.shape), list(B.shape)))
+        return s_fwd(x, dt, A, B, C, **kw)
+
+    def scan_bwd(x, dt, A, B, C, dy, **kw):
+        calls["ssd_scan_bwd"].append((list(x.shape), list(B.shape)))
+        return s_bwd(x, dt, A, B, C, dy, **kw)
+    ops.flash_attention, fa._bwd = flash, flash_bwd
+    # ssd_scan_bwd counts its launches on the module's name, which is the
+    # recorder's now: it takes the count over
+    scan_bwd.launches = s_bwd.launches
+    ops.ssd_scan, sk.ssd_scan_bwd = scan, scan_bwd
+    return calls
+
+
+def tp_kernel_checks(torch, cfg, dname, m):
+    """The kernels at the shapes a rank of a ``model`` of ``m`` calls them
+    with in cfg's training step (this rank's heads, one microbatch),
+    against their plain versions at the kernels' tolerances: the forward
+    and both backwards.  Raises on a miss; returns the errors."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ssd_scan as sk
+    dtype = getattr(torch, dname)
+    b, s = TRAIN_TP_SHAPE[0] // 4, TRAIN_TP_SHAPE[1]
+    g = torch.Generator(device="cuda").manual_seed(31)
+    if cfg.family == "ssm":
+        shape = (b, s, cfg.ssm_n_heads // m, cfg.ssm_head_dim,
+                 cfg.ssm_state, cfg.ssm_chunk)
+        *dims, chunk = shape
+        args = ssd_inputs(torch, g, *dims, dtype)
+        got = sk.ssd_scan(*args, chunk=chunk)
+        if dname == "float32":
+            want = sk.ssd_scan_ref(*args, chunk)[0]
+            torch.testing.assert_close(got, want, **SSD_TOL["chunked"])
+            err = {"fwd_max_abs_err": float((got - want).abs().max())}
+        else:
+            want = sk.ssd_scan_ref(args[0].float(), *args[1:], chunk)[0]
+            rel = float((got.float() - want).norm() / want.norm())
+            if not rel <= SSD_BF16_REL:
+                raise RuntimeError(f"train_tp: ssd_scan bf16 at {shape}: "
+                                   f"{rel} > {SSD_BF16_REL}")
+            err = {"fwd_rel_err": rel}
+        del args, got, want
+        bwd, _ = ssd_bwd_checks(torch, [(shape, dname)])
+        return {"shape": list(shape), **err, "bwd": bwd[0]}
+    shape = (b, s, *tp_local_heads(cfg, m), cfg.resolved_head_dim)
+    q, k, v = flash_inputs(torch, g, shape, dtype)
+    got = fa.flash_attention(q, k, v, causal=True)
+    want = fa.flash_attention_ref(q, k, v, causal=True)
+    tol = FLASH_TOL_LONG_F32 if dname == "float32" else FLASH_TOL[dname]
+    torch.testing.assert_close(got, want, **tol)
+    do = torch.randn(q.shape, device="cuda", generator=g).to(dtype)
+    o, lse = fa.flash_attention_with_lse(q, k, v, causal=True)
+    grads = fa.flash_attention_bwd(q, k, v, o, do, lse, causal=True)
+    plain = plain_grads(torch, q, k, v, do, 0)
+    for a, p_ in zip(grads, plain):
+        torch.testing.assert_close(a.float(), p_.float(),
+                                   **FLASH_BWD_TOL[dname])
+    return {"shape": list(shape),
+            "fwd_max_abs_err": float((got.float() - want.float()).abs()
+                                     .max()),
+            "bwd_max_abs_err_dq_dk_dv": [float((a.float() - p_.float())
+                                               .abs().max())
+                                         for a, p_ in zip(grads, plain)]}
+
+
+def tp_product_ms(torch, cfg, dtype, m):
+    """Device ms of one microbatch's forward weight products of one layer
+    and of the vocabulary (2 x 2048 tokens), at the whole widths and at a
+    rank's widths on a ``model`` of ``m`` (CUDA events over 20 runs, the
+    rank alone on the card): the products' share that tensor parallelism
+    leaves a rank, without the other rank's kernels in its window."""
+    d, t = cfg.d_model, TRAIN_TP_SHAPE[0] // 4 * TRAIN_TP_SHAPE[1]
+    if cfg.family == "ssm":
+        di = cfg.ssm_d_inner
+        # (K, N, split): w_zx, w_dt column-split; w_bc whole; w_out rows
+        prods = [(d, 2 * di, "n"), (d, cfg.ssm_n_heads, "n"),
+                 (d, 2 * cfg.ssm_state, None), (di, d, "k")]
+    else:
+        hd = cfg.resolved_head_dim
+        q, kv, f = cfg.n_heads * hd, cfg.n_kv_heads * hd, cfg.d_ff
+        prods = [(d, q, "n"), (d, kv, "n"), (d, kv, "n"), (q, d, "k"),
+                 (d, f, "n"), (d, f, "n"), (f, d, "k")]
+    prods.append((d, cfg.padded_vocab, "n"))
+
+    def run(split):
+        mats = []
+        for k, n, how in prods:
+            k2 = k // m if split and how == "k" else k
+            n2 = n // m if split and how == "n" else n
+            mats.append((torch.randn(t, k2, device="cuda", dtype=dtype),
+                         torch.randn(k2, n2, device="cuda", dtype=dtype)))
+        for a, b in mats:
+            a @ b
+        start, end = (torch.cuda.Event(enable_timing=True)
+                      for _ in range(2))
+        start.record()
+        for _ in range(20):
+            for a, b in mats:
+                a @ b
+        end.record()
+        torch.cuda.synchronize()
+        return start.elapsed_time(end) / 20
+    whole, local = run(False), run(True)
+    return {"tokens": t, "whole_ms": whole, "rank_ms": local,
+            "ratio": local / whole}
+
+
+def step_profile(torch, fn):
+    """Wall ms of ``fn()`` (one training step) under torch.profiler, its
+    device time and the device time of the GEMMs (cuBLAS's and CUTLASS's
+    kernels), of the port's model kernels and of the copies (gloo moves
+    CUDA tensors through the host)."""
+    from torch.profiler import ProfilerActivity, profile
+    cuda = torch.autograd.DeviceType.CUDA
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    kernels = [e for e in prof.key_averages() if e.device_type == cuda]
+
+    def dev(keys):
+        return sum((getattr(e, "self_device_time_total", None)
+                    or getattr(e, "self_cuda_time_total", 0.0))
+                   for e in kernels
+                   if keys is None or any(k in e.key.lower() for k in keys))
+    return out, {"ms": wall * 1e3, "device_ms": dev(None) / 1e3,
+                 "gemm_device_ms": dev(("gemm", "xmma", "cutlass",
+                                        "nvjet")) / 1e3,
+                 "kernel_device_ms": dev(("flash_", "ssd_")) / 1e3,
+                 "memcpy_device_ms": dev(("memcpy",)) / 1e3,
+                 "launches": sum(e.count for e in kernels)}
+
+
+def tp_worker(out_dir, arch):
+    """One rank of train_tp's world for ``arch`` (REPRO_* set by the
+    parent; the ranks share the card, so gloo): ``arch`` at full width
+    cut to TRAIN_TP_LAYERS layers on a (data 1, model 2) mesh -- tensor
+    parallelism: each rank computes its heads, its MLP columns and its
+    vocabulary columns (``sharding/tp.py``) --, in bf16 and then f32
+    compute, as fsdp_worker: one process's replicated step warms the
+    state through TRAIN_FSDP_WARM_IDS on the whole TRAIN_TP_SHAPE batch;
+    that state, placed, takes TRAIN_FSDP_STEP_IDS tensor-parallel, the
+    replicated step beside.  Step 150 of each runs under FlopCounterMode
+    (the matmul FLOPs), step 151 under the profiler (device time; the
+    replicated ones one rank after the other).  Records each kernel
+    call's shapes, the launches and the collectives a step."""
+    import dataclasses
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import DeviceMesh
+    from torch.distributed.tensor import Replicate
+    from torch.utils.flop_counter import FlopCounterMode
+    sys.path.insert(0, os.path.join(ROOT, "src"))
+    from repro_torch._tree import leaves, leaves_with_paths, tree_map
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch.mesh import ensure_distributed
+    from repro_torch.optim import AdamWState
+    from repro_torch.sharding import fsdp
+    from repro_torch.train import step as st
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    ensure_distributed("cuda")
+    rank, world = dist.get_rank(), dist.get_world_size()
+    mesh = DeviceMesh("cuda", torch.arange(world).reshape(TRAIN_TP_MESH),
+                      mesh_dim_names=("data", "model"))
+    calls = tp_kernel_calls()
+    counters = train_launch_counters()
+    rec = {"rank": rank, "world": world, "backend": dist.get_backend(),
+           "mesh": dict(zip(mesh.mesh_dim_names, mesh.shape)), "runs": {}}
+    b, s = TRAIN_TP_SHAPE
+    cfg = dataclasses.replace(get_cfg(arch), num_layers=TRAIN_TP_LAYERS)
+    shape = ShapeConfig("smoke_train_tp", s, b, "train")
+    tokens = torch.randint(cfg.vocab_size, (b, s), dtype=torch.int32,
+                           generator=torch.Generator().manual_seed(7))
+    for dname, dtype in (("bfloat16", torch.bfloat16),
+                         ("float32", torch.float32)):
+        kw = dict(compute_dtype=dtype)
+        t_run = time.perf_counter()
+        rb = st.build_step_bundle(cfg, shape, device="cuda",
+                                  model_kw=kw)
+        p, o = rb.init_state(0)
+        whole = {"tokens": tokens.cuda()}
+        for i in TRAIN_FSDP_WARM_IDS:
+            p, o, _ = rb.step_fn(p, o, whole, i)
+        torch.cuda.synchronize()
+        secs = {"init_and_warm": time.perf_counter() - t_run}
+        bundle = st.build_step_bundle(cfg, shape, mesh, device="cuda",
+                                      model_kw=kw)
+        # the replicated steps first, from the warm state, which waits on
+        # the host for the tensor-parallel steps: two worlds share the
+        # card, and yi-9b's 2-layer state is 10.6 GB a rank
+        warm = [tree_map(lambda t: t.detach().to("cpu", copy=True), tree)
+                for tree in (p, o.mu, o.nu)]
+        warm_step = o.step.clone()
+        i0, i1 = TRAIN_FSDP_STEP_IDS
+        t0 = time.perf_counter()
+        rep, rep_norms = [], []
+        with FlopCounterMode(display=False) as fc:
+            p, o, mr = rb.step_fn(p, o, whole, i0)
+        rep_flops = fc.get_total_flops()
+        rep.append(float(mr["loss"]))
+        rep_norms.append(float(mr["grad_norm"]))
+        for r in range(world):        # one rank at a time on the card
+            dist.barrier()
+            if r == rank:
+                (p, o, mr), rep_prof = step_profile(
+                    torch, lambda: rb.step_fn(p, o, whole, i1))
+        dist.barrier()
+        rep.append(float(mr["loss"]))
+        rep_norms.append(float(mr["grad_norm"]))
+        def by_leaf(tree):            # placement tuples, in leaf order
+            return [x for k in sorted(tree) for x in by_leaf(tree[k])] \
+                if isinstance(tree, dict) else [tree]
+        places = []
+        for pl in (by_leaf(bundle.param_placements)
+                   + by_leaf(bundle.opt_placements.mu)
+                   + by_leaf(bundle.opt_placements.nu)):
+            shards_n = math.prod(mesh.size(i) for i, q in enumerate(pl)
+                                 if not isinstance(q, Replicate))
+            places.append((None, world) if fsdp.replicated(pl)
+                          else (pl, world // shards_n))
+        named = list(leaves_with_paths((p, o.mu, o.nu)))
+        names = ["/".join(path) for path, _ in named]
+        chunks = [(r_ if pl is None else fsdp.local_chunk(r_, mesh, pl))
+                  .detach().clone()
+                  for (_, r_), (pl, _) in zip(named, places)]
+        del p, o, rb, named, whole
+        torch.cuda.empty_cache()
+        secs["replicated_steps"] = time.perf_counter() - t0
+
+        def put(tree, places):
+            return tree_map(lambda t, pl: fsdp.place(t.to("cuda"), mesh,
+                                                     pl), tree, places)
+        params = put(warm[0], bundle.param_placements)
+        opt = AdamWState(step=warm_step,
+                         mu=put(warm[1], bundle.opt_placements.mu),
+                         nu=put(warm[2], bundle.opt_placements.nu))
+        del warm
+        held = fsdp.shard_bytes((params, opt.mu, opt.nu))
+        want_bytes = bundle.state_bytes()
+        n_p = len(leaves(params))
+        before = [fsdp.local(x).detach().clone()
+                  for x in leaves(params)]
+        rows = st.batch_rows(bundle.rules, b, mesh.get_coordinate(),
+                             cfg.plan.microbatches)
+        batch = {"tokens": tokens[rows].cuda()}
+        losses, norms = [], []
+        for v in calls.values():
+            v.clear()
+        start = {k: c.launches for k, c in counters.items()}
+        coll = fsdp.reset_collective_stats()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with FlopCounterMode(display=False) as fc:
+            params, opt, mt = bundle.step_fn(params, opt, batch, i0)
+        tp_flops = fc.get_total_flops()
+        losses.append(float(mt["loss"]))
+        norms.append(float(mt["grad_norm"]))
+        (params, opt, mt), prof = step_profile(
+            torch, lambda: bundle.step_fn(params, opt, batch, i1))
+        losses.append(float(mt["loss"]))
+        norms.append(float(mt["grad_norm"]))
+        launched = {k: c.launches - start[k]
+                    for k, c in counters.items()}
+        seen = {k: list(v) for k, v in calls.items()}
+        coll = {"bytes_by_op_per_step": {
+                    k: v / 2 for k, v in coll["bytes_by_op"].items()},
+                "calls_per_step": coll["calls"] / 2,
+                "seconds_per_step": coll["seconds"] / 2}
+        shards = [fsdp.local(x).detach()
+                  for x in leaves((params, opt.mu, opt.nu))]
+        secs["tp_steps"] = time.perf_counter() - t0
+        rels = shard_rels(torch, shards, chunks, places)
+        moved = shard_rels(
+            torch, [a - w for a, w in zip(shards[:n_p], before)],
+            [a - w for a, w in zip(chunks[:n_p], before)],
+            places[:n_p])
+        order = sorted(range(len(rels)), key=lambda k: -rels[k])
+        worst_moved = max(range(n_p), key=lambda k: moved[k])
+        del shards, chunks, before, params, opt, bundle
+        torch.cuda.empty_cache()
+        rec["runs"][f"{arch}/{dname}"] = {
+            "arch": arch, "family": cfg.family,
+            "resident_bytes": held, "placed_bytes": want_bytes,
+            "losses": losses, "grad_norms": norms,
+            "replicated_losses": rep,
+            "replicated_grad_norms": rep_norms,
+            "loss_rel": max(abs(a - r_) / abs(r_)
+                            for a, r_ in zip(losses, rep)),
+            "grad_norm_rel": max(abs(a - r_) / abs(r_)
+                                 for a, r_ in zip(norms, rep_norms)),
+            "leaves": len(rels), "worst_leaf_rel": max(rels),
+            "worst_leaf": names[order[0]],
+            "worst_leaves": {names[k]: rels[k] for k in order[:6]},
+            "worst_change_rel": moved[worst_moved],
+            "worst_change_leaf": names[worst_moved],
+            "matmul_flops": tp_flops,
+            "replicated_matmul_flops": rep_flops,
+            "flop_ratio": tp_flops / rep_flops,
+            "step": prof, "replicated_step": rep_prof,
+            "kernel_calls": seen, "launches": launched,
+            "launches_expected": train_launches_expected(cfg, 2),
+            "collectives": coll, "seconds": secs}
+    dist.destroy_process_group()
+    with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+        json.dump(rec, f)
+    return 0
+
+
+def tp_local_heads(cfg, m):
+    """(query heads, kv heads) of an attention call, or (heads, state) of
+    a scan call, that rank 0 of a ``model`` of ``m`` makes."""
+    if cfg.family == "ssm":
+        return cfg.ssm_n_heads // m, cfg.ssm_state
+    from repro_torch.models.transformer import rank_heads
+    heads = rank_heads(cfg, m, 0)[1]
+    return heads.q, heads.kv if heads.kv_idx is None else heads.q
+
+
+def phase_train_tp(torch):
+    """Tensor-parallel training on the card: a world of two tp_worker
+    ranks for each of TRAIN_TP_ARCHS, both worlds at once (four processes
+    sharing the card over gloo; their steps are gloo-bound, the card
+    mostly idle), then, the card to itself, the kernels at the ranks'
+    shapes against their plain versions and the forward products' time at
+    a rank's widths.  Fails unless, for each arch and dtype, every loss is
+    finite; the losses, grad norms and every leaf (f32 also each
+    parameter's change) meet one process's replicated step (bf16 2e-2,
+    f32 1e-4); each rank's resident bytes are its shards' by placement;
+    every flash_attention / ssd_scan call and backward ran at the rank's
+    local head count, as many as the plan's launches; the kernels at
+    those shapes meet their plain versions; each rank's matmul FLOPs are
+    at most TRAIN_TP_FLOP_RATIO of the replicated step's on the same
+    rows.  Returns the launches of the kernels over the two
+    tensor-parallel steps (each world's rank 0)."""
+    import dataclasses
+    import tempfile
+    t_phase = time.perf_counter()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()   # the workers open contexts of their own
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_tp_") as d:
+        dirs = [os.path.join(d, str(i)) for i in range(len(TRAIN_TP_ARCHS))]
+        for sub in dirs:
+            os.makedirs(sub)
+        t0 = time.perf_counter()
+        worlds = spawn_workers("--tp-worker", list(zip(dirs, TRAIN_TP_ARCHS)),
+                               TP_WORKER_TIMEOUT_S)
+        workers_s = time.perf_counter() - t0
+    m = TRAIN_TP_MESH[1]
+    recs = [r for world in worlds for r in world]
+    runs0 = {k: v for world in worlds for k, v in world[0]["runs"].items()}
+    for key, run in runs0.items():         # the card to this process
+        arch, dname = key.split("/")
+        cfg = dataclasses.replace(get_cfg(arch), num_layers=TRAIN_TP_LAYERS)
+        run["kernel_checks"] = tp_kernel_checks(torch, cfg, dname, m)
+        run["products"] = tp_product_ms(torch, cfg, getattr(torch, dname), m)
+        torch.cuda.empty_cache()
+    failed = []
+    for r in recs:
+        for key, run in r["runs"].items():
+            dname = key.split("/")[1]
+            cfg = get_cfg(run["arch"])
+            tol = TRAIN_FSDP_F32_REL if dname == "float32" else \
+                TRAIN_FSDP_REL
+            heads = tp_local_heads(cfg, m)
+            want = run["launches_expected"]
+            fwd = "ssd_scan" if cfg.family == "ssm" else "flash_attention"
+            bwd = fwd + "_bwd"
+            shapes_ok = all(
+                (q[2], kb[-1] if cfg.family == "ssm" else kb[2]) == heads
+                for name in (fwd, bwd)
+                for q, kb in run["kernel_calls"][name])
+            counts_ok = len(run["kernel_calls"][fwd]) == want[fwd] and \
+                len(run["kernel_calls"][bwd]) == (
+                    want["ssd_scan_bwd"] if cfg.family == "ssm"
+                    else want["flash_bwd_dq"]) and \
+                run["launches"] == want
+            ok = run["resident_bytes"] == run["placed_bytes"] and \
+                all(np.isfinite(run["losses"])) and shapes_ok and \
+                counts_ok and run["flop_ratio"] <= TRAIN_TP_FLOP_RATIO and \
+                max(run["loss_rel"], run["grad_norm_rel"],
+                    run["worst_leaf_rel"]) <= tol
+            if dname == "float32":
+                ok = ok and run["worst_change_rel"] <= tol
+            if not ok:
+                failed.append((r["rank"], key, {k: run[k] for k in (
+                    "loss_rel", "grad_norm_rel", "worst_leaves",
+                    "worst_change_rel", "worst_change_leaf",
+                    "resident_bytes", "placed_bytes", "flop_ratio",
+                    "launches", "launches_expected")},
+                    {"shapes_ok": shapes_ok, "counts_ok": counts_ok,
+                     "heads": heads}))
+    emit({"phase": "train_tp", "archs": list(TRAIN_TP_ARCHS),
+          "layers": TRAIN_TP_LAYERS,
+          "reduced": f"depth cut to {TRAIN_TP_LAYERS} layers (full "
+                     "width): two ranks an arch on one card over gloo, "
+                     "whose CUDA tensors go through host memory (no "
+                     "deployment's wire); the two archs' worlds run at "
+                     "once",
+          "mesh": {"data": TRAIN_TP_MESH[0], "model": TRAIN_TP_MESH[1]},
+          "batch_x_seq": list(TRAIN_TP_SHAPE),
+          "warm_steps": list(TRAIN_FSDP_WARM_IDS),
+          "steps": list(TRAIN_FSDP_STEP_IDS), "workers_s": workers_s,
+          "route": "torch.distributed on CUDA tensors over gloo",
+          "ranks": [{**r, "runs": {k: {kk: vv for kk, vv in v.items()
+                                       if kk != "kernel_calls"}
+                                   for k, v in r["runs"].items()},
+                     "kernel_call_shapes": {
+                         k: sorted({json.dumps(c) for name, cs in
+                                    v["kernel_calls"].items() for c in cs})
+                         for k, v in r["runs"].items()}}
+                    for r in recs]})
+    emit({"phase": "train_tp", "part": "summary", **{
+        key: {"ms_per_step": run["step"]["ms"],
+              "device_ms": run["step"]["device_ms"],
+              "gemm_device_ms": run["step"]["gemm_device_ms"],
+              "replicated_ms": run["replicated_step"]["ms"],
+              "replicated_device_ms": run["replicated_step"]["device_ms"],
+              "replicated_gemm_device_ms":
+                  run["replicated_step"]["gemm_device_ms"],
+              "products": run["products"],
+              "flop_ratio": run["flop_ratio"],
+              "seconds": run["seconds"],
+              "collectives_per_step": run["collectives"],
+              "worst_leaf_rel": run["worst_leaf_rel"]}
+        for key, run in runs0.items()},
+        "seconds": time.perf_counter() - t_phase})
+    if failed:
+        raise RuntimeError(f"train_tp: {failed}")
+    out = {}
+    for run in runs0.values():
+        for k, v in run["launches"].items():
+            out[k] = out.get(k, 0) + v
+    return out
+
+
+HOST_GROUP_TIMEOUT_S = 600       # each host group, start to exit
+PROFILE_LOCK_ENV = "CHIP_SMOKE_PROFILE_LOCK"   # profile_calls' turn file
+
+
+def host_group(i):
+    """--host-group ``i``: the ``i``-th group of the host-bound phases, in
+    order, in a process of its own (started by start_host_groups); each
+    phase's record on stdout."""
+    import torch
+    sys.path.insert(0, os.path.join(ROOT, "src"))
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    if i == 0:
+        engine = phase_engine(torch)
+        phase_sweep(torch)
+        phase_reserve(torch, engine)
+    elif i == 1:
+        phase_mesh(torch)
+        phase_service(torch)
+        phase_fr_latency(torch)
+        phase_e8(torch)
+        phase_cpu_vs_gpu(torch)
+    else:
+        phase_bidding(torch)
+        phase_tier1_bench(torch)
+        phase_twin(torch)
+    return 0
+
+
+def start_host_groups(n=3):
+    """The host-bound phases (engine to e8: their ticks keep the card busy
+    a tenth of the time or less) in ``n`` processes of this script, one
+    per group of host_group, started beside the build and joined by
+    join_host_groups before the first timed kernel; each one's output goes
+    to a file; killed at exit if still running."""
+    import atexit
+    import tempfile
+    d = tempfile.mkdtemp(prefix="chip_smoke_host_")
+    # one profiler window at a time across the groups
+    env = dict(os.environ, **{PROFILE_LOCK_ENV: os.path.join(d, "profile")})
+    runs = []
+    for i in range(n):
+        out = os.path.join(d, f"group{i}.log")
+        with open(out, "w") as f:
+            runs.append((i, out, subprocess.Popen(
+                [sys.executable, os.path.abspath(__file__), "--host-group",
+                 str(i)], stdout=f, stderr=subprocess.STDOUT, text=True,
+                env=env)))
+
+    def stop():
+        for _, _, p in runs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    atexit.register(stop)
+    return {"runs": runs, "t0": time.perf_counter(), "stop": stop}
+
+
+def join_host_groups(hosts):
+    """Waits for the host groups and prints their records, group by group
+    (other lines to stderr); fails if a group exited nonzero or outlived
+    HOST_GROUP_TIMEOUT_S.  Returns the records by phase."""
+    recs, groups = {}, []
+    t_wait = time.perf_counter()
+    try:
+        for i, out, p in hosts["runs"]:
+            left = HOST_GROUP_TIMEOUT_S - (time.perf_counter() - hosts["t0"])
+            try:
+                p.wait(timeout=max(left, 1.0))
+            except subprocess.TimeoutExpired:
+                p.kill()
+                p.wait()
+            with open(out) as f:
+                lines = f.read().splitlines()
+            phases = []
+            for line in lines:
+                try:
+                    rec = json.loads(line)
+                except ValueError:
+                    rec = None
+                if isinstance(rec, dict) and "phase" in rec:
+                    print(line, flush=True)
+                    recs[rec["phase"]] = rec
+                    phases.append((rec["phase"], rec["t_s"]))
+                else:
+                    print(line, file=sys.stderr, flush=True)
+            if p.returncode != 0:
+                raise RuntimeError(f"host group {i} exited {p.returncode}: "
+                                   + "\n".join(lines[-60:]))
+            groups.append({"phases": [k for k, _ in phases],
+                           "seconds": max(t for _, t in phases)})
+    finally:
+        hosts["stop"]()
+    emit({"phase": "host_groups", "groups": groups,
+          "wall_s": time.perf_counter() - hosts["t0"],
+          "waited_s": time.perf_counter() - t_wait})
+    return recs
+
+
 def start_dryruns():
     """The dry run of DRYRUN_CELLS, each in a CPU process of its own
     (python -m repro_torch.launch.dryrun --mesh single), started now and
@@ -4085,6 +4726,10 @@ def main() -> int:
         return mesh_worker(sys.argv[2])
     if sys.argv[1:2] == ["--fsdp-worker"]:
         return fsdp_worker(sys.argv[2])
+    if sys.argv[1:2] == ["--tp-worker"]:
+        return tp_worker(*sys.argv[2:4])
+    if sys.argv[1:2] == ["--host-group"]:
+        return host_group(int(sys.argv[2]))
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this "
               "script runs the port on an NVIDIA GPU", file=sys.stderr)
@@ -4092,6 +4737,12 @@ def main() -> int:
     sys.path.insert(0, os.path.join(ROOT, "src"))
     import repro_torch  # noqa: F401  (fails outside a checkout)
 
+    whole = not {"--flash-only", "--ssd-only", "--train-only"} & set(
+        sys.argv[1:])
+    if whole:
+        # on the host's other cores beside the build: the host-bound
+        # phases, read before the first timed kernel
+        hosts = start_host_groups()
     phase_build()
     torch.backends.cuda.matmul.allow_tf32 = False  # f32 products in f32
     torch.backends.cudnn.allow_tf32 = False
@@ -4112,9 +4763,11 @@ def main() -> int:
         phase_ssd_bwd(torch)
         phase_train_fsdp(torch, phase_train_ssm(torch, "train_ssm",
                                                 "mamba2-1.3b"))
+        phase_train_tp(torch)
         phase_train_ssm(torch, "train_hybrid", "zamba2-2.7b")
         phase_train_cuts(torch)
         return 0
+    host = join_host_groups(hosts)
     pid_rec = phase_kernel(torch)
     flash_rec = phase_flash_kernel(torch)
     ssd_rec = phase_ssd_kernel(torch)
@@ -4162,10 +4815,15 @@ def main() -> int:
     free()
     ssd_bwd_rec = phase_ssd_bwd(torch)
     free()
+    # on the CPU beside the train phases, after the last kernel check
+    # that counts CUPTI's events; read last
+    dryruns = start_dryruns()
     ssm_rec = phase_train_ssm(torch, "train_ssm", "mamba2-1.3b")
     ssm = ssm_rec["launches"]
     free()
     fsdp_launches = phase_train_fsdp(torch, ssm_rec)
+    free()
+    tp_launches = phase_train_tp(torch)
     free()
     hybrid = phase_train_ssm(torch, "train_hybrid",
                              "zamba2-2.7b")["launches"]
@@ -4185,20 +4843,13 @@ def main() -> int:
     ssd_bwd_rec["launches"] = ssm["ssd_scan_bwd"]
     ssd_bwd_rec["launches_train_fsdp"] = fsdp_launches["ssd_scan_bwd"]
     ssd_bwd_rec["launches_train_hybrid"] = hybrid["ssd_scan_bwd"]
-    # on the CPU beside the remaining phases (none checks a kernel's
-    # timing); read last
-    dryruns = start_dryruns()
-    engine = phase_engine(torch)
-    phase_cpu_vs_gpu(torch)
-    phase_sweep(torch)
-    phase_mesh(torch)
-    phase_bidding(torch)
-    phase_service(torch)
-    pid_rec["launches_e4"] = phase_tier1_bench(torch)
-    phase_fr_latency(torch)
-    phase_twin(torch)
-    phase_reserve(torch, engine)
-    phase_e8(torch)
+    # the two tensor-parallel steps of train_tp, at each rank's heads
+    for rec in bwd_recs:
+        rec["launches_train_tp"] = tp_launches[rec["name"]]
+    flash_rec["launches_train_tp"] = tp_launches["flash_attention"]
+    ssd_rec["launches_train_tp"] = tp_launches["ssd_scan"]
+    ssd_bwd_rec["launches_train_tp"] = tp_launches["ssd_scan_bwd"]
+    pid_rec["launches_e4"] = host["tier1_bench"]["pid_update_launches"]
     phase_dryrun(dryruns)
     emit({"kernels": [pid_rec, flash_rec, ssd_rec, *bwd_recs, ssd_bwd_rec]})
     smi = subprocess.run(

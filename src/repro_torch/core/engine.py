@@ -60,8 +60,9 @@ K = twin_lib.LOAD_BLOCK_S    # seconds per hour block
 
 @dataclass(frozen=True)
 class EngineConfig:
-    """Static knobs of the unified rollout (the reference's fields, less
-    its scan ``unroll``, which has no counterpart in an eager loop)."""
+    """Static knobs of the unified rollout: the reference's fields.
+    ``unroll`` (the reference's scan unroll) is accepted and has no
+    effect: the port's tick loop runs eagerly, one step at a time."""
 
     n_hosts: int = 4
     chips_per_host: int = 2
@@ -80,6 +81,7 @@ class EngineConfig:
     telemetry: bool = False
     with_seconds: bool = True
     warmup_s: int = 60
+    unroll: int = 1
 
     def __post_init__(self):
         if self.rho_mode not in ("batch", "tier3"):

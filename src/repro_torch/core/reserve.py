@@ -118,9 +118,12 @@ def _as_tensor(x, dtype, dev) -> torch.Tensor:
 
 def reserve_replay_batch(freq, mu_h, t_amb_h, valid_s, product_idx, rho,
                          design_mw, pue_design, *, pue_aware: bool = True,
-                         e_max: int = E_MAX, device="cuda") -> dict:
+                         e_max: int = E_MAX, unroll: int = 8,
+                         device="cuda") -> dict:
     """Replay N scenarios' 1 Hz frequency traces on ``device``; detect and
-    verify their reserve events.
+    verify their reserve events.  ``unroll`` (the reference's scan
+    unroll) is accepted and has no effect: the loop over seconds runs
+    eagerly.
 
     ``freq`` (N, T) Hz; ``mu_h``/``t_amb_h`` (N, H) hourly operating
     fraction and ambient; ``valid_s`` (N,) real seconds (ragged
@@ -184,10 +187,12 @@ def reserve_replay_batch(freq, mu_h, t_amb_h, valid_s, product_idx, rho,
 
 def reserve_replay(freq, mu_h, t_amb_h, valid_s, product_idx, rho,
                    design_mw, pue_design, *, pue_aware: bool = True,
-                   e_max: int = E_MAX, device="cuda") -> dict:
+                   e_max: int = E_MAX, unroll: int = 8,
+                   device="cuda") -> dict:
     """One scenario's replay: ``freq`` (T,), ``mu_h``/``t_amb_h`` (H,),
     the rest scalars.  :func:`reserve_replay_batch` over a batch of one;
-    the leaves lose the scenario axis."""
+    the leaves lose the scenario axis.  ``unroll`` is accepted and has no
+    effect (see :func:`reserve_replay_batch`)."""
     dev = resolve_device(device)
     out = reserve_replay_batch(
         *(_as_tensor(x, torch.float32, dev)[None]

@@ -158,15 +158,20 @@ def grid_candidates(rho_fixed=0.0, *, fix_rho: bool = False, device=None):
 def point_objective(mu, rho, greenness, t_amb, weights, product_idx,
                     events_per_day, clock_w, ckpt_cost_s, *,
                     pue_aware: bool, use_revenue: bool, use_workload: bool,
-                    pue_design=pue_lib.PUE_DESIGN):
+                    pue_design=pue_lib.PUE_DESIGN, price_rel=None):
     """J(mu, rho) at arbitrary (broadcastable) points, in the term order
-    the grid search uses."""
+    the grid search uses.  ``price_rel`` (the bidder's capacity-price
+    realisation relative to nominal) scales the revenue term; None omits
+    the multiply, as in the grid search."""
     q = q_ffr(mu, rho, t_amb, pue_aware=pue_aware, pue_design=pue_design)
     J = weights[0] * q + weights[1] * cfe_score(mu, greenness)
     if use_revenue:
-        J = J + weights[2] * revenue_score(
+        rev = revenue_score(
             mu, rho, t_amb, product_idx, pue_aware=pue_aware,
             pue_design=pue_design, events_per_day=events_per_day)
+        if price_rel is not None:
+            rev = price_rel * rev
+        J = J + weights[2] * rev
     if use_workload:
         J = J + weights[3] * throughput_score(
             mu, rho, clock_w, product_idx,

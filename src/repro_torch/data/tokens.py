@@ -25,11 +25,11 @@ from repro_torch import resolve_device
 
 def synthetic_batch(seed: int, step: int, batch: int, seq: int,
                     vocab: int, frontend_tokens: int = 0, d_model: int = 0,
-                    encoder_seq: int = 0) -> dict:
+                    encoder_seq: int = 0, dtype=torch.float32) -> dict:
     """One batch of synthetic data on the CPU: (batch, seq) int32 tokens
     and, as the reference draws them, the VLM's ``embeds`` (batch,
     frontend_tokens, d_model) or the enc-dec family's ``frames`` (batch,
-    encoder_seq, d_model): 0.02 x standard normals, float32."""
+    encoder_seq, d_model): 0.02 x standard normals in ``dtype``."""
     lanes = rnd.lanes((batch, seq), "cpu")
     u = rnd.uniform(seed, rnd.TOKEN_ZIPF, step, lanes)
     u = 1e-6 + (1.0 - 1e-6) * u          # the reference's [1e-6, 1)
@@ -41,9 +41,9 @@ def synthetic_batch(seed: int, step: int, batch: int, seq: int,
                                  tokens)}
     for key, n in (("embeds", frontend_tokens), ("frames", encoder_seq)):
         if n and d_model:
-            out[key] = 0.02 * rnd.normal(seed, rnd.TOKEN_FRONTEND, step,
-                                         rnd.lanes((batch, n, d_model),
-                                                   "cpu"))
+            out[key] = (0.02 * rnd.normal(seed, rnd.TOKEN_FRONTEND, step,
+                                          rnd.lanes((batch, n, d_model),
+                                                    "cpu"))).to(dtype)
     return out
 
 

@@ -39,12 +39,15 @@ Each record has the reference's keys:
   its ``collective_bytes`` sizes HLO (:func:`collective_bytes` here, over
   the recorded ops).
 
-The numbers are the port's, not comparable to the reference's: the
-collectives are the FSDP gathers and reduce-scatters of the sharded
-state (``sharding/fsdp.py``), not GSPMD's tensor-parallel traffic, and
-the products run on gathered leaves, so a rank's FLOPs are those of its
-batch rows through the whole model (no split over ``model``), and its
-decode cache holds its rows at full width.
+The numbers are the port's: a training or prefill step computes its
+products on this rank's ``model`` shards (``sharding/tp.py``), so a
+rank's FLOPs are its batch rows through its share of the model, as the
+reference's per-device cost analysis counts them (within XLA's count
+of elementwise work, which ``FlopCounterMode`` leaves out); its
+collectives are the FSDP gathers and reduce-scatters over the data
+axes and the tensor-parallel all-reduces over ``model``, not GSPMD's
+HLO; the decode step gathers every leaf whole, and its cache holds its
+rows at full width.
 
 Records go to ``build/dryrun/dryrun_<mesh>.json`` (``--out`` to change);
 the exit status is 1 if any cell failed.  A cell's step runs op by op on
@@ -174,23 +177,32 @@ def _args(bundle):
         (params, cache, batch["tokens"]))
 
 
-def run_cell(cfg, shape, mesh, mesh_name: str) -> dict:
+def run_cell(arch_name, shape_name, mesh, mesh_name: str,
+             unroll: bool = False) -> dict:
     """One cell's record (see the module docstring) on ``mesh``, a
-    ``DeviceMesh`` over a fake world; ``cfg`` and ``shape`` are an
-    ``ArchConfig`` and a ``ShapeConfig``."""
+    ``DeviceMesh`` over a fake world.  ``arch_name`` and ``shape_name``
+    are registered names, or an ``ArchConfig`` and a ``ShapeConfig`` (a
+    reduced cell).  ``unroll`` is the reference's layer-scan unroll,
+    which it needs for exact per-op costs: accepted, with no effect (the
+    port's layer loops run eagerly, so its count is the unrolled one)."""
     from torch.distributed._tools.mem_tracker import MemTracker
     from torch.utils.flop_counter import FlopCounterMode
 
+    from repro_torch.configs import SHAPES, get_arch
     from repro_torch.kernels import ops
     from repro_torch.sharding import fsdp
     from repro_torch.train.step import build_step_bundle
+    cfg = get_arch(arch_name) if isinstance(arch_name, str) else arch_name
+    shape = SHAPES[shape_name] if isinstance(shape_name, str) \
+        else shape_name
     rec: dict = {
         "arch": cfg.name, "shape": shape.name, "mesh": mesh_name,
         "kind": shape.kind, "params": cfg.param_count(),
         "active_params": cfg.active_param_count(), "tokens": shape.tokens,
     }
     t0 = time.time()
-    bundle = build_step_bundle(cfg, shape, device="meta", mesh=mesh)
+    bundle = build_step_bundle(cfg, shape, device="meta", mesh=mesh,
+                               unroll=unroll)
     args, arg_bytes = _args(bundle)
     records: list = []
     ops.META_FLOPS.clear()
@@ -228,17 +240,16 @@ _MESH: dict = {}
 def _cell(job) -> dict:
     """One runnable cell's record in this process's fake world of its
     mesh (made on first use), or its failure."""
-    from repro_torch.configs import SHAPES, get_arch
     from repro_torch.launch.mesh import pod_mesh
-    arch, shape_name, mesh_name = job
+    arch, shape_name, mesh_name, unroll = job
     if _MESH.get("name") != mesh_name:
         multi = mesh_name == "multi"
         fake_world(512 if multi else 256)
         _MESH.update(name=mesh_name,
                      mesh=pod_mesh(multi_pod=multi, device="cpu"))
     try:
-        return run_cell(get_arch(arch), SHAPES[shape_name], _MESH["mesh"],
-                        mesh_name)
+        return run_cell(arch, shape_name, _MESH["mesh"], mesh_name,
+                        unroll=unroll)
     except Exception as e:  # noqa: BLE001 - record and continue
         traceback.print_exc()
         return {"arch": arch, "shape": shape_name, "mesh": mesh_name,
@@ -252,6 +263,10 @@ def main(argv=None) -> int:
     ap.add_argument("--arch", default=None)
     ap.add_argument("--shape", default=None)
     ap.add_argument("--out", default=None)
+    ap.add_argument("--unroll", action="store_true",
+                    help="the reference's flag (unroll the layer scan for "
+                         "exact per-op accounting): accepted; the port's "
+                         "layer loops always run unrolled")
     args = ap.parse_args(argv)
 
     from repro_torch.configs import dryrun_cells
@@ -266,7 +281,8 @@ def main(argv=None) -> int:
             if args.shape and shape.name != args.shape:
                 continue
             if ok:
-                jobs.append((cfg.name, shape.name, mesh_name))
+                jobs.append((cfg.name, shape.name, mesh_name,
+                             args.unroll))
                 results.append(None)
             else:
                 print(f"SKIP {cfg.name} x {shape.name} [{mesh_name}]: "

@@ -15,6 +15,11 @@ every family of the registry (dense, MoE, SSM, hybrid, VLM and enc-dec).
 
 A batch is ``{"tokens"}``, with ``"embeds"`` (B, frontend_tokens, D) for
 the VLM and ``"frames"`` (B, encoder_seq, D) for the enc-dec family.
+
+On a mesh (parameters placed by the sharding rules), ``loss`` and
+``forward`` compute each product on this rank's ``model`` shards where
+the rules split a layer over ``model`` (``sharding/tp.py``); the decode
+step gathers every leaf whole.
 """
 from __future__ import annotations
 
@@ -36,6 +41,9 @@ class Model:
     cfg: ArchConfig
     compute_dtype: torch.dtype = torch.bfloat16
     param_dtype: torch.dtype = torch.float32
+    # the reference's layer-scan unroll (exact dry-run cost accounting):
+    # accepted, with no effect -- the port's layer loops run eagerly
+    unroll: bool = False
     device: str | torch.device | None = "cuda"
 
     def __post_init__(self):

@@ -32,9 +32,9 @@ from repro_torch.kernels import ops
 from repro_torch.models.layers import (ParamSpec, TensorSpec, gelu_mlp,
                                        layernorm, shard,
                                        sinusoidal_positions)
-from repro_torch.models.transformer import Z_LOSS_WEIGHT, _cast, \
-    embed_tokens
-from repro_torch.sharding import fsdp
+from repro_torch.models import transformer as tr
+from repro_torch.models.transformer import Z_LOSS_WEIGHT, _cast
+from repro_torch.sharding import fsdp, tp
 
 # ---------------------------------------------------------------------------
 # Specs
@@ -117,77 +117,123 @@ def _ln_apply(cfg, x, ln):
     return layernorm(x, ln["scale"], ln["bias"], cfg.norm_eps)
 
 
-def _mha(cfg, lp, xq, xkv, *, causal, prefix=""):
+def _mha(cfg, w, xq, xkv, *, causal):
+    """Attention of ``xq`` over ``xkv`` on the leaves ``w``
+    (``transformer.attn_weights``); split over ``model``, this rank's
+    heads and its part of the output product.  ``xq`` and ``xkv`` enter
+    through ``tp.f`` (the caller's, for ``xkv``)."""
     b, sq = xq.shape[:2]
     h = cfg.resolved_head_dim
-    q = (xq @ lp[prefix + "wq"]).reshape(b, sq, cfg.n_heads, h)
-    k = (xkv @ lp[prefix + "wk"]).reshape(b, xkv.shape[1], cfg.n_kv_heads, h)
-    v = (xkv @ lp[prefix + "wv"]).reshape(b, xkv.shape[1], cfg.n_kv_heads, h)
+    heads = w["heads"]
+    q = (xq @ w["wq"]).reshape(b, sq, heads.q, h)
+    k = (xkv @ w["wk"]).reshape(b, xkv.shape[1], heads.kv, h)
+    v = (xkv @ w["wv"]).reshape(b, xkv.shape[1], heads.kv, h)
+    if heads.kv_idx is not None:
+        idx = torch.tensor(heads.kv_idx, device=xq.device)
+        k, v = k.index_select(2, idx), v.index_select(2, idx)
     q = shard(q, "batch", None, "heads", None)
     out = ops.flash_attention(q, k, v, causal=causal)
-    return out.reshape(b, sq, cfg.n_heads * h) @ lp[prefix + "wo"]
+    return tp.row(out.reshape(b, sq, heads.q * h), w["wo"], w["tp"])
 
 
-def _mlp_apply(lp, x):
-    return gelu_mlp(x, lp["w1"], lp["b1"], lp["w2"], lp["b2"])
+def _self_attn(cfg, w, x, *, causal):
+    ax = w["tp"]
+    xf = tp.f(x, ax)
+    return tp.g(_mha(cfg, w, xf, xf, causal=causal), ax, x.dtype)
 
 
-def encode(cfg, params, frames, *, dtype=torch.bfloat16):
+def mlp_weights(lp, dtype) -> dict:
+    """The GELU MLP's leaves of ``lp`` in ``dtype``, with ``"tp"``: split
+    over ``model``, this rank's hidden columns of ``w1`` and ``b1`` and
+    rows of ``w2``; ``b2`` whole."""
+    w = tr.mlp_weights(lp, dtype, ("w1", "b1", "w2"))
+    return {**w, "b2": fsdp.gather(lp["b2"], dtype)}
+
+
+def _mlp_apply(w, x):
+    """The GELU MLP on the leaves ``w`` (:func:`mlp_weights`): split over
+    ``model``, ``b2`` is added once, after the ranks' parts are summed."""
+    return gelu_mlp(x, w["w1"], w["b1"], w["w2"], w["b2"], w["tp"])
+
+
+def _layer_weights(cfg, lp, dtype, *attn_prefixes) -> dict:
+    """A layer's leaves: the norms whole, each attention's
+    (``transformer.attn_weights``) and the MLP's as their blocks take
+    them."""
+    out = {k: _cast(v, dtype) for k, v in lp.items() if k.startswith("ln")}
+    for pre in attn_prefixes:
+        out[pre + "attn"] = tr.attn_weights(cfg, lp, dtype, pre)
+    out["mlp"] = mlp_weights(lp, dtype)
+    return out
+
+
+def encode(cfg, params, frames, *, dtype=torch.bfloat16, unroll=False):
     """frames: (B, Senc, D) precomputed embeddings (conv stub upstream),
-    cast to ``dtype`` before ``frontend_proj``."""
+    cast to ``dtype`` before ``frontend_proj``.  ``unroll`` (the
+    reference's layer-scan unroll) is accepted and has no effect: the
+    layer loop runs eagerly."""
     x = frames.to(dtype) @ fsdp.gather(params["frontend_proj"], dtype)
     x = x + sinusoidal_positions(x.shape[1], cfg.d_model,
                                  x.device).to(dtype)[None]
     x = shard(x, "batch", None, None)
     for lp in _unstack(params["enc"]):
-        lp = _cast(lp, dtype)
-        h = _ln_apply(cfg, x, lp["ln1"])
-        x = x + _mha(cfg, lp, h, h, causal=False)
-        h = _ln_apply(cfg, x, lp["ln2"])
-        x = x + _mlp_apply(lp, h)
+        w = _layer_weights(cfg, lp, dtype, "")
+        h = _ln_apply(cfg, x, w["ln1"])
+        x = x + _self_attn(cfg, w["attn"], h, causal=False)
+        h = _ln_apply(cfg, x, w["ln2"])
+        x = x + _mlp_apply(w["mlp"], h)
     return _ln_apply(cfg, x, fsdp.gather_tree(params["enc_norm"]))
 
 
-def _logits(cfg, params, x):
-    logits = x @ fsdp.gather(params["embed"], x.dtype).T
-    if cfg.padded_vocab != cfg.vocab_size:
-        logits[..., cfg.vocab_size:] = -1e30  # fresh tensor: in place
-    return shard(logits, "batch", None, "vocab")
+def _logits(cfg, params, x, split: bool = True):
+    """The logits of ``x`` against the tied embedding, and the axis their
+    columns are split over (``transformer.vocab_logits``)."""
+    return tr.vocab_logits(cfg, params["embed"], x, tied=True, split=split)
 
 
-def decode_train(cfg, params, tokens, enc_out, *, dtype=torch.bfloat16,
-                 last_only=False):
-    """Teacher-forced decoder: (B, S, V) logits (B, 1, V with
-    ``last_only``), the padded vocabulary at -1e30, the embedding tied as
-    the unembedding."""
-    x = embed_tokens(params, tokens, dtype)
+def _decoder(cfg, params, tokens, enc_out, dtype):
+    x = tr._lookup(params["embed"], tokens, dtype)
     x = x + sinusoidal_positions(x.shape[1], cfg.d_model,
                                  x.device).to(dtype)[None]
     x = shard(x, "batch", None, None)
+    enc_f = None        # enc_out through tp.f once: one sum of its gradient
     for lp in _unstack(params["dec"]):
-        lp = _cast(lp, dtype)
-        h = _ln_apply(cfg, x, lp["ln1"])
-        x = x + _mha(cfg, lp, h, h, causal=True)
-        h = _ln_apply(cfg, x, lp["lnx"])
-        x = x + _mha(cfg, lp, h, enc_out, causal=False, prefix="x_")
-        h = _ln_apply(cfg, x, lp["ln2"])
-        x = x + _mlp_apply(lp, h)
-    x = _ln_apply(cfg, x, fsdp.gather_tree(params["dec_norm"]))
+        w = _layer_weights(cfg, lp, dtype, "", "x_")
+        h = _ln_apply(cfg, x, w["ln1"])
+        x = x + _self_attn(cfg, w["attn"], h, causal=True)
+        h = _ln_apply(cfg, x, w["lnx"])
+        ax = w["x_attn"]["tp"]
+        if enc_f is None:
+            enc_f = tp.f(enc_out, ax)
+        x = x + tp.g(_mha(cfg, w["x_attn"], tp.f(h, ax), enc_f,
+                          causal=False), ax, x.dtype)
+        h = _ln_apply(cfg, x, w["ln2"])
+        x = x + _mlp_apply(w["mlp"], h)
+    return _ln_apply(cfg, x, fsdp.gather_tree(params["dec_norm"]))
+
+
+def decode_train(cfg, params, tokens, enc_out, *, dtype=torch.bfloat16,
+                 last_only=False, unroll=False):
+    """Teacher-forced decoder: (B, S, V) logits (B, 1, V with
+    ``last_only``), the padded vocabulary at -1e30, the embedding tied as
+    the unembedding (split over ``model``, each rank's columns
+    gathered).  ``unroll`` is accepted and has no effect."""
+    x = _decoder(cfg, params, tokens, enc_out, dtype)
     if last_only:
         x = x[:, -1:, :]
-    return _logits(cfg, params, x)
+    return tp.gather_last(*_logits(cfg, params, x))
 
 
-def encdec_loss(cfg, params, batch, *, dtype=torch.bfloat16):
+def encdec_loss(cfg, params, batch, *, dtype=torch.bfloat16, unroll=False):
     """Next-token CE + z-loss in float32 on (frames, tokens); returns
-    (loss, {"ce"}) -- the reference's enc-dec metrics."""
+    (loss, {"ce"}) -- the reference's enc-dec metrics.  Over a vocabulary
+    split over ``model``, as ``transformer.lm_loss``.  ``unroll`` is
+    accepted and has no effect."""
     enc_out = encode(cfg, params, batch["frames"], dtype=dtype)
-    logits = decode_train(cfg, params, batch["tokens"], enc_out, dtype=dtype)
-    logits = logits[:, :-1].float()
-    targets = batch["tokens"][:, 1:].long()
-    logz = torch.logsumexp(logits, dim=-1)
-    tgt = torch.gather(logits, -1, targets[..., None])[..., 0]
-    ce = torch.mean(logz - tgt)
+    x = _decoder(cfg, params, batch["tokens"], enc_out, dtype)
+    logits, ax = _logits(cfg, params, x)
+    ce, logz = tr.next_token_ce(logits[:, :-1].float(),
+                                batch["tokens"][:, 1:].long(), ax)
     loss = ce + Z_LOSS_WEIGHT * torch.mean(logz ** 2)
     return loss, {"ce": ce}
 
@@ -247,7 +293,7 @@ def encdec_decode_step(cfg, params, cache, tokens, *, dtype=torch.bfloat16):
     b = tokens.shape[0]
     h = cfg.resolved_head_dim
     pos_buf = cache["pos_buf"]
-    x = embed_tokens(params, tokens, dtype)
+    x = tr._lookup(params["embed"], tokens, dtype, split=False)
     # row cur of the (seq_len, D) table: each element is computed alone
     x = x + sinusoidal_positions(cur + 1, cfg.d_model,
                                  x.device).to(dtype)[cur][None]
@@ -270,7 +316,8 @@ def encdec_decode_step(cfg, params, cache, tokens, *, dtype=torch.bfloat16):
         a = _attend(q, cache["xk"][i], cache["xv"][i], scale, dtype)
         x = x + a.reshape(b, cfg.n_heads * h) @ lp["x_wo"]
         # mlp
-        x = x + _mlp_apply(lp, _ln_apply(cfg, x, lp["ln2"]))
+        x = x + gelu_mlp(_ln_apply(cfg, x, lp["ln2"]), lp["w1"], lp["b1"],
+                         lp["w2"], lp["b2"])
     x = _ln_apply(cfg, x, fsdp.gather_tree(params["dec_norm"]))
     cache["cur"] = cur + 1
-    return _logits(cfg, params, x), cache
+    return _logits(cfg, params, x, split=False)[0], cache

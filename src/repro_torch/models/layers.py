@@ -14,6 +14,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from repro_torch.sharding import tp
 from repro_torch.sharding.rules import (P, axis_sizes, entry_size,
                                         placements)
 
@@ -269,15 +270,23 @@ def decode_attention(q, k_cache, v_cache, cache_len, *, window: int = 0):
 # ---------------------------------------------------------------------------
 
 
-def gated_mlp(x, wi, wg, wo):
-    """SwiGLU: silu(x@wg) * (x@wi) @ wo."""
+def gated_mlp(x, wi, wg, wo, ax=None):
+    """SwiGLU: silu(x@wg) * (x@wi) @ wo.  Split over the ``model`` axis
+    ``ax`` (``sharding/tp.py``), ``wi`` and ``wg`` are this rank's hidden
+    columns and ``wo`` its rows, and the result is this rank's part of
+    the output, which the caller sums (``tp.g``: outside a checkpointed
+    block, so the recompute does not repeat the sum)."""
+    x = tp.f(x, ax)
     h = x @ wi
     g = x @ wg
-    return (torch.nn.functional.silu(g) * h) @ wo
+    return tp.row(torch.nn.functional.silu(g) * h, wo, ax)
 
 
-def gelu_mlp(x, w1, b1, w2, b2):
+def gelu_mlp(x, w1, b1, w2, b2, ax=None):
     """GELU MLP with biases; the reference's GELU is the tanh form
-    (``jax.nn.gelu(approximate=True)``), not torch's default erf."""
-    h = torch.nn.functional.gelu(x @ w1 + b1, approximate="tanh")
-    return h @ w2 + b2
+    (``jax.nn.gelu(approximate=True)``), not torch's default erf.  Split
+    over the ``model`` axis ``ax``, ``w1``/``b1`` are this rank's hidden
+    columns and ``w2`` its rows; the ranks' parts are summed and ``b2``
+    added once, after the sum."""
+    h = torch.nn.functional.gelu(tp.f(x, ax) @ w1 + b1, approximate="tanh")
+    return tp.g(tp.row(h, w2, ax), ax, x.dtype) + b2

@@ -31,7 +31,7 @@ import math
 import torch
 
 from repro_torch.models.layers import ParamSpec, shard
-from repro_torch.sharding import fsdp
+from repro_torch.sharding import fsdp, tp
 
 CAPACITY_FACTOR = 1.25
 GROUP_SIZE = 2048  # tokens per dispatch group
@@ -106,10 +106,33 @@ def dispatch_combine(topi, topv, n_experts: int, cap: int, dtype):
     return dispatch, combine
 
 
+def moe_weights(lp: dict, dtype) -> dict:
+    """The layer's leaves of ``lp`` in ``dtype`` as :func:`moe_ffn` takes
+    them, with ``"tp"``: where it splits over ``model``, this rank's
+    experts (``ep``) or every expert's hidden columns (``tp``); the
+    router whole (the rules replicate it over ``model``).  Where the rules
+    replicate the expert leaves over ``model``, the layer runs unsplit."""
+    ax = tp.axis_of(lp["moe_wi"])
+    get = tp.local if ax is not None else fsdp.gather
+    return {**{k: get(lp[k], dtype) for k in ("router", "moe_wi", "moe_wg",
+                                              "moe_wo")}, "tp": ax}
+
+
 def moe_ffn(cfg, lp: dict, x, *, topi=None):
     """x: (B, S, D) -> (out (B, S, D), aux loss float32 scalar), capacity
     dispatch over groups of GROUP_SIZE tokens.  ``topi`` (G, S, k) pins
-    the routing (see :func:`route`)."""
+    the routing (see :func:`route`).
+
+    Split over ``model`` (``lp["tp"]``, ``moe_weights``), every rank
+    routes all its tokens (the router is replicated, and the ``model``
+    ranks hold the same rows, so no all-to-all), and ``out`` is this
+    rank's part, which the caller sums (``tp.g``): under ``ep`` its
+    experts' dispatch and combine columns through its experts, under
+    ``tp`` every expert's products on its hidden columns.  The gates and
+    the tokens enter the split products through ``tp.f``, so the
+    router's gradient from the combine is summed over ``model``; its
+    aux loss is the same on every rank."""
+    ax = lp.get("tp")
     b, s, d = x.shape
     e, k = cfg.n_experts, cfg.top_k
     tokens = b * s
@@ -130,9 +153,14 @@ def moe_ffn(cfg, lp: dict, x, *, topi=None):
         topi[..., 0].long(), e).float().mean(dim=(0, 1)))
     aux = e * torch.sum(me * ce)
 
-    dispatch, combine = dispatch_combine(topi, topv, e, _capacity(sg, e, k),
-                                         x.dtype)
-    xe = torch.einsum("gsec,gsd->egcd", dispatch, xg)
+    dispatch, combine = dispatch_combine(topi, tp.f(topv, ax), e,
+                                         _capacity(sg, e, k), x.dtype)
+    n_local = lp["moe_wi"].shape[0]
+    if n_local != e:                     # ep: this rank's experts' columns
+        lo = ax.rank * n_local
+        dispatch = dispatch[:, :, lo:lo + n_local]
+        combine = combine[:, :, lo:lo + n_local]
+    xe = torch.einsum("gsec,gsd->egcd", dispatch, tp.f(xg, ax))
     del dispatch
     xe = shard(xe, "experts", None, None, None)
     h = torch.einsum("egcd,edf->egcf", xe, lp["moe_wi"])

@@ -20,9 +20,10 @@ from repro_torch.kernels.ssd_scan import segsum as _segsum  # noqa: F401
 from repro_torch.kernels.ssd_scan import ssd_scan_ref as ssd_chunked
 from repro_torch.models.layers import ParamSpec, TensorSpec, rmsnorm, \
     shard
+from repro_torch.sharding import fsdp, tp
 
 __all__ = ["ssd_specs", "ssd_chunked", "ssd_block", "ssd_decode_state_specs",
-           "ssd_block_decode"]
+           "ssd_block_decode", "ssd_weights"]
 
 
 def ssd_specs(cfg, n_layers: int, dtype) -> dict:
@@ -56,6 +57,10 @@ def ssd_specs(cfg, n_layers: int, dtype) -> dict:
     }
 
 
+SSD_LEAVES = ("w_zx", "w_bc", "w_dt", "dt_bias", "conv_x", "conv_bc",
+              "A_log", "D", "gate_norm", "w_out")
+
+
 def _causal_conv(x, w):
     """Depthwise causal conv via shifted adds (no cuDNN convolution, which
     would run in TF32 unless told not to). x: (B,S,C); w: (W,C)."""
@@ -73,19 +78,71 @@ def _dt(x, lp):
     return F.softplus((x @ lp["w_dt"]).float() + lp["dt_bias"].float())
 
 
+def ssd_weights(cfg, lp: dict, dtype) -> dict:
+    """The block's leaves of ``lp`` in ``dtype`` as :func:`ssd_block` takes
+    them, with ``"tp"`` (the axis or None).
+
+    Split over ``model``, a rank runs ``ssm_n_heads / m`` heads: its
+    shards of ``w_dt``, ``dt_bias``, ``A_log``, ``D``, ``conv_x``,
+    ``gate_norm`` and the rows of ``w_out``.  ``w_zx`` packs the z and
+    the x columns in one leaf, so a contiguous shard holds z for one
+    rank and x for another: the rank gathers it whole (``tp.whole``, its
+    gradient reduce-scattered back over ``model``) and takes the z and x
+    columns of its own heads.  ``w_bc`` and ``conv_bc``, which the rules
+    replicate over ``model``, are taken whole: every rank computes the
+    whole B and C, which enter its heads' scan through ``tp.f`` (their
+    gradient summed over ``model`` once, in the activations, before the
+    convolution's and the product's backward).  The block splits where
+    the rules split both ``ssm_heads`` and ``ssm_inner``."""
+    ax = tp.axis_of(lp["w_dt"])
+    if ax is None or not tp.splits(lp["w_zx"]):
+        return {**{k: fsdp.gather(v, dtype) for k, v in lp.items()
+                   if k in SSD_LEAVES}, "tp": None}
+    out = {k: tp.local(lp[k], dtype) for k in SSD_LEAVES if k != "w_zx"}
+    di = cfg.ssm_d_inner
+    n = di // ax.size
+    w_zx = tp.whole(lp["w_zx"], dtype, ax)                   # (D, 2 di)
+    lo = ax.rank * n
+    out["w_zx"] = torch.cat([w_zx[:, lo:lo + n],
+                             w_zx[:, di + lo:di + lo + n]], dim=-1)
+    return {**out, "tp": ax}
+
+
+def _gated_norm(y, scale, eps: float, ax, width: int):
+    """RMSNorm over the whole inner width ``width`` of ``y``, which holds
+    this rank's columns of it where ``ax`` splits the block: the sum of
+    squares is summed over the axis (``tp.stat_sum``)."""
+    if ax is None:
+        return rmsnorm(y, scale, eps)
+    dt = y.dtype
+    y = y.float()
+    ss = tp.stat_sum(torch.sum(y * y, dim=-1, keepdim=True), ax)
+    y = y * torch.rsqrt(ss / width + eps)
+    return (y * scale.float()).to(dt)
+
+
 def ssd_block(cfg, lp: dict, x, eps: float):
     """Full Mamba-2 block (the pre-norm residual is the caller's).
-    x: (B, S, d_model) -> (B, S, d_model)."""
+    x: (B, S, d_model) -> (B, S, d_model).  With leaves split over
+    ``model`` (``ssd_weights``), the scan runs on this rank's heads and
+    the output is its part of the output product: the caller sums it
+    over the axis (``tp.g``)."""
     b, s, _ = x.shape
-    nh, hd = cfg.ssm_n_heads, cfg.ssm_head_dim
-    di = cfg.ssm_d_inner
+    ax = lp.get("tp")
+    m = ax.size if ax is not None else 1
+    nh, hd = cfg.ssm_n_heads // m, cfg.ssm_head_dim
+    di = nh * hd
 
-    z, xin = (x @ lp["w_zx"]).chunk(2, dim=-1)              # (B,S,di) each
     bc = x @ lp["w_bc"]                                      # (B,S,2ds)
+    x = tp.f(x, ax)
+    z, xin = (x @ lp["w_zx"]).chunk(2, dim=-1)              # (B,S,di) each
     dt = _dt(x, lp)                                          # (B,S,nh) f32
 
     xin = F.silu(_causal_conv(xin, lp["conv_x"]))
     bc = F.silu(_causal_conv(bc, lp["conv_bc"]))
+    # every rank's heads read all of B and C: their gradient is summed
+    # over the ranks
+    bc = tp.f(bc, ax)
     B_mat, C_mat = bc.chunk(2, dim=-1)
 
     A = -torch.exp(lp["A_log"].float())                      # (nh,)
@@ -94,8 +151,9 @@ def ssd_block(cfg, lp: dict, x, eps: float):
     y = ops.ssd_scan(xh, dt, A, B_mat, C_mat, chunk=cfg.ssm_chunk)
     y = y + xh * lp["D"].to(x.dtype)[None, None, :, None]
     y = y.reshape(b, s, di)
-    y = rmsnorm(y * F.silu(z), lp["gate_norm"], eps)         # gated RMSNorm
-    return y @ lp["w_out"]
+    y = _gated_norm(y * F.silu(z), lp["gate_norm"], eps, ax,
+                    cfg.ssm_d_inner)                         # gated RMSNorm
+    return tp.row(y, lp["w_out"], ax)
 
 
 # ---------------------------------------------------------------------------

@@ -38,17 +38,30 @@ step.  Remat moves memory, never the numbers.
 
 Sharded parameters (DTensors placed by the sharding rules,
 ``sharding/fsdp.py``) are gathered where they are used: a layer's
-leaves by ``_cast`` inside the layer -- so under ``"dots"`` or
-``"full"`` the backward gathers them again, as FSDP reshards after the
-forward, while ``"none"`` keeps every layer's gathered leaves until the
-backward --, the hybrid's shared block once per forward, the embeddings,
+leaves inside each block -- so under ``"dots"`` or ``"full"`` the
+backward gathers them again, as FSDP reshards after the forward, while
+``"none"`` keeps every layer's gathered leaves until the backward --,
+the hybrid's shared block once per forward, the embeddings,
 ``frontend_proj``, ``final_norm`` and the head where they are applied.
+Where the rules split a block's leaves over ``model`` (``fsdp_tp`` on a
+mesh whose ``model`` axis is wider than 1), the block gathers them over
+the other mesh dims only and computes on this rank's shards
+(``sharding/tp.py``): the attention on its heads (``attn_weights``: the
+four cases of how ``q_feat`` and ``kv_feat`` split), the MLP on its
+hidden columns, the Mamba-2 block on its heads (``ssd.ssd_weights``),
+the MoE on its experts or hidden columns (``moe.moe_weights``), the
+embedding and the head on its rows of the vocabulary, and the loss's
+logsumexp over the ranks' columns.  Under ``"dots"`` each block is
+checkpointed alone and the sums over ``model`` run outside them, so the
+backward's recompute repeats no forward sum; ``"full"`` recomputes the
+whole layer, its sums too.  The decode step gathers every leaf whole.
 ``shard`` is called where the reference calls it, with its specs.
 """
 from __future__ import annotations
 
 import functools
 import math
+from typing import NamedTuple, Optional
 
 import torch
 from torch.utils import checkpoint as ckpt_lib
@@ -59,7 +72,7 @@ from repro_torch.models import moe as moe_lib
 from repro_torch.models import ssd as ssd_lib
 from repro_torch.models.layers import ParamSpec, TensorSpec, apply_rope, \
     gated_mlp, rmsnorm, shard
-from repro_torch.sharding import fsdp
+from repro_torch.sharding import fsdp, tp
 
 PORTED = ("dense", "moe", "ssm", "hybrid", "vlm")  # the decoder-only ones
 AUX_LOSS_WEIGHT = 0.01
@@ -160,31 +173,120 @@ def lm_specs(cfg: ArchConfig, dtype=torch.float32) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# A layer's leaves as its blocks use them (tensor parallelism)
+# ---------------------------------------------------------------------------
+
+
+class Heads(NamedTuple):
+    """The attention heads a block computes: ``q`` query heads and the
+    ``kv`` kv heads they read; ``kv_idx`` (one kv head per query head)
+    where this rank's query heads do not read its kv heads in GQA groups
+    of one size."""
+
+    q: int
+    kv: int
+    kv_idx: Optional[tuple] = None
+
+
+def attn_weights(cfg, lp, dtype, prefix: str = "") -> dict:
+    """The attention leaves ``prefix + (wq, wk, wv, wo[, bq, bk, bv])`` of
+    ``lp`` in ``dtype`` as :func:`attn_block` takes them, under the keys
+    without the prefix, with ``"tp"`` (the axis or None) and ``"heads"``.
+
+    Split over ``model`` (``wq`` split by the rules into whole query
+    heads: not so under case (d), where ``q_feat`` is replicated, or where
+    the query heads do not divide over ``model``, and the block then runs
+    unsplit on whole leaves), a rank computes ``n_heads / m``
+    query heads (its ``wq``/``bq`` columns and ``wo`` rows) and the kv
+    heads they read, kv heads ``lo`` to ``hi``:
+    (a) where ``n_kv_heads`` divides over ``model`` its ``wk``/``wv``
+    shards are those heads; (b) where ``kv_feat`` divides but the heads
+    do not (a shard would hold part of a head), and (c) where the rules
+    replicate ``kv_feat``, it takes ``wk``/``wv`` whole (``tp.whole``,
+    their gradient summed over ``model``) and cuts the columns of heads
+    ``lo:hi``, so a kv head that several ranks read is computed on each
+    of them."""
+    names = ("wq", "wk", "wv", "wo") + (("bq", "bk", "bv")
+                                        if cfg.qkv_bias else ())
+    ax = tp.axis_of(lp[prefix + "wq"])
+    if ax is None or cfg.n_heads % ax.size:
+        out = {k: fsdp.gather(lp[prefix + k], dtype) for k in names}
+        return {**out, "tp": None,
+                "heads": Heads(cfg.n_heads, cfg.n_kv_heads)}
+    hd = cfg.resolved_head_dim
+    lo, heads = rank_heads(cfg, ax.size, ax.rank)
+    kv_local = tp.splits(lp[prefix + "wk"]) and \
+        cfg.n_kv_heads % ax.size == 0                       # case (a)
+    out = {}
+    for k in names:
+        leaf = lp[prefix + k]
+        if k in ("wk", "wv", "bk", "bv") and not kv_local:  # (b), (c)
+            out[k] = tp.whole(leaf, dtype, ax).narrow(-1, lo * hd,
+                                                      heads.kv * hd)
+        else:
+            out[k] = tp.local(leaf, dtype)
+    return {**out, "tp": ax, "heads": heads}
+
+
+def rank_heads(cfg, m: int, rank: int) -> tuple:
+    """(the first kv head, ``Heads``) that rank ``rank`` of a ``model``
+    axis of ``m`` computes: its ``n_heads / m`` query heads and the kv
+    heads ``lo`` to ``hi`` they read (GQA), with ``kv_idx`` where its
+    query heads do not read them in groups of one size."""
+    hq = cfg.n_heads // m
+    rep = cfg.n_heads // cfg.n_kv_heads
+    first = rank * hq
+    lo, hi = first // rep, (first + hq - 1) // rep + 1
+    kv_of = tuple((first + j) // rep - lo for j in range(hq))
+    nkv = hi - lo
+    whole_groups = hq % nkv == 0 and all(
+        kv == j // (hq // nkv) for j, kv in enumerate(kv_of))
+    return lo, Heads(hq, nkv, None if whole_groups else kv_of)
+
+
+def mlp_weights(lp, dtype, names=("wi", "wg", "wo_mlp")) -> dict:
+    """The MLP leaves ``names`` of ``lp`` in ``dtype``, each rank's
+    hidden columns (rows of the output product) where the MLP splits over
+    ``model``, with ``"tp"``."""
+    ax = tp.axis_of(lp[names[0]])
+    get = tp.local if ax is not None else fsdp.gather
+    return {**{k: get(lp[k], dtype) for k in names}, "tp": ax}
+
+
+# ---------------------------------------------------------------------------
 # Blocks
 # ---------------------------------------------------------------------------
 
 
 def _qkv(cfg, lp, x):
     h = cfg.resolved_head_dim
+    heads = lp.get("heads") or Heads(cfg.n_heads, cfg.n_kv_heads)
     q, k, v = x @ lp["wq"], x @ lp["wk"], x @ lp["wv"]
     if cfg.qkv_bias:
         q, k, v = q + lp["bq"], k + lp["bk"], v + lp["bv"]
     lead = x.shape[:-1]
-    return (q.reshape(lead + (cfg.n_heads, h)),
-            k.reshape(lead + (cfg.n_kv_heads, h)),
-            v.reshape(lead + (cfg.n_kv_heads, h)))
+    q = q.reshape(lead + (heads.q, h))
+    k = k.reshape(lead + (heads.kv, h))
+    v = v.reshape(lead + (heads.kv, h))
+    if heads.kv_idx is not None:
+        idx = torch.tensor(heads.kv_idx, device=x.device)
+        k, v = k.index_select(-2, idx), v.index_select(-2, idx)
+    return q, k, v
 
 
 def attn_block(cfg, lp, x, positions, *, window: int):
-    """Full-sequence causal attention (prefill). Returns (out, k, v)."""
-    q, k, v = _qkv(cfg, lp, x)
+    """Full-sequence causal attention (prefill). Returns (out, k, v).
+    With leaves split over ``model`` (``attn_weights``), the heads are
+    this rank's and ``out`` is its part of the output product: the caller
+    sums it over the axis (``tp.g``)."""
+    q, k, v = _qkv(cfg, lp, tp.f(x, lp.get("tp")))
     q = apply_rope(q, positions, cfg.rope_theta)
     k = apply_rope(k, positions, cfg.rope_theta)
     q = shard(q, "batch", None, "heads", None)
     out = ops.flash_attention(q, k, v, causal=True, window=window)
     b, s = x.shape[:2]
-    out = out.reshape(b, s, cfg.n_heads * cfg.resolved_head_dim)
-    return out @ lp["wo"], k, v
+    out = out.reshape(b, s, q.shape[2] * cfg.resolved_head_dim)
+    return tp.row(out, lp["wo"], lp.get("tp")), k, v
 
 
 def _zero(x):
@@ -193,10 +295,12 @@ def _zero(x):
 
 def mlp_block(cfg, lp, x):
     """The FFN: (out, aux) -- the MoE layer and its router aux loss, or
-    the dense SwiGLU and a float32 0."""
+    the dense SwiGLU and a float32 0.  Split over ``model`` (``lp["tp"]``)
+    ``out`` is this rank's part, which the caller sums (``tp.g``)."""
     if cfg.is_moe:
         return moe_lib.moe_ffn(cfg, lp, x)
-    return gated_mlp(x, lp["wi"], lp["wg"], lp["wo_mlp"]), _zero(x)
+    return gated_mlp(x, lp["wi"], lp["wg"], lp["wo_mlp"], lp.get("tp")), \
+        _zero(x)
 
 
 def _cast(tree: dict, dtype) -> dict:
@@ -207,27 +311,72 @@ def _cast(tree: dict, dtype) -> dict:
             else fsdp.gather(p, dtype) for k, p in tree.items()}
 
 
-def _layer(cfg, x, lp, positions):
-    """One layer: (x, aux)."""
-    # mixed precision: params stored f32, computed in x.dtype (bf16)
-    lp = _cast(lp, x.dtype)
-    h = rmsnorm(x, lp["ln1"], cfg.norm_eps)
+def _attn_part(cfg, x, lp, positions):
+    """A layer's attention on its leaves ``lp``: (out, axis), ``out`` this
+    rank's part where it splits over the ``model`` axis, else None."""
+    h = rmsnorm(x, fsdp.gather(lp["ln1"], x.dtype), cfg.norm_eps)
+    w = attn_weights(cfg, lp, x.dtype)
+    a, _, _ = attn_block(cfg, w, h, positions, window=cfg.sliding_window)
+    return a, w["tp"]
+
+
+def _ffn_part(cfg, x, lp):
+    """A layer's FFN on its leaves ``lp``: (out, aux, axis), ``out`` this
+    rank's part where it splits over the ``model`` axis, else None."""
+    h = rmsnorm(x, fsdp.gather(lp["ln2"], x.dtype), cfg.norm_eps)
+    w = moe_lib.moe_weights(lp, x.dtype) if cfg.is_moe \
+        else mlp_weights(lp, x.dtype)
+    return (*mlp_block(cfg, w, h), w["tp"])
+
+
+def _ssd_part(cfg, x, lp):
+    """A Mamba-2 layer on its leaves ``lp``: (out, axis), ``out`` this
+    rank's part where it splits over the ``model`` axis, else None."""
+    h = rmsnorm(x, fsdp.gather(lp["ln1"], x.dtype), cfg.norm_eps)
+    w = ssd_lib.ssd_weights(cfg, lp, x.dtype)
+    return ssd_lib.ssd_block(cfg, w, h, cfg.norm_eps), w["tp"]
+
+
+def _layer(cfg, x, lp, positions, seg=None):
+    """One layer: (x, aux).  Each block gathers its leaves inside itself
+    (mixed precision: params stored f32, computed in x.dtype) and, split
+    over ``model``, returns its partial output and the axis, over which
+    ``tp.g`` sums it outside the block: ``seg`` (the remat of ``"dots"``
+    under tensor parallelism) wraps each block, so the recompute in the
+    backward re-runs no ``g``."""
+    seg = seg or (lambda fn: fn)
     if cfg.family in ("ssm", "hybrid"):  # hybrid inner layers are Mamba-2
-        return x + ssd_lib.ssd_block(cfg, lp, h, cfg.norm_eps), _zero(x)
-    a, _, _ = attn_block(cfg, lp, h, positions, window=cfg.sliding_window)
-    x = x + a
-    m, aux = mlp_block(cfg, lp, rmsnorm(x, lp["ln2"], cfg.norm_eps))
-    return x + m, aux
+        m, ax = seg(functools.partial(_ssd_part, cfg))(x, lp)
+        return x + tp.g(m, ax, x.dtype), _zero(x)
+    a, ax = seg(functools.partial(_attn_part, cfg))(x, lp, positions)
+    x = x + tp.g(a, ax, x.dtype)
+    m, aux, ax = seg(functools.partial(_ffn_part, cfg))(x, lp)
+    return x + tp.g(m, ax, x.dtype), aux
+
+
+def shared_weights(cfg, sp, dtype) -> dict:
+    """The hybrid family's shared block's leaves as
+    :func:`shared_block` applies them: gathered (each rank's ``model``
+    shards where they split) once per forward, as every chunk applies
+    the same block."""
+    return {"ln1": fsdp.gather(sp["ln1"], dtype),
+            "ln2": fsdp.gather(sp["ln2"], dtype),
+            "attn": attn_weights(cfg, sp, dtype),
+            "mlp": mlp_weights(sp, dtype)}
+
+
+def _shared_apply(cfg, w, x, positions, window):
+    h = rmsnorm(x, w["ln1"], cfg.norm_eps)
+    a, _, _ = attn_block(cfg, w["attn"], h, positions, window=window)
+    x = x + tp.g(a, w["attn"]["tp"], x.dtype)
+    m, _ = mlp_block(cfg, w["mlp"], rmsnorm(x, w["ln2"], cfg.norm_eps))
+    return x + tp.g(m, w["mlp"]["tp"], x.dtype)
 
 
 def shared_block(cfg, sp, x, positions, window):
     """The hybrid family's shared attention+MLP block."""
-    sp = _cast(sp, x.dtype)
-    h = rmsnorm(x, sp["ln1"], cfg.norm_eps)
-    a, _, _ = attn_block(cfg, sp, h, positions, window=window)
-    x = x + a
-    return x + gated_mlp(rmsnorm(x, sp["ln2"], cfg.norm_eps), sp["wi"],
-                         sp["wg"], sp["wo_mlp"])
+    return _shared_apply(cfg, shared_weights(cfg, sp, x.dtype), x,
+                         positions, window)
 
 
 def _layer_params(params, *idx) -> dict:
@@ -242,21 +391,25 @@ def _layer_params(params, *idx) -> dict:
 # ---------------------------------------------------------------------------
 
 
-def embed_tokens(params, tokens, dtype):
-    """Gather, then cast: the same values as casting the table first,
-    without a cast copy of the whole vocabulary (a sharded table is
-    gathered whole, in ``dtype``)."""
-    emb = params["embed"]
+def _lookup(emb, tokens, dtype, split: bool = True):
+    """Rows ``tokens`` of the embedding table ``emb`` in ``dtype``: with
+    ``split`` and rows split over ``model``, each rank's rows looked up
+    and summed (``tp.vocab_lookup``); else gathered, then looked up -- the
+    values of casting the table first, without a cast copy of the whole
+    vocabulary."""
+    ax = tp.model_axis(emb) if split and tp.splits(emb, 0) else None
+    if ax is not None:
+        return tp.vocab_lookup(tp.local(emb, dtype), tokens, ax)
     if fsdp.is_plain(emb):
         return emb[tokens].to(dtype)
     return fsdp.gather(emb, dtype)[tokens]
 
 
-def embed_inputs(cfg, params, tokens, extra_embeds, dtype):
+def embed_tokens(cfg, params, tokens, extra_embeds, dtype):
     """The token embeddings, and for a frontend (the VLM's image patches)
     ``frontend_proj`` of ``extra_embeds`` (B, frontend_tokens, D) in
     front of them."""
-    x = embed_tokens(params, tokens, dtype)
+    x = _lookup(params["embed"], tokens, dtype)
     if cfg.frontend == "none":
         return x
     if extra_embeds is None:
@@ -267,11 +420,18 @@ def embed_inputs(cfg, params, tokens, extra_embeds, dtype):
     return torch.cat([fe, x], dim=1)
 
 
+# the weight products "dots" saves: aten.mm, and its float32-output form
+# (a tensor-parallel row product's part, ``tp.row``)
+_WEIGHT_PRODUCTS = tuple(op for op in (torch.ops.aten.mm.default,
+                                       getattr(torch.ops.aten.mm, "dtype",
+                                               None)) if op is not None)
+
+
 def _dots_policy(ctx, func, *args, **kwargs):
     """Save what the reference's ``dots_with_no_batch_dims_saveable``
     saves: products without a batch dimension (``aten.mm``, which every
     2-D weight product becomes), and recompute everything else."""
-    if func is torch.ops.aten.mm.default:
+    if func in _WEIGHT_PRODUCTS:
         return ckpt_lib.CheckpointPolicy.MUST_SAVE
     return ckpt_lib.CheckpointPolicy.PREFER_RECOMPUTE
 
@@ -296,11 +456,24 @@ def _remat(fn, policy: str):
     return wrapped
 
 
-def lm_trunk(cfg: ArchConfig, params, x, positions):
+def _layer_fn(cfg, layers: dict):
+    """The layer under ``cfg.plan.remat``: the whole layer checkpointed,
+    or under ``"dots"`` with leaves split over ``model``, each block
+    (``_layer``'s ``seg``), so the ``g`` sums are saved, not re-run."""
+    if cfg.plan.remat == "dots" and tp.active(layers):
+        return functools.partial(
+            _layer, cfg, seg=lambda fn: _remat(fn, "dots"))
+    return _remat(functools.partial(_layer, cfg), cfg.plan.remat)
+
+
+def lm_trunk(cfg: ArchConfig, params, x, positions, *,
+             unroll: bool = False):
     """Embeddings -> final norm. x: (B,S,D).  Returns (x, the aux loss
     summed over the layers).  Each layer (each Mamba-2 layer of the
-    hybrid family, as in the reference) runs under ``cfg.plan.remat``."""
-    layer = _remat(functools.partial(_layer, cfg), cfg.plan.remat)
+    hybrid family, as in the reference) runs under ``cfg.plan.remat``.
+    ``unroll`` (the reference's layer-scan unroll) is accepted and has
+    no effect: the layer loop runs eagerly, as unrolled."""
+    layer = _layer_fn(cfg, params["layers"])
     # one unbind per stacked leaf: its backward stacks the layers'
     # gradients once, where indexing layer by layer would add a
     # zero-filled copy of the whole stack per layer
@@ -308,9 +481,9 @@ def lm_trunk(cfg: ArchConfig, params, x, positions):
     aux = _zero(x)
     if cfg.family == "hybrid":
         # gathered once: every chunk applies the same block
-        shared = fsdp.gather_tree(params["shared"], x.dtype)
+        shared = shared_weights(cfg, params["shared"], x.dtype)
         for c in range(cfg.num_layers // cfg.hybrid_period):
-            x = shared_block(cfg, shared, x, positions, cfg.sliding_window)
+            x = _shared_apply(cfg, shared, x, positions, cfg.sliding_window)
             chunk = {k: fsdp.unstack(v[c]) for k, v in stacks.items()}
             for j in range(cfg.hybrid_period):
                 x, a = layer(x, {k: v[j] for k, v in chunk.items()},
@@ -323,28 +496,56 @@ def lm_trunk(cfg: ArchConfig, params, x, positions):
     return rmsnorm(x, fsdp.gather(params["final_norm"]), cfg.norm_eps), aux
 
 
-def lm_logits(cfg, params, x):
+def vocab_logits(cfg, table, x, *, tied: bool, split: bool = True):
+    """(logits, axis): ``x`` against the (un)embedding leaf ``table`` --
+    (V, D) when ``tied``, else (D, V) -- with the padded columns at
+    -1e30.  With ``split`` and the vocabulary split over ``model``, the
+    logits are this rank's columns (masked by their global index) and
+    the axis is returned; else all of them, and None."""
     dtype = x.dtype
-    if cfg.tie_embeddings:
-        logits = x @ fsdp.gather(params["embed"], dtype).T
-    else:
-        logits = x @ fsdp.gather(params["unembed"], dtype)
+    ax = tp.model_axis(table) if split and tp.splits(table,
+                                                     0 if tied else 1) \
+        else None
+    w = tp.local(table, dtype) if ax is not None \
+        else fsdp.gather(table, dtype)
+    logits = tp.f(x, ax) @ (w.T if tied else w)
     logits = shard(logits, "batch", None, "vocab")
-    if cfg.padded_vocab != cfg.vocab_size:
-        logits[..., cfg.vocab_size:] = -1e30  # fresh tensor: in place
-    return logits
+    n = logits.shape[-1]
+    lo = ax.rank * n if ax is not None else 0
+    if lo + n > cfg.vocab_size:
+        logits[..., max(cfg.vocab_size - lo, 0):] = -1e30  # fresh: in place
+    return logits, ax
 
 
-def lm_forward(cfg, params, tokens, extra_embeds=None, *,
-               dtype=torch.bfloat16, last_only=False):
-    """Returns (logits (B, S, V) -- (B, 1, V) with ``last_only`` --, aux
-    loss): the MoE router's summed over the layers, a float32 0 for the
-    other families.  The VLM's S counts its frontend positions."""
-    x = embed_inputs(cfg, params, tokens, extra_embeds, dtype)
+def _table(cfg, params):
+    return (params["embed"], True) if cfg.tie_embeddings \
+        else (params["unembed"], False)
+
+
+def lm_logits(cfg, params, x, *, split: bool = True):
+    """(B, S, V) logits of ``x``: with the vocabulary split over
+    ``model``, each rank's columns gathered (``split=False`` computes them
+    on the whole leaf, as the decode step does)."""
+    table, tied = _table(cfg, params)
+    logits, ax = vocab_logits(cfg, table, x, tied=tied, split=split)
+    return tp.gather_last(logits, ax)
+
+
+def _hidden(cfg, params, tokens, extra_embeds, dtype):
+    x = embed_tokens(cfg, params, tokens, extra_embeds, dtype)
     x = shard(x, "batch", None, None)
     b, s = x.shape[:2]
     positions = torch.arange(s, device=x.device)[None, :].expand(b, s)
-    x, aux = lm_trunk(cfg, params, x, positions)
+    return lm_trunk(cfg, params, x, positions)
+
+
+def lm_forward(cfg, params, tokens, extra_embeds=None, *,
+               dtype=torch.bfloat16, unroll=False, last_only=False):
+    """Returns (logits (B, S, V) -- (B, 1, V) with ``last_only`` --, aux
+    loss): the MoE router's summed over the layers, a float32 0 for the
+    other families.  The VLM's S counts its frontend positions.
+    ``unroll`` is accepted and has no effect (:func:`lm_trunk`)."""
+    x, aux = _hidden(cfg, params, tokens, extra_embeds, dtype)
     if last_only:
         # serving prefill wants only the next-token distribution: slice
         # BEFORE the unembed so the (B, S, V) logits never materialise.
@@ -352,22 +553,32 @@ def lm_forward(cfg, params, tokens, extra_embeds=None, *,
     return lm_logits(cfg, params, x), aux
 
 
-def lm_loss(cfg, params, batch, *, dtype=torch.bfloat16):
+def next_token_ce(logits, targets, ax):
+    """(ce, logz) of float32 ``logits`` (B, S, V or this rank's columns
+    of V over ``ax``) against ``targets`` (B, S): the mean of logz less
+    the target's logit, and logz."""
+    logz = tp.vocab_logsumexp(logits, ax)
+    tgt = tp.vocab_pick(logits, targets, ax)
+    return torch.mean(logz - tgt), logz
+
+
+def lm_loss(cfg, params, batch, *, dtype=torch.bfloat16, unroll=False):
     """Next-token CE (+ z-loss + aux), in float32.  batch: tokens (B, S)
     and, for the VLM, embeds (B, frontend_tokens, D), whose positions
     the loss skips.  Returns (loss, {"ce", "zloss", "aux"}), each a 0-d
-    tensor."""
+    tensor.  With the vocabulary split over ``model`` the logsumexp and
+    the target's logit are taken over the ranks' columns
+    (``tp.vocab_logsumexp``, ``tp.vocab_pick``), and no rank holds all
+    the logits.  ``unroll`` is accepted and has no effect."""
     tokens = batch["tokens"]
-    logits, aux = lm_forward(cfg, params, tokens, batch.get("embeds"),
-                             dtype=dtype)
+    x, aux = _hidden(cfg, params, tokens, batch.get("embeds"), dtype)
+    table, tied = _table(cfg, params)
+    logits, ax = vocab_logits(cfg, table, x, tied=tied)
     n_front = cfg.frontend_tokens if cfg.frontend != "none" else 0
     logits = logits[:, n_front:, :]
     # shift: predict tokens[:, 1:]
-    logits = logits[:, :-1].float()
-    targets = tokens[:, 1:].long()
-    logz = torch.logsumexp(logits, dim=-1)
-    tgt = torch.gather(logits, -1, targets[..., None])[..., 0]
-    ce = torch.mean(logz - tgt)
+    ce, logz = next_token_ce(logits[:, :-1].float(), tokens[:, 1:].long(),
+                             ax)
     zloss = torch.mean(logz ** 2)
     loss = ce + Z_LOSS_WEIGHT * zloss + AUX_LOSS_WEIGHT * aux
     return loss, {"ce": ce, "zloss": zloss, "aux": aux}
@@ -460,15 +671,17 @@ def _decode_attn(cfg, lp, x, k_cache, v_cache, pos_buf, cur: int, dtype):
 
 
 def lm_decode_step(cfg: ArchConfig, params, cache, tokens, *,
-                   dtype=torch.bfloat16):
+                   dtype=torch.bfloat16, unroll=False):
     """One decode step. tokens: (B,) int. Returns (logits (B,V), cache).
 
     The cache is updated in place (K/V slots and ``pos_buf`` where the
     family has them, the SSM and conv state) and returned;
-    ``cache["cur"]`` advances by one.
+    ``cache["cur"]`` advances by one.  Every leaf is gathered whole (no
+    tensor parallelism on the decode step).  ``unroll`` is accepted and
+    has no effect: the layer loop runs eagerly.
     """
     cur = cache["cur"]
-    x = embed_tokens(params, tokens, dtype)               # (B,D)
+    x = _lookup(params["embed"], tokens, dtype, split=False)   # (B,D)
     pos_buf = cache.get("pos_buf")
     if pos_buf is not None:
         pos_buf[cur % pos_buf.shape[0]] = cur             # ring buffer slot
@@ -500,7 +713,7 @@ def lm_decode_step(cfg: ArchConfig, params, cache, tokens, *,
             x = x + (moe_lib.moe_ffn_decode(cfg, lp, h2) if cfg.is_moe
                      else gated_mlp(h2, lp["wi"], lp["wg"], lp["wo_mlp"]))
     x = rmsnorm(x, fsdp.gather(params["final_norm"]), cfg.norm_eps)
-    logits = lm_logits(cfg, params, x[:, None, :])[:, 0]
+    logits = lm_logits(cfg, params, x[:, None, :], split=False)[:, 0]
     cache["cur"] = cur + 1
     return logits, cache
 

@@ -251,10 +251,11 @@ def _render_service(counters: list[dict], observations: list[dict],
 # ---------------------------------------------------------------------------
 
 
-def sweep_telemetry(fast: bool = False, device="cuda") -> dict:
+def sweep_telemetry(fast: bool = False, device="cuda",
+                    hours: int | None = None) -> dict:
     """Run the E9-shaped sweep with ``telemetry=True`` on ``device``;
     returns the telemetry dict as numpy (288 scenario-days full, 1.5
-    fast)."""
+    fast).  ``hours`` cuts the horizon (24 h full, 6 h fast)."""
     import repro_torch.core.engine as engine_lib
     from repro_torch import resolve_device
     from repro_torch.grid.scenarios import build_scenario_batch, product_specs
@@ -263,11 +264,12 @@ def sweep_telemetry(fast: bool = False, device="cuda") -> dict:
     dev = resolve_device(device)
     if fast:
         specs = product_specs(countries=("SE", "DE", "PL"), seeds=(0,),
-                              horizon_h=6, products=("FFR",),
+                              horizon_h=hours or 6, products=("FFR",),
                               reserve_rhos=(0.0, 0.2), event_seeds=(0,))
     else:
         specs = product_specs(countries=tuple(COUNTRY_ORDER), seeds=(0, 1, 2),
-                              horizon_h=24, products=("FFR", "FCR-D"),
+                              horizon_h=hours or 24,
+                              products=("FFR", "FCR-D"),
                               reserve_rhos=(0.0, 0.1, 0.2, 0.3),
                               event_seeds=(0, 1))
     batch = build_scenario_batch(specs, device=dev)

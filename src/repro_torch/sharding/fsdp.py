@@ -213,9 +213,9 @@ def reset_collective_stats() -> dict:
 reset_collective_stats()
 
 
-def _collective(op, name: str, out, inp, group):
+def _collective(fn, name: str, out, inp, group, **kw):
     t0 = time.perf_counter()
-    op(out, inp, group=group)
+    fn(out, inp, group=group, **kw)
     st = COLLECTIVE_STATS
     st["seconds"] += time.perf_counter() - t0
     st["calls"] += 1
@@ -224,8 +224,8 @@ def _collective(op, name: str, out, inp, group):
     return out
 
 
-def _all_reduce_into(out, inp, group):
-    dist.all_reduce(out, group=group)
+def _all_reduce_into(out, inp, group, op=dist.ReduceOp.SUM):
+    dist.all_reduce(out, op=op, group=group)
 
 
 def _all_gather(x, dim: int, group, n: int):
@@ -249,9 +249,11 @@ def _reduce_scatter(g, dim: int, group, n: int):
     return out.movedim(0, dim)
 
 
-def _all_reduce(g, group):
+def _all_reduce(g, group, op=dist.ReduceOp.SUM):
+    """The reduction (a SUM by default) of ``g`` over ``group``, in a
+    copy."""
     g = g.contiguous().clone()
-    return _collective(_all_reduce_into, "all-reduce", g, g, group)
+    return _collective(_all_reduce_into, "all-reduce", g, g, group, op=op)
 
 
 class _AllReduceSum(torch.autograd.Function):
@@ -285,31 +287,34 @@ def batch_mean(x):
     return x / n
 
 
-def _gather_local(loc, mesh, placements):
+def _gather_local(loc, mesh, placements, keep=()):
     """The whole tensor from this rank's shard ``loc``: an all-gather over
     each sharded mesh dim, the innermost first (a dim sharded over two
-    mesh axes splits over the first, then the second)."""
+    mesh axes splits over the first, then the second); the mesh dims
+    whose indices are in ``keep`` stay sharded."""
     from torch.distributed.tensor import Shard
     x = loc
     for i in reversed(range(mesh.ndim)):
         p, n = placements[i], mesh.size(i)
-        if isinstance(p, Shard) and n > 1:
+        if isinstance(p, Shard) and n > 1 and i not in keep:
             x = _all_gather(x, p.dim, mesh.get_group(i), n)
     return x
 
 
 class _Gather(torch.autograd.Function):
     """A shard gathered whole in ``dtype`` (cast before the gather, so a
-    bf16 step moves half the bytes); the gradient, taken back in the
+    bf16 step moves half the bytes), but over the mesh dims ``keep``,
+    where it stays this rank's shard; the gradient, taken back in the
     shard's dtype, is reduced over the ``partial`` mesh dims (a
     reduce-scatter where the leaf is sharded, an all-reduce where it is
-    replicated) and cut to this rank's chunk over the others."""
+    replicated), cut to this rank's chunk over the others, and left as
+    it is over ``keep`` (the rank's own shard's gradient)."""
 
     @staticmethod
-    def forward(ctx, loc, mesh, placements, dtype, partial):
+    def forward(ctx, loc, mesh, placements, dtype, partial, keep=()):
         ctx.mesh, ctx.placements, ctx.partial = mesh, placements, partial
-        ctx.dtype = loc.dtype
-        x = _gather_local(loc.to(dtype), mesh, placements)
+        ctx.dtype, ctx.keep = loc.dtype, keep
+        x = _gather_local(loc.to(dtype), mesh, placements, keep)
         return x.clone() if x is loc else x
 
     @staticmethod
@@ -320,7 +325,7 @@ class _Gather(torch.autograd.Function):
         g = g.to(ctx.dtype)
         for i, p in enumerate(ctx.placements):
             n = mesh.size(i)
-            if n == 1:
+            if n == 1 or i in ctx.keep:
                 continue
             group = mesh.get_group(i)
             if i in ctx.partial:
@@ -329,7 +334,7 @@ class _Gather(torch.autograd.Function):
             elif isinstance(p, Shard):
                 size = g.shape[p.dim] // n
                 g = g.narrow(p.dim, coord[i] * size, size)
-        return g.contiguous(), None, None, None, None
+        return g.contiguous(), None, None, None, None, None
 
 
 def full(x):
@@ -379,16 +384,29 @@ def _parts(x):
     return local(x), x.device_mesh, tuple(x.placements), tuple(x.shape)
 
 
-def gather(x, dtype=None):
+def gather(x, dtype=None, *, keep=(), partial=()):
     """The whole leaf where a model uses it, in ``dtype`` (default its
     own): a plain tensor cast; a DTensor's (or a LocalShard's)
     all-gather, whose gradient is reduced over the :func:`grad_partial`
-    axes and scattered back to the shard's placements, in its dtype."""
+    axes and scattered back to the shard's placements, in its dtype.
+
+    ``keep`` names mesh dims over which the leaf stays this rank's shard
+    (tensor parallelism gathers "all but ``model``"): its gradient there
+    is the rank's own.  ``partial`` names more mesh dims over which the
+    gradient is summed, where each rank's use of the whole leaf gives
+    only its part of the gradient (``sharding/tp.py``).  A plain leaf
+    takes neither (``tp.whole`` sums a plain leaf's gradient)."""
     if is_plain(x):
         return x if dtype is None else x.to(dtype)
     loc, mesh, placements, _ = _parts(x)
+    names = mesh.mesh_dim_names
+    keep = tuple(names.index(a) for a in keep if a in names)
+    partial = tuple(sorted(set(_partial_dims(mesh)) | {
+        names.index(a) for a in partial if a in names}))
+    if set(keep) & set(partial):
+        raise ValueError(f"mesh dims {keep} both kept and partial")
     return _Gather.apply(loc, mesh, placements, dtype or loc.dtype,
-                         _partial_dims(mesh))
+                         partial, keep)
 
 
 def gather_tree(tree: dict, dtype=None) -> dict:

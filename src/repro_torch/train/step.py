@@ -20,13 +20,14 @@ too), ``dp_only`` parameters replicated and their moments ZeRO-1 (dim 0
 over the data axes).  A sharded leaf is a DTensor of this rank's shard;
 a replicated one a plain tensor.  Each rank runs the step on its share
 of the batch (``batch_rows``).  The models gather a sharded leaf where
-they use it, and its gradient comes back reduce-scattered: ``Partial``
-over the axes the batch is split over (``StepBundle.batch_axes``), then
-divided by their width.  A plain leaf's gradient, the loss and the
-metrics are averaged over the world with ``all_reduce``.  The values are
-those of the replicated step on the global batch; products run on the
-gathered leaves, where the reference's GSPMD computes them sharded over
-``model``.
+they use it -- over every mesh dim but ``model`` where the rules split
+it over ``model``, whose products then run on this rank's shards
+(``sharding/tp.py``), as the reference's GSPMD computes them -- and its
+gradient comes back reduce-scattered: ``Partial`` over the axes the
+batch is split over (``StepBundle.batch_axes``), then divided by their
+width.  A plain leaf's gradient, the loss and the metrics are averaged
+over the world with ``all_reduce``.  The values are those of the
+replicated step on the global batch.
 
 ``make_compressed_train_step`` is the int8 error-feedback data-parallel
 step: local gradients, ``ef_compress`` against this rank's residual, the
@@ -458,8 +459,9 @@ class StepBundle:
                                        self.opt_placements.nu)))
 
 
-def build_step_bundle(cfg: ArchConfig, shape: ShapeConfig, *,
-                      device="cuda", mesh=None, compressed: bool = False,
+def build_step_bundle(cfg: ArchConfig, shape: ShapeConfig, mesh=None, *,
+                      device="cuda", unroll: bool = False,
+                      compressed: bool = False,
                       lr_kw: Optional[dict] = None,
                       model_kw: Optional[dict] = None) -> StepBundle:
     """The step of ``shape``'s kind.  On a ``mesh`` (a ``DeviceMesh``
@@ -467,9 +469,11 @@ def build_step_bundle(cfg: ArchConfig, shape: ShapeConfig, *,
     train shape's step reduces its gradients over the ranks, or with
     ``compressed`` is :func:`make_compressed_train_step` (its step takes
     and returns the residual, :func:`init_residual`; its moments ZeRO-1,
-    as the reference's compressed bundle places them)."""
+    as the reference's compressed bundle places them).  ``unroll`` (the
+    reference's layer-scan unroll) goes to the model, where it has no
+    effect."""
     dev = resolve_device(device)
-    model = build_model(cfg, device=dev, **(model_kw or {}))
+    model = build_model(cfg, device=dev, unroll=unroll, **(model_kw or {}))
     rules = None if mesh is None else MeshRules(cfg.plan, mesh)
     places = {}
     if rules is not None:

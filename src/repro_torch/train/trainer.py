@@ -293,17 +293,16 @@ class Trainer:
             self.ckpt.save(step, tree, extra=extra)
 
     # -- elastic re-width / restart on another device ------------------------
-    def resize(self, mesh_or_device) -> "Trainer":
+    def resize(self, new_mesh) -> "Trainer":
         """Rebuild the trainer on a new ``DeviceMesh`` (its device kind
-        and this rank's card) or on a device; its ``train()`` restores the
-        parameters and moments there through the checkpoint manager (a
-        checkpoint written at one width or device restores at another)."""
-        mesh = (mesh_or_device if isinstance(mesh_or_device, DeviceMesh)
-                else None)
+        and this rank's card) or, where ``new_mesh`` is a device, on that
+        device; its ``train()`` restores the parameters and moments there
+        through the checkpoint manager (a checkpoint written at one width
+        or device restores at another)."""
+        mesh = new_mesh if isinstance(new_mesh, DeviceMesh) else None
         t = Trainer(self.cfg, self.shape, self.tcfg, gridpilot=self.gp,
                     seed=self.seed, mesh=mesh,
-                    device=self.device if mesh is not None
-                    else mesh_or_device)
+                    device=self.device if mesh is not None else new_mesh)
         where = ({"device": str(t.device)} if mesh is None else
                  {"mesh": str(dict(zip(mesh.mesh_dim_names, mesh.shape)))})
         t.events = self.events + [trace.event(

@@ -585,6 +585,116 @@ def test_model_modules_export_the_references_names(module):
     assert not missing, missing
 
 
+# reference parameters the port does not take, by design (ROADMAP C7):
+# the Pallas kernels' tiling and interpret switches, the shard_map axis
+# (the port's collectives take a process group), the reference's HLO text
+# (the port's dry run records collectives), StepBundle's jit surface, an
+# argument the reference's own body never reads, and the telemetry
+# accumulator's tick values (the port passes the tick's tensors); any
+# threefry ``*key`` (the port takes seeds and explicit draws)
+BY_DESIGN = {
+    ("repro.kernels.flash_attention", "flash_attention"):
+        {"block_q", "block_k", "interpret"},
+    ("repro.kernels.ops", "flash_attention"):
+        {"block_q", "block_k", "interpret"},
+    ("repro.kernels.ops", "ssd_scan"): {"block_heads", "interpret"},
+    ("repro.kernels.ssd_scan", "ssd_scan"): {"block_heads", "interpret"},
+    ("repro.kernels.ops", "pid_update"): {"interpret"},
+    ("repro.kernels.pid_update", "pid_update"): {"interpret"},
+    ("repro.optim.compress", "compressed_psum"): {"axis_name"},
+    ("repro.launch.dryrun", "collective_bytes"): {"hlo_text"},
+    ("repro.train.step", "StepBundle"):
+        {"in_shardings", "out_shardings", "abstract_args", "donate_argnums"},
+    ("repro.train.step", "StepBundle.__init__"):
+        {"in_shardings", "out_shardings", "abstract_args", "donate_argnums"},
+    ("repro.models.layers", "gated_mlp"): {"tp_axis"},
+    ("repro.obs.telemetry", "accum_update"): {"acc", "state", "m"},
+}
+
+
+def _shared_callables():
+    """(reference module, name, reference callable, port callable) of
+    every public function, class and method that both packages define:
+    every module of ``repro`` (``repro.launch``'s by hand: it has no
+    ``__init__.py``) against ``repro_torch``'s of the same path."""
+    import importlib
+    import inspect
+    import pkgutil
+    import repro
+    mods = [repro.__name__] + [m.name for m in pkgutil.walk_packages(
+        repro.__path__, repro.__name__ + ".")]
+    mods += [f"repro.launch.{m}" for m in ("dryrun", "mesh", "serve",
+                                            "train")]
+    for rn in sorted(set(mods)):
+        try:
+            port = importlib.import_module("repro_torch" + rn[len("repro"):])
+        except ModuleNotFoundError:      # kernels/ref, pallas_compat
+            continue
+        ref = importlib.import_module(rn)
+        for k, v in vars(ref).items():
+            if k.startswith("_") or not callable(v) or \
+                    getattr(v, "__module__", None) != rn:
+                continue
+            pv = getattr(port, k, None)
+            if pv is None:
+                continue
+            yield rn, k, v, pv
+            if inspect.isclass(v):
+                for mk, mv in vars(v).items():
+                    pmv = getattr(pv, mk, None)
+                    if (mk == "__init__" or not mk.startswith("_")) and \
+                            callable(mv) and callable(pmv):
+                        yield rn, f"{k}.{mk}", mv, pmv
+
+
+def test_port_takes_every_reference_parameter():
+    """Each shared public callable takes every parameter name the
+    reference's takes (the port may take more: ``device=``, explicit
+    draws), less the differences by design (BY_DESIGN)."""
+    import inspect
+    missing, walked = {}, 0
+    for rn, name, ref, port in _shared_callables():
+        try:
+            want = inspect.signature(ref).parameters
+            got = inspect.signature(port).parameters
+        except (TypeError, ValueError):
+            continue
+        walked += 1
+        lack = {p for p in want if p not in got and not p.endswith("key")}
+        lack -= BY_DESIGN.get((rn, name), set())
+        if lack:
+            missing[f"{rn}.{name}"] = sorted(lack)
+    assert walked > 300
+    assert not missing, missing
+
+
+def test_point_objective_scales_revenue_by_price_rel():
+    """``point_objective(price_rel=)`` against the reference's values."""
+    import jax.numpy as jnp
+    import repro.core.tier3 as r_tier3
+    import repro_torch.core.tier3 as p_tier3
+    rng = np.random.default_rng(4)
+    mu = rng.uniform(0.3, 1.0, (5, 3)).astype(np.float32)
+    rho = rng.uniform(0.0, 0.4, (5, 3)).astype(np.float32)
+    green = rng.uniform(0.0, 1.0, (5, 1)).astype(np.float32)
+    t_amb = rng.uniform(5.0, 30.0, (5, 1)).astype(np.float32)
+    price = rng.lognormal(0.0, 0.3, (5, 3)).astype(np.float32)
+    w = np.asarray([1.0, 0.5, 0.8, 0.2], np.float32)
+    kw = dict(pue_aware=True, use_revenue=True, use_workload=True)
+    args = (1, 12.0, 1.0, 30.0)
+    for pr in (None, price):
+        want = r_tier3.point_objective(
+            *(jnp.asarray(a) for a in (mu, rho, green, t_amb, w)), *args,
+            **kw, price_rel=None if pr is None else jnp.asarray(pr))
+        got = p_tier3.point_objective(
+            *(t(a) for a in (mu, rho, green, t_amb, w)), *args, **kw,
+            price_rel=None if pr is None else t(pr))
+        assert_close(n(got), want, rtol=1e-3)
+    plain = p_tier3.point_objective(*(t(a) for a in (mu, rho, green, t_amb,
+                                                     w)), *args, **kw)
+    assert not np.allclose(n(got), n(plain))
+
+
 def test_pid_gains_come_from_the_constants():
     import repro_torch.core.pid as p_pid
     import repro_torch.core.plant as p_plant

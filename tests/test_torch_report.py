@@ -173,3 +173,20 @@ def test_sweep_telemetry_shape_on_the_cpu(monkeypatch):
     assert calls == {"n": 6, "h": 6, "telemetry": True}
     assert all(isinstance(v, np.ndarray) for v in tel.values())
     assert "resp_hist" in tel and tel["hour_n"].shape == (1, 1)
+
+
+def test_sweep_telemetry_hours_cut_the_horizon(monkeypatch):
+    """``hours=`` cuts the fast slice's 6 h (the rollout stubbed as in
+    test_sweep_telemetry_shape_on_the_cpu)."""
+    seen = {}
+    real = eng.engine_rollout
+
+    def short(cfg, batch, **kw):
+        seen["n"], seen["h"] = batch.n, batch.h_max
+        small = build_scenario_batch(product_specs(
+            countries=("SE",), horizon_h=1), device=CPU)
+        return real(dataclasses.replace(cfg, n_hosts=2), small, **kw)
+
+    monkeypatch.setattr(eng, "engine_rollout", short)
+    report_lib.sweep_telemetry(fast=True, device=CPU, hours=2)
+    assert seen == {"n": 6, "h": 2}
