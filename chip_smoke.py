@@ -462,7 +462,8 @@ def cuda_time_ms(torch, fn, reps=100):
     return statistics.median(times)
 
 
-def profile_calls(torch, fn, reps, match=(), groups=None, require=()):
+def profile_calls(torch, fn, reps, match=(), groups=None, require=(),
+                  once=False):
     """Run ``fn`` ``reps`` times under torch.profiler (CUPTI): device time
     and kernel launches per call, the device time per call and per launch
     of the kernels whose name holds each string of ``match`` (the latter
@@ -474,8 +475,12 @@ def profile_calls(torch, fn, reps, match=(), groups=None, require=()):
     window is taken again (six at most) where CUPTI lost so many events
     that the rounded time per call reads zero, where a grouped kernel's
     events were mostly lost, or where a group of ``require`` has no
-    kernel in it.  Under start_host_groups the windows of the groups'
-    processes take turns (PROFILE_LOCK_ENV)."""
+    kernel in it.  With ``once`` (each grouped kernel launches once a
+    call) a group's time per call is its kernels' means per launch, which
+    CUPTI's dropped events do not move, and a window is taken again only
+    where it holds no device time or a group of ``require`` no kernel.
+    Under start_host_groups the windows of the groups' processes take
+    turns (PROFILE_LOCK_ENV)."""
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.obs.trace import kernel_base
     cuda = torch.autograd.DeviceType.CUDA
@@ -487,6 +492,8 @@ def profile_calls(torch, fn, reps, match=(), groups=None, require=()):
     def whole(kernels):
         # device time in the window, per call once the rounding drops what
         # CUPTI lost, and no grouped kernel mostly lost
+        if once:
+            return sum(dev_us(e) for e in kernels) > 0
         return sum(dev_us(e) / max(e.count, 1) * round(e.count / reps)
                    for e in kernels) > 0 and not any(
             e.count and not round(e.count / reps) for e in kernels
@@ -542,7 +549,8 @@ def profile_calls(torch, fn, reps, match=(), groups=None, require=()):
             / max(sum(e.count for e in kernels if m in e.key), 1)
             for m in match},
         "group_us_per_call": {
-            label: sum(dev_us(e) / max(e.count, 1) * round(e.count / reps)
+            label: sum(dev_us(e) / max(e.count, 1)
+                       * (1 if once else round(e.count / reps))
                        for e in kernels if kernel_base(e.key) in names)
             for label, names in (groups or {}).items()},
         "group_kernels": {
@@ -950,6 +958,58 @@ def ssd_bound_ms(shape, dtype):
             flops / FP32_FLOP_S * 1e3, flops, nbytes)
 
 
+def time_ssd(torch, g, shape):
+    """Cold-L2 device time of one bf16 call of the scan at ``shape`` (the
+    sum of its three kernels' means per launch) and of its plain
+    version's, beside the bound."""
+    from repro_torch.kernels import ssd_scan as sk
+    *dims, chunk = shape
+    one = ssd_inputs(torch, g, *dims, torch.bfloat16)
+    set_bytes = sum(x.numel() * x.element_size() for x in one)
+    n_sets = math.ceil(4 * l2_bytes(torch) / set_bytes)
+    sets = [ssd_inputs(torch, g, *dims, torch.bfloat16)
+            for _ in range(n_sets)]
+    kept = []
+    prof_k = profile_calls(torch, cycled(
+        sets, lambda *a: sk.ssd_scan(*a, chunk=chunk), kept), 10,
+        match=sk.KERNELS)
+    kept.clear()
+    prof_p = profile_calls(torch, cycled(
+        sets, lambda *a: sk.ssd_scan_ref(*a, chunk)[0], kept), 3)
+    kept.clear()
+    del one, sets
+    torch.cuda.empty_cache()
+    # each kernel launches once a call: CUPTI may drop an event of the
+    # window, which lowers the launches seen (so each kernel's count is
+    # rounded), while another kernel (a fill) would raise them; the time
+    # is the sum of the three kernels' means per launch
+    per_launch = prof_k["matched_us_per_launch"]
+    if any(round(n) != 1 for n in
+           prof_k["matched_launches_per_call"].values()) or \
+            prof_k["launches_per_call"] > len(sk.KERNELS) or \
+            not all(per_launch.values()):
+        raise RuntimeError(f"ssd_scan at {shape}: "
+                           f"{prof_k['launches_per_call']} device "
+                           f"launches per call "
+                           f"({prof_k['matched_us_per_call']} us), "
+                           f"expected one of each of {sk.KERNELS}")
+    bound_ms, bound_by, f32_ms, flops, nbytes = ssd_bound_ms(shape,
+                                                             "bfloat16")
+    ms = sum(per_launch.values()) / 1e3
+    return {"shape": list(shape), "dtype": "bfloat16", "ms": ms,
+            "kernel_ms": {k: v / 1e3 for k, v in per_launch.items()},
+            "window_ms_per_call": prof_k["device_us_per_call"] / 1e3,
+            "device_launches_per_call": prof_k["launches_per_call"],
+            "plain_ms": prof_p["device_us_per_call"] / 1e3,
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "bound_share": bound_ms / ms,
+            "f32_cuda_core_bound_ms": f32_ms,
+            "bytes_bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
+            "gflop": flops / 1e9, "mbytes": nbytes / 1e6,
+            "tflop_s": flops / (ms * 1e-3) / 1e12, "cold_sets": n_sets,
+            "plain_launches_per_call": prof_p["launches_per_call"]}
+
+
 def phase_ssd_kernel(torch):
     """ssd_scan against its plain version (chunked, 1e-4 in f32; bf16 a
     norm-relative 1e-2 against the f32 plain version) and the sequential
@@ -1006,59 +1066,10 @@ def phase_ssd_kernel(torch):
     ptxas = {k: v for k, v in ptxas_by_kernel(
         _build.PTXAS_REPORT.get("ssd_scan", "")).items()
         if k.startswith(sk.KERNELS) and ("<64, " in k or "<" not in k)}
-    timed = {}
-    for arch, shape in SSD_PREFILL.items():
-        *dims, chunk = shape
-        one = ssd_inputs(torch, g, *dims, torch.bfloat16)
-        set_bytes = sum(x.numel() * x.element_size() for x in one)
-        n_sets = math.ceil(4 * l2_bytes(torch) / set_bytes)
-        sets = [ssd_inputs(torch, g, *dims, torch.bfloat16)
-                for _ in range(n_sets)]
-        kept = []
-        prof_k = profile_calls(torch, cycled(
-            sets, lambda *a: sk.ssd_scan(*a, chunk=chunk), kept), 10,
-            match=sk.KERNELS)
-        kept.clear()
-        prof_p = profile_calls(torch, cycled(
-            sets, lambda *a: sk.ssd_scan_ref(*a, chunk)[0], kept), 3)
-        kept.clear()
-        # each kernel launches once a call: CUPTI may drop an event of the
-        # window, which lowers the launches seen (so each kernel's count is
-        # rounded), while another kernel (a fill) would raise them; the
-        # time is the sum of the three kernels' means per launch
-        per_launch = prof_k["matched_us_per_launch"]
-        if any(round(n) != 1 for n in
-               prof_k["matched_launches_per_call"].values()) or \
-                prof_k["launches_per_call"] > len(sk.KERNELS) or \
-                not all(per_launch.values()):
-            raise RuntimeError(f"ssd_scan at {shape}: "
-                               f"{prof_k['launches_per_call']} device "
-                               f"launches per call "
-                               f"({prof_k['matched_us_per_call']} us), "
-                               f"expected one of each of {sk.KERNELS}")
-        bound_ms, bound_by, f32_ms, flops, nbytes = ssd_bound_ms(
-            shape, "bfloat16")
-        ms = sum(per_launch.values()) / 1e3
-        timed[arch] = {"shape": list(shape), "dtype": "bfloat16", "ms": ms,
-                       "kernel_ms": {k: v / 1e3
-                                     for k, v in per_launch.items()},
-                       "window_ms_per_call":
-                           prof_k["device_us_per_call"] / 1e3,
-                       "device_launches_per_call":
-                           prof_k["launches_per_call"],
-                       "plain_ms": prof_p["device_us_per_call"] / 1e3,
-                       "bound_ms": bound_ms, "bound_by": bound_by,
-                       "bound_share": bound_ms / ms,
-                       "f32_cuda_core_bound_ms": f32_ms,
-                       "bytes_bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
-                       "gflop": flops / 1e9, "mbytes": nbytes / 1e6,
-                       "tflop_s": flops / (ms * 1e-3) / 1e12,
-                       "prev_ms": SSD_PREV_MS[arch],
-                       "cold_sets": n_sets,
-                       "plain_launches_per_call":
-                           prof_p["launches_per_call"]}
-        del one, sets
-        torch.cuda.empty_cache()
+    timed = {arch: time_ssd(torch, g, shape)
+             for arch, shape in SSD_PREFILL.items()}
+    for arch, t in timed.items():
+        t["prev_ms"] = SSD_PREV_MS[arch]
     m = timed["mamba2-1.3b"]
     rec = {"name": "ssd_scan", "route": "cuda",
            "source": "src/repro_torch/kernels/csrc/ssd_scan.cu",
@@ -2142,7 +2153,7 @@ def twin_tick_profile(torch, twin, cfg, inp):
     in one block, as the loop draws it per hour)."""
     n, H, C = inp.loads.shape[0], cfg.n_hosts, cfg.chips_per_host
     noise = twin.plant_noise(inp.seed, 0, 100, H, C)
-    box = [twin.twin_carry_init(n, H, C, inp.loads.device)]
+    box = [twin.twin_carry_init(H, C, n, inp.loads.device)]
 
     def tick(t=0):
         box[0], _ = twin.twin_tick(
@@ -2377,6 +2388,11 @@ FLASH_BWD_TOL = {"float32": dict(atol=1e-4, rtol=1e-4),
 # work of the whole gradient is 5 (S, dP, dq, dk, dv), 2.5x the forward's
 FLASH_BWD_PRODUCTS = {"flash_bwd_dq": 3, "flash_bwd_dkdv": 4, "pair": 5}
 TRAIN_ATTN_SHAPE = (2, 2048, 12, 2, 128)  # qwen2-1.5b's call in training
+# train_tp's calls at a rank's heads (yi-9b: 16 of 32 query heads, 2 of 4
+# kv heads; mamba2-1.3b: 32 of 64 heads), timed alone with the card to
+# this process in flash_bwd and ssd_bwd (the ranks time-slice it there)
+TP_ATTN_SHAPE = (2, 2048, 16, 2, 128)
+TP_SSD_SHAPE = (2, 2048, 32, 64, 128, 256)
 # the backward wrappers' bf16 ms at the prefill call and (per launch) in
 # the train phase's profiled step, from an earlier call of this script on
 # another card (the scalar f32-FMA kernels before the wgmma redesign,
@@ -2523,9 +2539,16 @@ def time_flash_bwd(torch, g, shape, plain_reps, causal=True, sk=None):
         return call
 
     kept = []
-    groups = fa.BWD_KERNELS[torch.bfloat16]
+    # each kernel the call launches, once a call (dkdv's sum only where
+    # the call splits its GQA group): timed by its mean per launch
+    splits = fa.dkdv_splits(b, hkv, h // hkv, sk or s, sm_count(torch))
+    groups = {name: tuple(k for k in ks if splits > 1
+                          or k != "flash_bwd_dkdv_sum")
+              for name, ks in fa.BWD_KERNELS[torch.bfloat16].items()}
+    launched = {k: (k,) for ks in groups.values() for k in ks}
     prof_k = profile_calls(torch, cycled(sets, kernels, kept), 10,
-                           groups=groups, require=tuple(groups))
+                           groups=launched, require=tuple(launched),
+                           once=True)
     kept.clear()
     sdpa = graphs(lambda q, k, v: F.scaled_dot_product_attention(
         q, k, v, is_causal=causal, enable_gqa=True),
@@ -2543,7 +2566,8 @@ def time_flash_bwd(torch, g, shape, plain_reps, causal=True, sk=None):
         del plain
     del sets, first
     torch.cuda.empty_cache()
-    per = {m: prof_k["group_us_per_call"][m] / 1e3 for m in groups}
+    per = {m: sum(prof_k["group_us_per_call"][k] for k in ks) / 1e3
+           for m, ks in groups.items()}
     rec = {}
     for name, ms in per.items():
         bound_ms, bound_by, flops = flash_bwd_bound(
@@ -2551,16 +2575,15 @@ def time_flash_bwd(torch, g, shape, plain_reps, causal=True, sk=None):
         rec[name] = {"ms": ms, "bound_ms": bound_ms, "bound_by": bound_by,
                      "bound_share": bound_ms / ms, "gflop": flops / 1e9,
                      "tflop_s": flops / (ms * 1e-3) / 1e12,
-                     "kernels": prof_k["group_kernels"][name]}
+                     "kernels": list(groups[name])}
     pair_bound, _, pair_flops = flash_bwd_bound(
         shape, FLASH_BWD_PRODUCTS["pair"], 0, causal, sk)
     pair_ms = sum(per.values())
     library_ms = prof_l["rounded_us_per_call"] / 1e3
     return {"shape": list(shape), "dtype": "bfloat16", "window": 0,
             "causal": causal, "sk": sk or s,
-            "splits": fa.dkdv_splits(b, hkv, h // hkv, sk or s,
-                                     sm_count(torch)),
-            "kernels": rec, "ms": per, "pair_ms": pair_ms,
+            "splits": splits, "kernels": rec, "ms": per,
+            "pair_ms": pair_ms,
             "pair_bound_ms": pair_bound, "pair_bound_share":
                 pair_bound / pair_ms,
             "pair_tflop_s_5_products": pair_flops / (pair_ms * 1e-3) / 1e12,
@@ -2576,8 +2599,9 @@ def phase_flash_bwd(torch):
     whisper-medium's non-causal encoder and cross calls and at small and
     odd shapes, each run twice and held to bitwise equality, the forward's
     LSE against the plain one, SDPA's backward's own error at the prefill
-    call (context, not a gate), the device times at those six calls beside
-    the bound and SDPA's backward, and the bf16 kernels' resources from
+    call (context, not a gate), the device times at those six calls and
+    at train_tp's rank call (TP_ATTN_SHAPE, forward too) beside the bound
+    and SDPA's, and the bf16 kernels' resources from
     the CUDA runtime (no local memory at D = 96 or 128); returns the two
     wrappers' records of the {"kernels": ...} line."""
     from repro_torch.kernels import _build
@@ -2636,6 +2660,8 @@ def phase_flash_bwd(torch):
                            causal=False)
     t_cross = time_flash_bwd(torch, g, WHISPER_CROSS_SHAPE, plain_reps=2,
                              causal=False, sk=WHISPER_CROSS_SK)
+    t_tp = time_flash_bwd(torch, g, TP_ATTN_SHAPE, plain_reps=0)
+    t_tp_fwd = time_flash(torch, g, TP_ATTN_SHAPE, 0)
     build = {d: fa.bwd_kernel_info(torch.bfloat16, d) for d in (80, 96, 128)}
     spilled = {(d, k): v for d in (96, 128) for k, v in build[d].items()
                if v["local_bytes"]}
@@ -2670,11 +2696,16 @@ def phase_flash_bwd(torch):
                               "library_ms_pair": c["library_ms"]}
                       for label, c in (("phi-3-vision-4.2b", t_phi3),
                                        ("whisper-medium encoder", t_enc),
-                                       ("whisper-medium cross", t_cross))}})
+                                       ("whisper-medium cross", t_cross),
+                                       ("train_tp rank, yi-9b", t_tp))}})
     emit({"phase": "flash_bwd", "checks": checks,
           "prefill_call": t, "train_call": t_train,
           "train_call_hybrid": t_hybrid, "train_call_phi3": t_phi3,
           "whisper_encoder": t_enc, "whisper_cross": t_cross,
+          "train_tp_rank_call": t_tp,
+          "train_tp_rank_call_forward": {k: t_tp_fwd[k] for k in (
+              "shape", "ms", "plain_ms", "library_ms", "ms_over_library",
+              "bound_ms", "bound_by", "bound_share", "tflop_s")},
           "sdpa_max_abs_err_dq_dk_dv": sdpa_err,
           "kernels_max_abs_err": worst,
           "prev_ms": FLASH_BWD_PREV_MS,
@@ -2800,7 +2831,8 @@ def time_ssd_bwd(torch, g, shape):
     kept = []
     prof_k = profile_calls(torch, cycled(
         sets, lambda *a: sk.ssd_scan_bwd(*a, chunk=chunk), kept), 10,
-        groups={k: (k,) for k in sk.BWD_KERNELS[torch.bfloat16]})
+        groups={k: (k,) for k in sk.BWD_KERNELS[torch.bfloat16]},
+        require=tuple(sk.BWD_KERNELS[torch.bfloat16]), once=True)
     kept.clear()
     prof_p = profile_calls(torch, cycled(
         sets, lambda *a: sk.ssd_scan_bwd_ref(*a, chunk), kept), 2)
@@ -2929,8 +2961,9 @@ def phase_ssd_bwd(torch):
     and odd shapes, f32 and bf16, every case twice and bitwise equal
     (:func:`ssd_bwd_checks`); the tensor-core kernels' registers and
     spills (:func:`ssd_bwd_build_check`); then the cold-L2 device time at
-    the training calls and the prefill call beside the bound, the plain
-    version's and the earlier f32-FMA kernels'.  Returns the record of the
+    the training calls, the prefill call and train_tp's rank call
+    (TP_SSD_SHAPE, forward too) beside the bound, the plain version's and
+    the earlier f32-FMA kernels'.  Returns the record of the
     {"kernels": ...}
     line (mamba2-1.3b's training call)."""
     from repro_torch.kernels import ssd_scan as sk
@@ -2942,8 +2975,11 @@ def phase_ssd_bwd(torch):
              for arch, shape in SSD_TRAIN.items()}
     timed["prefill mamba2-1.3b"] = time_ssd_bwd(torch, g,
                                                 SSD_PREFILL["mamba2-1.3b"])
+    timed["train_tp rank, mamba2-1.3b"] = time_ssd_bwd(torch, g,
+                                                       TP_SSD_SHAPE)
+    tp_fwd = time_ssd(torch, g, TP_SSD_SHAPE)
     for call, t in timed.items():
-        t["prev_ms"] = SSD_BWD_PREV_MS[call]
+        t["prev_ms"] = SSD_BWD_PREV_MS.get(call)
     m = timed["mamba2-1.3b"]
     rec = {"name": "ssd_scan_bwd", "route": "cuda",
            "source": "src/repro_torch/kernels/csrc/ssd_scan_bwd.cu",
@@ -2957,6 +2993,9 @@ def phase_ssd_bwd(torch):
           "tol": {"float32_scale_rel": SSD_BWD_F32,
                   "bfloat16_vs_plain": SSD_BWD_BF16_VS_PLAIN},
           "timed": timed, "build": build,
+          "train_tp_rank_call_forward": {k: tp_fwd[k] for k in (
+              "shape", "ms", "plain_ms", "bound_ms", "bound_by",
+              "bound_share", "tflop_s")},
           "prev_ms_from": "the f32-FMA kernels that ran the bf16 path "
                           "before the tensor-core ones, in an earlier call "
                           "of this script on another card",
@@ -3250,7 +3289,7 @@ def run_trainer(torch, phase, cfg, batch_shape, steps, trigger_after, port,
     try:
         grid = make_grid("DE", 24)
         plan = gp.hourly_plan(grid.ci, grid.t_amb)
-        trainer = Trainer(cfg, shape, TrainerConfig(
+        trainer = Trainer(cfg, shape, tcfg=TrainerConfig(
             steps=steps, log_every=0, duty_quantum_steps=duty_quantum_steps),
             gridpilot=gp, device="cuda")
         params, opt = trainer.init_state()
@@ -3338,7 +3377,7 @@ def ckpt_restart_check(torch):
     t0 = time.perf_counter()
     try:
         def run(steps, ckpt_dir):
-            t = Trainer(cfg, shape, TrainerConfig(
+            t = Trainer(cfg, shape, tcfg=TrainerConfig(
                 steps=steps, ckpt_dir=ckpt_dir, log_every=0), device="cuda")
             return t, t.train()
         run(CKPT_STEPS, root)
@@ -3796,115 +3835,92 @@ def phase_families(torch, flash_rec, free):
 TRAIN_FSDP_STEPS = 3              # (a): the sharded trainer's steps
 TRAIN_FSDP_REL = 2e-2             # (a) against train_ssm; (b) bf16 per leaf
 TRAIN_FSDP_F32_REL = 1e-4         # (b) in f32 compute, per leaf
-TRAIN_FSDP_SHAPE = (8, 2048)      # (b): 4 rows a rank, 1 a microbatch
-TRAIN_FSDP_LAYERS = 2             # (b): mamba2-1.3b's 48 layers cut to 2
+# (b) runs in train_tp's mamba2-1.3b world (the same 2-layer cut, batch
+# and steps): on a (2, 1) mesh, 4 rows a rank, 1 a microbatch
+TRAIN_FSDP_ARCH = "mamba2-1.3b"
 TRAIN_FSDP_WARM_IDS = (146, 147, 148, 149)  # (b): replicated, past warm-up
 TRAIN_FSDP_STEP_IDS = (150, 151)  # (b): sharded against replicated
-FSDP_WORKER_TIMEOUT_S = 300
 DRYRUN_CELLS = (("mamba2-1.3b", "train_4k"), ("qwen2-1.5b", "decode_32k"))
 DRYRUN_TIMEOUT_S = 900
 
 
-def fsdp_worker(out_dir):
-    """One rank of train_fsdp (b) (REPRO_* set by the parent; the ranks
-    share the card, so gloo): mamba2-1.3b at full width cut to
-    TRAIN_FSDP_LAYERS layers on make_local_mesh()'s (2, 1) mesh, in bf16
-    and then f32 compute.  One process's replicated step takes the whole
-    TRAIN_FSDP_SHAPE batch through TRAIN_FSDP_WARM_IDS (past the lr's
-    warm-up, so the moments are nonzero and every step moves the
-    weights); that state, placed, takes the sharded step for
-    TRAIN_FSDP_STEP_IDS on this rank's rows, and the replicated step goes
-    on from it beside.  Each rank holds its shard of every leaf against
-    its chunk of the replicated leaf, and the ranks' squared sums are
-    added (each element once), so no leaf is gathered for the
-    comparison."""
-    import dataclasses
-    import torch
-    import torch.distributed as dist
-    sys.path.insert(0, os.path.join(ROOT, "src"))
-    from repro_torch._tree import leaves, leaves_with_paths, tree_map
-    from repro_torch.configs.base import ShapeConfig
-    from repro_torch.launch.mesh import make_local_mesh
+def leaf_places(bundle, mesh) -> list:
+    """(placements or None, the ranks holding each element) of every leaf
+    of the training state (parameters, then AdamW's mu and nu) that
+    ``bundle`` places on ``mesh``, in leaf order: None where every
+    placement replicates the leaf."""
+    from torch.distributed.tensor import Replicate
+    from repro_torch.sharding import fsdp
+
+    def by_leaf(tree):
+        return [x for k in sorted(tree) for x in by_leaf(tree[k])] \
+            if isinstance(tree, dict) else [tree]
+    out = []
+    for pl in (by_leaf(bundle.param_placements)
+               + by_leaf(bundle.opt_placements.mu)
+               + by_leaf(bundle.opt_placements.nu)):
+        shards_n = math.prod(mesh.size(i) for i, q in enumerate(pl)
+                             if not isinstance(q, Replicate))
+        out.append((None, mesh.size()) if fsdp.replicated(pl)
+                   else (pl, mesh.size() // shards_n))
+    return out
+
+
+def fsdp_run(torch, bundle, mesh, warm, warm_step, tokens, chunks, places,
+             names, rep, rep_norms):
+    """train_fsdp (b), in train_tp's mamba2-1.3b world: the warm state
+    (``warm``: parameters, mu, nu on the host; ``warm_step``) placed by
+    ``bundle`` on the (2, 1) ``mesh`` -- FSDP over ``data`` -- takes
+    TRAIN_FSDP_STEP_IDS on this rank's rows.  Each rank holds its shard
+    of every leaf against ``chunks``, its chunk of the replicated state
+    after the same steps (whose losses and grad norms are ``rep`` and
+    ``rep_norms``), and the ranks' squared sums are added (each element
+    once), so no leaf is gathered for the comparison; in f32 also each
+    parameter's change over the two steps."""
+    from repro_torch._tree import leaves, tree_map
     from repro_torch.optim import AdamWState
     from repro_torch.sharding import fsdp
     from repro_torch.train import step as st
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    mesh = make_local_mesh("cuda")
-    rank = dist.get_rank()
-    cfg = dataclasses.replace(get_cfg("mamba2-1.3b"),
-                              num_layers=TRAIN_FSDP_LAYERS)
-    b, s = TRAIN_FSDP_SHAPE
-    shape = ShapeConfig("smoke_train_fsdp", s, b, "train")
-    tokens = torch.randint(cfg.vocab_size, (b, s), dtype=torch.int32,
-                           generator=torch.Generator().manual_seed(7))
-    rec = {"rank": rank, "world": dist.get_world_size(),
-           "backend": dist.get_backend(),
-           "mesh": dict(zip(mesh.mesh_dim_names, mesh.shape)),
-           "runs": {}}
-    for dname, dtype in (("bfloat16", torch.bfloat16),
-                         ("float32", torch.float32)):
-        kw = dict(compute_dtype=dtype)
-        rb = st.build_step_bundle(cfg, shape, device="cuda", model_kw=kw)
-        p, o = rb.init_state(0)
-        whole = {"tokens": tokens.cuda()}
-        for i in TRAIN_FSDP_WARM_IDS:
-            p, o, _ = rb.step_fn(p, o, whole, i)
-        bundle = st.build_step_bundle(cfg, shape, device="cuda", mesh=mesh,
-                                      model_kw=kw)
-        init = bundle.init_state(0)
-        held = fsdp.shard_bytes((init[0], init[1].mu, init[1].nu))
-        del init
-        want = bundle.state_bytes()
+    t_run = time.perf_counter()
 
-        def put(tree, places):
-            return tree_map(lambda t, pl: fsdp.place(t.clone(), mesh, pl),
-                            tree, places)
-        params = put(p, bundle.param_placements)
-        opt = AdamWState(step=o.step.clone(),
-                         mu=put(o.mu, bundle.opt_placements.mu),
-                         nu=put(o.nu, bundle.opt_placements.nu))
-        places = [(x.placements, fsdp.replicas(x)) if fsdp.is_sharded(x)
-                  else (None, dist.get_world_size())
-                  for x in leaves((params, opt.mu, opt.nu))]
-        n_p = len(leaves(params))
-        before = [fsdp.local(x).detach().to("cpu", copy=True)
-                  for x in leaves(params)]
-        rows = st.batch_rows(bundle.rules, b, mesh.get_coordinate(),
-                             cfg.plan.microbatches)
-        batch = {"tokens": tokens[rows].cuda()}
-        losses, norms, dts = [], [], []
-        coll = fsdp.reset_collective_stats()
-        torch.cuda.synchronize()
-        for i in TRAIN_FSDP_STEP_IDS:
-            t0 = time.perf_counter()
-            params, opt, m = bundle.step_fn(params, opt, batch, i)
-            losses.append(float(m["loss"]))
-            norms.append(float(m["grad_norm"]))
-            dts.append(time.perf_counter() - t0)
-        shards = [fsdp.local(x).detach().cpu()
-                  for x in leaves((params, opt.mu, opt.nu))]
-        del params, opt, bundle
-        torch.cuda.empty_cache()
-        rep, rep_norms = [], []
-        for i in TRAIN_FSDP_STEP_IDS:
-            p, o, m = rb.step_fn(p, o, whole, i)
-            rep.append(float(m["loss"]))
-            rep_norms.append(float(m["grad_norm"]))
-        named = list(leaves_with_paths((p, o.mu, o.nu)))
-        names = ["/".join(path) for path, _ in named]
-        chunks = [(r if pl is None else fsdp.local_chunk(r, mesh, pl))
-                  .detach().cpu() for (_, r), (pl, _) in zip(named, places)]
-        del p, o, rb, named, whole
-        torch.cuda.empty_cache()
-        rels = shard_rels(torch, shards, chunks, places)
-        moved = shard_rels(
-            torch, [a - w for a, w in zip(shards[:n_p], before)],
-            [a - w for a, w in zip(chunks[:n_p], before)], places[:n_p])
-        order = sorted(range(len(rels)), key=lambda k: -rels[k])
-        worst_moved = max(range(n_p), key=lambda k: moved[k])
-        rec["runs"][dname] = {
-            "resident_bytes": held, "placed_bytes": want,
+    def put(tree, pls):
+        return tree_map(lambda t, pl: fsdp.place(
+            t.to("cuda", copy=True), mesh, pl), tree, pls)
+    params = put(warm[0], bundle.param_placements)
+    opt = AdamWState(step=warm_step.clone(),
+                     mu=put(warm[1], bundle.opt_placements.mu),
+                     nu=put(warm[2], bundle.opt_placements.nu))
+    held = fsdp.shard_bytes((params, opt.mu, opt.nu))
+    n_p = len(leaves(params))
+    before = [fsdp.local(x).detach().to("cpu", copy=True)
+              for x in leaves(params)]
+    rows = st.batch_rows(bundle.rules, bundle.shape.global_batch,
+                         mesh.get_coordinate(), bundle.cfg.plan.microbatches)
+    batch = {"tokens": tokens[rows].cuda()}
+    losses, norms, dts = [], [], []
+    coll = fsdp.reset_collective_stats()
+    torch.cuda.synchronize()
+    for i in TRAIN_FSDP_STEP_IDS:
+        t0 = time.perf_counter()
+        params, opt, m = bundle.step_fn(params, opt, batch, i)
+        losses.append(float(m["loss"]))
+        norms.append(float(m["grad_norm"]))
+        dts.append(time.perf_counter() - t0)
+    coll = {"bytes_by_op_per_step": {k: v / len(dts) for k, v in
+                                     coll["bytes_by_op"].items()},
+            "calls_per_step": coll["calls"] / len(dts),
+            "seconds_per_step": coll["seconds"] / len(dts)}
+    shards = [fsdp.local(x).detach().cpu()
+              for x in leaves((params, opt.mu, opt.nu))]
+    del params, opt
+    torch.cuda.empty_cache()
+    rels = shard_rels(torch, shards, chunks, places)
+    moved = shard_rels(
+        torch, [a - w for a, w in zip(shards[:n_p], before)],
+        [a - w for a, w in zip(chunks[:n_p], before)], places[:n_p])
+    order = sorted(range(len(rels)), key=lambda k: -rels[k])
+    worst_moved = max(range(n_p), key=lambda k: moved[k])
+    return {"resident_bytes": held, "placed_bytes": bundle.state_bytes(),
             "losses": losses, "grad_norms": norms, "step_s": dts,
             "replicated_losses": rep, "replicated_grad_norms": rep_norms,
             "loss_rel": max(abs(a - r) / abs(r)
@@ -3916,16 +3932,8 @@ def fsdp_worker(out_dir):
             "worst_leaves": {names[k]: rels[k] for k in order[:6]},
             "worst_change_rel": moved[worst_moved],
             "worst_change_leaf": names[worst_moved],
-            "gathers_and_scatters": {
-                "bytes_by_op_per_step": {k: v / len(dts) for k, v in
-                                         coll["bytes_by_op"].items()},
-                "calls_per_step": coll["calls"] / len(dts),
-                "seconds_per_step": coll["seconds"] / len(dts)}}
-        del shards, chunks, before
-    dist.destroy_process_group()
-    with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
-        json.dump(rec, f)
-    return 0
+            "gathers_and_scatters": coll,
+            "seconds": time.perf_counter() - t_run}
 
 
 def shard_rels(torch, got, want, places) -> list:
@@ -3991,9 +3999,9 @@ def phase_train_fsdp(torch, ssm):
     """The sharded training state on the card: (a) the Trainer at full
     mamba2-1.3b width and depth on make_local_mesh() (a world of one on
     NCCL) for TRAIN_FSDP_STEPS steps of train_ssm's batch, against
-    ``ssm``, train_ssm's record; (b) two ranks sharing the card on gloo
-    (fsdp_worker).  Returns (a)'s launches."""
-    import tempfile
+    ``ssm``, train_ssm's record.  (b), two ranks sharing the card on gloo,
+    runs in train_tp's mamba2-1.3b world (fsdp_run).  Returns (a)'s
+    launches."""
     import torch.distributed as dist
     from repro_torch._tree import leaves
     from repro_torch.configs.base import ShapeConfig
@@ -4008,8 +4016,9 @@ def phase_train_fsdp(torch, ssm):
     try:
         trainer = Trainer(cfg, ShapeConfig("smoke_train_fsdp", s, b,
                                            "train"),
+                          mesh,
                           TrainerConfig(steps=TRAIN_FSDP_STEPS, log_every=0),
-                          mesh=mesh, device="cuda")
+                          device="cuda")
         torch.cuda.reset_peak_memory_stats()
         params, opt = trainer.init_state()
         held = fsdp.shard_bytes((params, opt.mu, opt.nu))
@@ -4061,43 +4070,6 @@ def phase_train_fsdp(torch, ssm):
         "gathers_and_scatters": dict(coll)}
     emit({"phase": "train_fsdp", "part": "world_of_one", **world_one,
           "seconds": time.perf_counter() - t_phase})
-    # (b): two ranks on the card over gloo
-    torch.cuda.synchronize()
-    torch.cuda.empty_cache()   # the workers open contexts of their own
-    with tempfile.TemporaryDirectory(prefix="chip_smoke_fsdp_") as d:
-        t0 = time.perf_counter()
-        recs = spawn_workers("--fsdp-worker", d, FSDP_WORKER_TIMEOUT_S)
-        workers_s = time.perf_counter() - t0
-    failed = []
-    for r in recs:
-        for dname, run in r["runs"].items():
-            tol = TRAIN_FSDP_F32_REL if dname == "float32" else \
-                TRAIN_FSDP_REL
-            ok = run["resident_bytes"] == run["placed_bytes"] and \
-                all(np.isfinite(run["losses"])) and \
-                max(run["loss_rel"], run["grad_norm_rel"],
-                    run["worst_leaf_rel"]) <= tol
-            if dname == "float32":
-                ok = ok and run["worst_change_rel"] <= tol
-            if not ok:
-                failed.append((r["rank"], dname, {k: run[k] for k in (
-                    "loss_rel", "grad_norm_rel", "worst_leaves",
-                    "worst_change_rel", "worst_change_leaf",
-                    "resident_bytes", "placed_bytes")}))
-    emit({"phase": "train_fsdp", "part": "two_ranks", **{
-              "arch": cfg.name, "layers": TRAIN_FSDP_LAYERS,
-              "reduced": f"depth {cfg.num_layers} -> {TRAIN_FSDP_LAYERS}: "
-                         "two ranks on one card over gloo, whose CUDA "
-                         "tensors go through host memory (no "
-                         "deployment's wire)",
-              "batch_x_seq": list(TRAIN_FSDP_SHAPE),
-              "warm_steps": list(TRAIN_FSDP_WARM_IDS),
-              "steps": list(TRAIN_FSDP_STEP_IDS), "workers_s": workers_s,
-              "route": "torch.distributed on CUDA tensors over gloo",
-              "ranks": recs},
-          "seconds": time.perf_counter() - t_phase})
-    if failed:
-        raise RuntimeError(f"train_fsdp: two ranks: {failed}")
     return launches
 
 
@@ -4108,6 +4080,15 @@ TRAIN_TP_SHAPE = (8, 2048)        # 4 microbatches of (2, 2048), every row
 TRAIN_TP_MESH = (1, 2)            # on both ranks
 TRAIN_TP_FLOP_RATIO = 0.55        # a rank's matmul FLOPs / replicated
 TP_WORKER_TIMEOUT_S = 420
+# decode_tp, in train_tp's worlds after their steps: decode_32k's 8 rows
+# a rank and its 32,768-position cache, a 64-token prompt teacher-forced,
+# then 32 tokens; yi-9b in its registered layout (4 kv heads on 2: by
+# heads) and by positions ("seq"); the ids fed are the replicated run's
+DECODE_TP_ROWS, DECODE_TP_POSITIONS = 8, 32_768
+DECODE_TP_PROMPT, DECODE_TP_GEN = 64, 32
+DECODE_TP_LAYOUTS = {"yi-9b": (None, "seq"), "mamba2-1.3b": (None,)}
+DECODE_TP_F32 = dict(atol=1e-4, rtol=1e-4)   # tests/test_torch_models.py
+DECODE_TP_BF16_REL = 2e-2                    # norm-relative, per step
 
 
 def tp_kernel_calls():
@@ -4274,18 +4255,19 @@ def tp_worker(out_dir, arch):
     cut to TRAIN_TP_LAYERS layers on a (data 1, model 2) mesh -- tensor
     parallelism: each rank computes its heads, its MLP columns and its
     vocabulary columns (``sharding/tp.py``) --, in bf16 and then f32
-    compute, as fsdp_worker: one process's replicated step warms the
-    state through TRAIN_FSDP_WARM_IDS on the whole TRAIN_TP_SHAPE batch;
-    that state, placed, takes TRAIN_FSDP_STEP_IDS tensor-parallel, the
-    replicated step beside.  Step 150 of each runs under FlopCounterMode
-    (the matmul FLOPs), step 151 under the profiler (device time; the
-    replicated ones one rank after the other).  Records each kernel
-    call's shapes, the launches and the collectives a step."""
+    compute: one process's replicated step warms the state through
+    TRAIN_FSDP_WARM_IDS on the whole TRAIN_TP_SHAPE batch; that state,
+    placed, takes TRAIN_FSDP_STEP_IDS tensor-parallel, the replicated
+    step beside.  Step 150 of each runs under FlopCounterMode (the matmul
+    FLOPs), step 151 under the profiler (device time; the replicated ones
+    one rank after the other).  Records each kernel call's shapes, the
+    launches and the collectives a step.  For TRAIN_FSDP_ARCH the same
+    warm state also takes the steps on a (2, 1) mesh (train_fsdp (b),
+    fsdp_run), then decode_tp's runs follow (decode_tp_runs)."""
     import dataclasses
     import torch
     import torch.distributed as dist
     from torch.distributed.device_mesh import DeviceMesh
-    from torch.distributed.tensor import Replicate
     from torch.utils.flop_counter import FlopCounterMode
     sys.path.insert(0, os.path.join(ROOT, "src"))
     from repro_torch._tree import leaves, leaves_with_paths, tree_map
@@ -4304,6 +4286,11 @@ def tp_worker(out_dir, arch):
     counters = train_launch_counters()
     rec = {"rank": rank, "world": world, "backend": dist.get_backend(),
            "mesh": dict(zip(mesh.mesh_dim_names, mesh.shape)), "runs": {}}
+    fmesh = None
+    if arch == TRAIN_FSDP_ARCH:           # train_fsdp (b): FSDP over data
+        fmesh = DeviceMesh("cuda", torch.arange(world).reshape(world, 1),
+                           mesh_dim_names=("data", "model"))
+        rec["fsdp_runs"] = {}
     b, s = TRAIN_TP_SHAPE
     cfg = dataclasses.replace(get_cfg(arch), num_layers=TRAIN_TP_LAYERS)
     shape = ShapeConfig("smoke_train_tp", s, b, "train")
@@ -4345,34 +4332,30 @@ def tp_worker(out_dir, arch):
         dist.barrier()
         rep.append(float(mr["loss"]))
         rep_norms.append(float(mr["grad_norm"]))
-        def by_leaf(tree):            # placement tuples, in leaf order
-            return [x for k in sorted(tree) for x in by_leaf(tree[k])] \
-                if isinstance(tree, dict) else [tree]
-        places = []
-        for pl in (by_leaf(bundle.param_placements)
-                   + by_leaf(bundle.opt_placements.mu)
-                   + by_leaf(bundle.opt_placements.nu)):
-            shards_n = math.prod(mesh.size(i) for i, q in enumerate(pl)
-                                 if not isinstance(q, Replicate))
-            places.append((None, world) if fsdp.replicated(pl)
-                          else (pl, world // shards_n))
+        places = leaf_places(bundle, mesh)
         named = list(leaves_with_paths((p, o.mu, o.nu)))
         names = ["/".join(path) for path, _ in named]
         chunks = [(r_ if pl is None else fsdp.local_chunk(r_, mesh, pl))
                   .detach().clone()
                   for (_, r_), (pl, _) in zip(named, places)]
+        if fmesh is not None:
+            fbundle = st.build_step_bundle(cfg, shape, fmesh, device="cuda",
+                                           model_kw=kw)
+            fplaces = leaf_places(fbundle, fmesh)
+            fchunks = [(r_ if pl is None else fsdp.local_chunk(r_, fmesh, pl))
+                       .detach().cpu()
+                       for (_, r_), (pl, _) in zip(named, fplaces)]
         del p, o, rb, named, whole
         torch.cuda.empty_cache()
         secs["replicated_steps"] = time.perf_counter() - t0
 
         def put(tree, places):
-            return tree_map(lambda t, pl: fsdp.place(t.to("cuda"), mesh,
-                                                     pl), tree, places)
+            return tree_map(lambda t, pl: fsdp.place(
+                t.to("cuda", copy=True), mesh, pl), tree, places)
         params = put(warm[0], bundle.param_placements)
-        opt = AdamWState(step=warm_step,
+        opt = AdamWState(step=warm_step.clone(),
                          mu=put(warm[1], bundle.opt_placements.mu),
                          nu=put(warm[2], bundle.opt_placements.nu))
-        del warm
         held = fsdp.shard_bytes((params, opt.mu, opt.nu))
         want_bytes = bundle.state_bytes()
         n_p = len(leaves(params))
@@ -4438,10 +4421,164 @@ def tp_worker(out_dir, arch):
             "kernel_calls": seen, "launches": launched,
             "launches_expected": train_launches_expected(cfg, 2),
             "collectives": coll, "seconds": secs}
+        if fmesh is not None:
+            rec["fsdp_runs"][dname] = fsdp_run(
+                torch, fbundle, fmesh, warm, warm_step, tokens, fchunks,
+                fplaces, names, rep, rep_norms)
+            del fbundle, fchunks
+        del warm
+    rec["decode"] = decode_tp_runs(torch, arch, mesh)
     dist.destroy_process_group()
     with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
         json.dump(rec, f)
     return 0
+
+
+def decode_tp_run(torch, cfg, mesh, dtype):
+    """One tensor-parallel decode run of ``cfg`` on ``mesh`` in ``dtype``:
+    rank 0 first decodes alone on the whole parameters and cache
+    (``Model.decode_step``, the replicated run; the other rank waits),
+    then both ranks run the bundle's step (``make_decode_step``) on their
+    ``model`` shards and ``cache_pspecs`` shards of the cache, fed the
+    same ids.  Returns the readings; rank 0's hold the logits' distance
+    from the replicated run's at every step."""
+    import torch.distributed as dist
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.sharding import fsdp
+    from repro_torch.train import step as st
+    rank = dist.get_rank()
+    b, steps = DECODE_TP_ROWS, DECODE_TP_PROMPT + DECODE_TP_GEN
+    bundle = st.build_step_bundle(
+        cfg, ShapeConfig("smoke_decode_tp", DECODE_TP_POSITIONS, b,
+                         "decode"), mesh, device="cuda",
+        model_kw=dict(compute_dtype=dtype))
+    model = bundle.model
+    v = cfg.vocab_size
+    ids = torch.zeros((b, steps), dtype=torch.int32, device="cuda")
+    ids[:, :DECODE_TP_PROMPT] = torch.randint(
+        v, (b, DECODE_TP_PROMPT), dtype=torch.int32,
+        generator=torch.Generator().manual_seed(17)).cuda()
+    rep, rep_ms = [], None
+    dist.barrier()
+    if rank == 0:
+        whole = model.init(0)
+        rcache = model.init_cache(b, DECODE_TP_POSITIONS)
+        with torch.no_grad():
+            for t in range(steps):
+                if t == DECODE_TP_PROMPT:
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                logits, rcache = model.decode_step(whole, rcache, ids[:, t])
+                rep.append(logits.float())
+                if DECODE_TP_PROMPT <= t + 1 < steps:
+                    ids[:, t + 1] = torch.argmax(logits, -1)
+        torch.cuda.synchronize()
+        rep_ms = (time.perf_counter() - t0) * 1e3 / DECODE_TP_GEN
+        rep_cache_bytes = sum(x.numel() * x.element_size()
+                              for k, x in rcache.items() if k != "cur")
+        del whole, rcache
+        torch.cuda.empty_cache()
+    host = ids.cpu()
+    dist.broadcast(host, 0)
+    ids.copy_(host)
+    params = model.init(0, mesh=mesh, placements=bundle.param_placements)
+    cache = bundle.init_cache()
+    resident = {k: x.numel() * x.element_size() for k, x in cache.items()
+                if k != "cur"}
+    seen = []
+    decode = model.decode_step
+
+    def recorded(p, c, t):
+        out = decode(p, c, t)
+        seen.append(out[0])
+        return out
+    model.decode_step = recorded
+    worst, picks, finite = 0.0, [], True
+    coll = None
+    for t in range(steps):
+        if t == DECODE_TP_PROMPT:
+            torch.cuda.synchronize()
+            coll = fsdp.reset_collective_stats()
+            t0 = time.perf_counter()
+        nxt, cache = bundle.step_fn(params, cache, ids[:, t])
+        logits = seen.pop().float()
+        finite &= bool(torch.isfinite(logits[:, :v]).all())
+        if rank == 0:
+            want = rep[t][:, :v]
+            got = logits[:, :v]
+            if dtype == torch.float32:
+                err = float(((got - want).abs() - DECODE_TP_F32["rtol"]
+                             * want.abs()).max())
+                worst = max(worst, err)
+            else:
+                worst = max(worst, float((got - want).norm()
+                                         / want.norm()))
+            picks.append(bool(torch.equal(nxt.long(),
+                                          torch.argmax(rep[t], -1))))
+    torch.cuda.synchronize()
+    tp_ms = (time.perf_counter() - t0) * 1e3 / DECODE_TP_GEN
+    out = {"layout": cfg.plan.decode_kv_shard, "dtype": str(dtype),
+           "ms_per_token": tp_ms, "replicated_ms_per_token": rep_ms,
+           "collectives_per_token": coll["calls"] / DECODE_TP_GEN,
+           "collective_bytes_per_token": {
+               k: x / DECODE_TP_GEN for k, x in coll["bytes_by_op"].items()},
+           "collective_seconds_per_token": coll["seconds"] / DECODE_TP_GEN,
+           "cache_bytes": sum(resident.values()),
+           "cache_bytes_by_leaf": resident,
+           "cache_bytes_placed": bundle.cache_bytes(),
+           "finite": finite, "steps": steps}
+    if rank == 0:
+        out.update(worst=worst, rep_cache_bytes=rep_cache_bytes,
+                   ids_equal=sum(picks), ids=len(picks))
+    del params, cache, rep, seen
+    torch.cuda.empty_cache()
+    return out
+
+
+def decode_tp_runs(torch, arch, mesh):
+    """decode_tp's runs in a train_tp world: ``arch`` at full width cut
+    to TRAIN_TP_LAYERS layers, each of DECODE_TP_LAYOUTS[arch] (None: the
+    registered plan's layout), in bf16 and f32."""
+    import dataclasses
+    t0 = time.perf_counter()
+    runs = {}
+    for layout in DECODE_TP_LAYOUTS.get(arch, ()):
+        cfg = dataclasses.replace(get_cfg(arch), num_layers=TRAIN_TP_LAYERS)
+        if layout is not None:
+            cfg = dataclasses.replace(cfg, plan=dataclasses.replace(
+                cfg.plan, decode_kv_shard=layout))
+        for dname in ("bfloat16", "float32"):
+            runs[f"{arch}/{cfg.plan.decode_kv_shard}/{dname}"] = \
+                decode_tp_run(torch, cfg, mesh, getattr(torch, dname))
+    return {"runs": runs, "seconds": time.perf_counter() - t0}
+
+
+def decode_tp_check(worlds):
+    """decode_tp's gates over every rank's runs: the logits finite; rank
+    0's against the replicated run's at every step (f32: allclose at
+    DECODE_TP_F32, and every next id equal; bf16: DECODE_TP_BF16_REL
+    norm-relative); each rank's resident cache its ``cache_pspecs``
+    shard's bytes (a split K/V, SSM or conv leaf half the replicated
+    one's).  Returns the failures."""
+    failed = []
+    for world in worlds:
+        for r in world:
+            for key, run in r["decode"]["runs"].items():
+                ok = run["finite"] and \
+                    run["cache_bytes"] == run["cache_bytes_placed"]
+                if r["rank"] == 0:
+                    f32 = run["dtype"] == "torch.float32"
+                    ok = ok and run["worst"] <= (
+                        DECODE_TP_F32["atol"] if f32 else DECODE_TP_BF16_REL)
+                    ok = ok and (not f32 or run["ids_equal"] == run["ids"])
+                    ok = ok and run["cache_bytes"] < run["rep_cache_bytes"]
+                if not ok:
+                    failed.append((r["rank"], key, {
+                        k: run.get(k) for k in (
+                            "finite", "worst", "ids_equal", "ids",
+                            "cache_bytes", "cache_bytes_placed",
+                            "rep_cache_bytes")}))
+    return failed
 
 
 def tp_local_heads(cfg, m):
@@ -4468,8 +4605,9 @@ def phase_train_tp(torch):
     local head count, as many as the plan's launches; the kernels at
     those shapes meet their plain versions; each rank's matmul FLOPs are
     at most TRAIN_TP_FLOP_RATIO of the replicated step's on the same
-    rows.  Returns the launches of the kernels over the two
-    tensor-parallel steps (each world's rank 0)."""
+    rows.  Then it gates train_fsdp (b) (fsdp_run, in TRAIN_FSDP_ARCH's
+    world) and decode_tp (decode_tp_check).  Returns the launches of the
+    kernels over the two tensor-parallel steps (each world's rank 0)."""
     import dataclasses
     import tempfile
     t_phase = time.perf_counter()
@@ -4539,9 +4677,11 @@ def phase_train_tp(torch):
           "warm_steps": list(TRAIN_FSDP_WARM_IDS),
           "steps": list(TRAIN_FSDP_STEP_IDS), "workers_s": workers_s,
           "route": "torch.distributed on CUDA tensors over gloo",
-          "ranks": [{**r, "runs": {k: {kk: vv for kk, vv in v.items()
-                                       if kk != "kernel_calls"}
-                                   for k, v in r["runs"].items()},
+          "ranks": [{**{k: v for k, v in r.items()
+                        if k not in ("decode", "fsdp_runs")},
+                     "runs": {k: {kk: vv for kk, vv in v.items()
+                                  if kk != "kernel_calls"}
+                              for k, v in r["runs"].items()},
                      "kernel_call_shapes": {
                          k: sorted({json.dumps(c) for name, cs in
                                     v["kernel_calls"].items() for c in cs})
@@ -4564,6 +4704,58 @@ def phase_train_tp(torch):
         "seconds": time.perf_counter() - t_phase})
     if failed:
         raise RuntimeError(f"train_tp: {failed}")
+    # train_fsdp (b), from TRAIN_FSDP_ARCH's world: every leaf, the loss
+    # and the grad norm against the replicated step (bf16 2e-2, f32 1e-4
+    # and each parameter's change), resident bytes those by placement
+    fsdp_ranks = [{"rank": r["rank"], "backend": r["backend"],
+                   "mesh": {"data": r["world"], "model": 1},
+                   "runs": r["fsdp_runs"]} for r in recs if "fsdp_runs" in r]
+    for r in fsdp_ranks:
+        for dname, run in r["runs"].items():
+            tol = TRAIN_FSDP_F32_REL if dname == "float32" else \
+                TRAIN_FSDP_REL
+            ok = run["resident_bytes"] == run["placed_bytes"] and \
+                all(np.isfinite(run["losses"])) and \
+                max(run["loss_rel"], run["grad_norm_rel"],
+                    run["worst_leaf_rel"]) <= tol
+            if dname == "float32":
+                ok = ok and run["worst_change_rel"] <= tol
+            if not ok:
+                failed.append((r["rank"], dname, {k: run[k] for k in (
+                    "loss_rel", "grad_norm_rel", "worst_leaves",
+                    "worst_change_rel", "worst_change_leaf",
+                    "resident_bytes", "placed_bytes")}))
+    emit({"phase": "train_fsdp", "part": "two_ranks",
+          "arch": TRAIN_FSDP_ARCH, "layers": TRAIN_TP_LAYERS,
+          "reduced": f"depth cut to {TRAIN_TP_LAYERS} layers: two ranks on "
+                     "one card over gloo, whose CUDA tensors go through "
+                     "host memory (no deployment's wire); in train_tp's "
+                     f"{TRAIN_FSDP_ARCH} world, from its warm state",
+          "batch_x_seq": list(TRAIN_TP_SHAPE),
+          "warm_steps": list(TRAIN_FSDP_WARM_IDS),
+          "steps": list(TRAIN_FSDP_STEP_IDS),
+          "route": "torch.distributed on CUDA tensors over gloo",
+          "ranks": fsdp_ranks,
+          "seconds": sum(run["seconds"]
+                         for run in fsdp_ranks[0]["runs"].values())})
+    if failed:
+        raise RuntimeError(f"train_fsdp: two ranks: {failed}")
+    decode_failed = decode_tp_check(worlds)
+    emit({"phase": "decode_tp",
+          "reduced": f"depth cut to {TRAIN_TP_LAYERS} layers (full "
+                     "width), in train_tp's worlds: two ranks on one card "
+                     "over gloo, so the ranks time-slice the card and no "
+                     "device time is a rank's own",
+          "rows_x_positions": [DECODE_TP_ROWS, DECODE_TP_POSITIONS],
+          "prompt": DECODE_TP_PROMPT, "decoded": DECODE_TP_GEN,
+          "route": "torch.distributed on CUDA tensors over gloo",
+          "backends": sorted({r["backend"] for w in worlds for r in w}),
+          "ranks": [{"rank": r["rank"], **r["decode"]}
+                    for w in worlds for r in w],
+          "seconds": max(r["decode"]["seconds"] for w in worlds
+                         for r in w)})
+    if decode_failed:
+        raise RuntimeError(f"decode_tp: {decode_failed}")
     out = {}
     for run in runs0.values():
         for k, v in run["launches"].items():
@@ -4724,8 +4916,6 @@ def main() -> int:
     import torch
     if sys.argv[1:2] == ["--mesh-worker"]:
         return mesh_worker(sys.argv[2])
-    if sys.argv[1:2] == ["--fsdp-worker"]:
-        return fsdp_worker(sys.argv[2])
     if sys.argv[1:2] == ["--tp-worker"]:
         return tp_worker(*sys.argv[2:4])
     if sys.argv[1:2] == ["--host-group"]:

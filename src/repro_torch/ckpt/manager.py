@@ -218,7 +218,7 @@ class CheckpointManager:
         return p
 
     def restore(self, tree_like: Any, step: Optional[int] = None,
-                device="cuda", shardings: Any = None):
+                shardings: Any = None, device="cuda"):
         return restore_checkpoint(self.root, tree_like, step=step,
                                   device=device, shardings=shardings)
 

@@ -174,7 +174,7 @@ def engine_init(cfg: EngineConfig, seeds, *, device="cuda") -> EngineState:
     seeds = torch.as_tensor(seeds, dtype=torch.int64).to(dev)
     n = seeds.shape[0]
     rls, chip_power, caps = twin_lib.twin_carry_init(
-        n, cfg.n_hosts, cfg.chips_per_host, dev)
+        cfg.n_hosts, cfg.chips_per_host, n, dev)
     in_ev, hold = reserve.detection_init(n, dev)
     z = torch.zeros(n, dtype=torch.float32, device=dev)
     return EngineState(

@@ -66,7 +66,7 @@ def workload_tau_ms(workload: str) -> float:
     return _ARCHETYPES[workload]["tau_ms"]
 
 
-def workload_load(workload: str, t_s, *, phase=0.0, draws=None,
+def workload_load(workload: str, t_s, phase=0.0, *, draws=None,
                   generator: Optional[torch.Generator] = None,
                   device="cuda") -> torch.Tensor:
     """Instantaneous utilisation L(t) of an archetype at the seconds

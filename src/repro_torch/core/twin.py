@@ -213,8 +213,8 @@ def live_load_noise(seeds: torch.Tensor, t: torch.Tensor,
                       rnd.lanes((n_hosts,), seeds.device))
 
 
-def twin_carry_init(n: int, n_hosts: int, chips_per_host: int, device):
-    """Initial Tier-2 + plant carry of N scenarios: (rls, chip_power,
+def twin_carry_init(n_hosts: int, chips_per_host: int, n: int, device):
+    """Initial Tier-2 + plant carry of ``n`` scenarios: (rls, chip_power,
     caps)."""
     rls0 = ar4_lib.init_rls((n, n_hosts), device=device)
     shape = (n, n_hosts, chips_per_host)
@@ -393,7 +393,7 @@ def _twin_loop(cfg: TwinConfig, inp: TwinInputs, noise) -> TwinMetrics:
         chip_power_mean=buf(), chip_power_p95=buf(), envelope=buf(),
         it_power=buf(), facility_power=buf(),
         ffr_active=buf(dtype=torch.bool), tracking_err=buf())
-    carry = twin_carry_init(N, H, C, dev)
+    carry = twin_carry_init(H, C, N, dev)
     for s0 in range(0, T, LOAD_BLOCK_S):
         k = min(LOAD_BLOCK_S, T - s0)
         nz = (plant_noise(inp.seed, s0, k, H, C) if noise is None

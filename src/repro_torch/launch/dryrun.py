@@ -17,8 +17,10 @@ step's shapes, placements and collectives are those of a real rank.
 Each record has the reference's keys:
 
 * ``memory.argument_size_bytes``: this rank's shards of the parameters
-  and AdamW moments, its rows of the batch (or of the decode cache), and
-  the 4-byte step counter(s), as the port holds them (``StepBundle``);
+  and AdamW moments, its rows of the batch (or its ``cache_pspecs`` shard
+  of the decode cache, ``StepBundle.abstract_cache``), and the 4-byte
+  step counter or decode position, as the port holds them
+  (``StepBundle``);
   ``temp_size_bytes``: the peak of what the step allocates beyond them,
   from ``torch.distributed._tools.mem_tracker.MemTracker`` on the meta
   tensors; ``output_size_bytes``: what the step returns that is not one
@@ -39,15 +41,15 @@ Each record has the reference's keys:
   its ``collective_bytes`` sizes HLO (:func:`collective_bytes` here, over
   the recorded ops).
 
-The numbers are the port's: a training or prefill step computes its
-products on this rank's ``model`` shards (``sharding/tp.py``), so a
-rank's FLOPs are its batch rows through its share of the model, as the
-reference's per-device cost analysis counts them (within XLA's count
-of elementwise work, which ``FlopCounterMode`` leaves out); its
-collectives are the FSDP gathers and reduce-scatters over the data
-axes and the tensor-parallel all-reduces over ``model``, not GSPMD's
-HLO; the decode step gathers every leaf whole, and its cache holds its
-rows at full width.
+The numbers are the port's: every step computes its products on this
+rank's ``model`` shards (``sharding/tp.py``), so a rank's FLOPs are its
+batch rows through its share of the model, as the reference's
+per-device cost analysis counts them (within XLA's count of elementwise
+work, which ``FlopCounterMode`` leaves out); its collectives are the
+FSDP gathers and reduce-scatters over the data axes and the
+tensor-parallel all-reduces and gathers over ``model``, not GSPMD's
+HLO; a decode step's cache is the rank's ``cache_pspecs`` shard: its
+rows, and its kv heads or positions, SSM heads and conv channels.
 
 Records go to ``build/dryrun/dryrun_<mesh>.json`` (``--out`` to change);
 the exit status is 1 if any cell failed.  A cell's step runs op by op on
@@ -168,13 +170,11 @@ def _args(bundle):
         return args, fsdp.shard_bytes((params, opt, batch)) + 4
     if bundle.kind == "prefill":
         return (params, batch), fsdp.shard_bytes((params, batch))
-    n = batch["tokens"].shape[0]
-    specs = bundle.model.cache_specs(n, bundle.shape.seq_len)
-    cache = {k: torch.zeros(s.shape, dtype=s.dtype, device="meta")
-             for k, s in specs.items()}
-    cache["cur"] = 0
+    # this rank's cache shard (``cache_pspecs``), and the 4-byte decode
+    # position beside it, as the reference's int32 ``cur``
+    cache = bundle.abstract_cache()
     return (params, cache, batch["tokens"]), fsdp.shard_bytes(
-        (params, cache, batch["tokens"]))
+        (params, cache, batch["tokens"])) + 4
 
 
 def run_cell(arch_name, shape_name, mesh, mesh_name: str,

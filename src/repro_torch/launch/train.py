@@ -69,8 +69,8 @@ def main(argv=None) -> int:
 
     try:
         tcfg = TrainerConfig(steps=args.steps, ckpt_dir=args.ckpt_dir)
-        trainer = Trainer(cfg, shape, tcfg, gridpilot=gp, seed=args.seed,
-                          mesh=mesh, device=args.device)
+        trainer = Trainer(cfg, shape, mesh, tcfg, gridpilot=gp,
+                          seed=args.seed, device=args.device)
         out = trainer.train()
     finally:
         if gp is not None:

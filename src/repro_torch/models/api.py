@@ -16,10 +16,11 @@ every family of the registry (dense, MoE, SSM, hybrid, VLM and enc-dec).
 A batch is ``{"tokens"}``, with ``"embeds"`` (B, frontend_tokens, D) for
 the VLM and ``"frames"`` (B, encoder_seq, D) for the enc-dec family.
 
-On a mesh (parameters placed by the sharding rules), ``loss`` and
-``forward`` compute each product on this rank's ``model`` shards where
-the rules split a layer over ``model`` (``sharding/tp.py``); the decode
-step gathers every leaf whole.
+On a mesh (parameters placed by the sharding rules), ``loss``,
+``forward`` and ``decode_step`` compute each product on this rank's
+``model`` shards where the rules split a layer over ``model``
+(``sharding/tp.py``); the decode step then takes this rank's
+``cache_pspecs`` shard of the cache (``StepBundle.init_cache``).
 """
 from __future__ import annotations
 

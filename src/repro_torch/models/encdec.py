@@ -13,8 +13,10 @@ There is no remat here, as in the reference.
 Decoding keeps the self-attention K/V and the cross K/V of every layer
 (``precompute_cross_kv``, once per request) in a dict of tensors that
 ``encdec_decode_step`` updates in place; its attention is the plain
-softmax over the cache, and the decode position ``cache["cur"]`` is a
-Python int.
+softmax over the cache (``transformer.decode_out``), and the decode
+position ``cache["cur"]`` is a Python int.  On a mesh whose ``model``
+axis splits the layers, the decode step computes on this rank's shards
+against its ``cache_pspecs`` shard of the cache.
 
 Sharded parameters are gathered where they are used
 (``sharding/fsdp.py``): a layer's leaves by ``_cast``, the embedding,
@@ -22,8 +24,6 @@ Sharded parameters are gathered where they are used
 is called where the reference calls it, with its specs.
 """
 from __future__ import annotations
-
-import math
 
 import torch
 
@@ -185,10 +185,10 @@ def encode(cfg, params, frames, *, dtype=torch.bfloat16, unroll=False):
     return _ln_apply(cfg, x, fsdp.gather_tree(params["enc_norm"]))
 
 
-def _logits(cfg, params, x, split: bool = True):
+def _logits(cfg, params, x):
     """The logits of ``x`` against the tied embedding, and the axis their
     columns are split over (``transformer.vocab_logits``)."""
-    return tr.vocab_logits(cfg, params["embed"], x, tied=True, split=split)
+    return tr.vocab_logits(cfg, params["embed"], x, tied=True)
 
 
 def _decoder(cfg, params, tokens, enc_out, dtype):
@@ -259,65 +259,65 @@ def encdec_cache_specs(cfg, batch, seq_len, dtype):
 def precompute_cross_kv(cfg, params, enc_out):
     """Every decoder layer's cross K and V of ``enc_out`` (B, Senc, D):
     two (L, B, Senc, Hkv, h) tensors, computed as the reference does in
-    the promoted dtype of ``enc_out`` and the stored weights."""
+    the promoted dtype of ``enc_out`` and the stored weights.  On a mesh
+    whose ``model`` axis splits the cache (``cache_pspecs``), this rank's
+    chunk of them: its kv heads, from its shards of ``x_wk``/``x_wv``, or
+    its encoder positions of every head, from the leaves gathered whole
+    (once a request)."""
     h = cfg.resolved_head_dim
     b, s = enc_out.shape[:2]
     dec = params["dec"]
+    ax = tp.tree_axis(params)
+    split = tp.kv_split(cfg.plan.decode_kv_shard, ax.size, cfg.n_kv_heads,
+                        s) if ax is not None else None
     dt = torch.promote_types(enc_out.dtype, dec["x_wk"].dtype)
     x = enc_out.to(dt)
-    xk = torch.stack([(x @ fsdp.gather(w, dt))
-                      .reshape(b, s, cfg.n_kv_heads, h)
-                      for w in fsdp.unstack(dec["x_wk"])])
-    xv = torch.stack([(x @ fsdp.gather(w, dt))
-                      .reshape(b, s, cfg.n_kv_heads, h)
-                      for w in fsdp.unstack(dec["x_wv"])])
-    return xk, xv
+    if split == "seq":
+        n = s // ax.size
+        x = x[:, ax.rank * n:(ax.rank + 1) * n]
+    get = tp.local if split == "heads" else fsdp.gather
 
-
-def _attend(q, k, v, scale, dtype, valid=None):
-    """q (B, H, h) against k, v (B, S, H, h): float32 scores, softmax over
-    the ``valid`` positions, probabilities in ``dtype``."""
-    s = torch.einsum("bhd,bkhd->bhk", q.float(), k.float()) * scale
-    if valid is not None:
-        s = torch.where(valid, s, -1e30)
-    p = torch.softmax(s, dim=-1).to(dtype)
-    return torch.einsum("bhk,bkhd->bhd", p, v.to(dtype))
+    def kv(stack):
+        return torch.stack([(x @ get(w, dt)).reshape(b, x.shape[1], -1, h)
+                            for w in fsdp.unstack(stack)])
+    return kv(dec["x_wk"]), kv(dec["x_wv"])
 
 
 def encdec_decode_step(cfg, params, cache, tokens, *, dtype=torch.bfloat16):
     """tokens: (B,).  The cross K/V must be in the cache (from
     :func:`precompute_cross_kv`).  Writes this step's K/V and position
     into the cache in place and returns (logits (B, V), cache);
-    ``cache["cur"]`` advances by one."""
+    ``cache["cur"]`` advances by one.  On a mesh whose ``model`` axis
+    splits the layers, the cache is this rank's ``cache_pspecs`` shard
+    and both attentions, the MLP, the embedding and the logits compute on
+    this rank's shards, as ``transformer.lm_decode_step``'s."""
     cur = cache["cur"]
-    b = tokens.shape[0]
-    h = cfg.resolved_head_dim
+    ax = tp.tree_axis(params)
     pos_buf = cache["pos_buf"]
-    x = tr._lookup(params["embed"], tokens, dtype, split=False)
+    x = tr._lookup(params["embed"], tokens, dtype)
     # row cur of the (seq_len, D) table: each element is computed alone
     x = x + sinusoidal_positions(cur + 1, cfg.d_model,
                                  x.device).to(dtype)[cur][None]
     pos_buf[cur] = cur
-    valid = (pos_buf >= 0) & (pos_buf <= cur)
-    scale = 1.0 / math.sqrt(h)
     for i, lp in enumerate(_unstack(params["dec"])):
-        lp = _cast(lp, dtype)
-        kc, vc = cache["k"][i], cache["v"][i]
-        # self attention
-        hh = _ln_apply(cfg, x, lp["ln1"])
-        q = (hh @ lp["wq"]).reshape(b, cfg.n_heads, h)
-        kc[:, cur] = (hh @ lp["wk"]).reshape(b, cfg.n_kv_heads, h)
-        vc[:, cur] = (hh @ lp["wv"]).reshape(b, cfg.n_kv_heads, h)
-        a = _attend(q, kc, vc, scale, dtype, valid)
-        x = x + a.reshape(b, cfg.n_heads * h) @ lp["wo"]
+        ln = {k: _cast(lp[k], dtype) for k in ("ln1", "lnx", "ln2")}
+        # self attention (positions sinusoidal, no RoPE)
+        a, qax = tr._decode_attn(cfg, tr.decode_attn_weights(cfg, lp, dtype),
+                                 _ln_apply(cfg, x, ln["ln1"]),
+                                 cache["k"][i], cache["v"][i], pos_buf, cur,
+                                 dtype, ax, rope=False)
+        x = x + tp.g(a, qax, dtype)
         # cross attention
-        hh = _ln_apply(cfg, x, lp["lnx"])
-        q = (hh @ lp["x_wq"]).reshape(b, cfg.n_heads, h)
-        a = _attend(q, cache["xk"][i], cache["xv"][i], scale, dtype)
-        x = x + a.reshape(b, cfg.n_heads * h) @ lp["x_wo"]
+        hh = _ln_apply(cfg, x, ln["lnx"])
+        w = tr.decode_attn_weights(cfg, lp, dtype, "x_")
+        xk, xv = cache["xk"][i], cache["xv"][i]
+        split = tr.cache_split(cfg, ax, xk, cfg.encoder_seq)
+        a = tr.decode_out(cfg, w, tr._decode_q(cfg, w, hh), xk, xv, None,
+                          split, ax, dtype)
+        x = x + tp.g(a, w["tp"], dtype)
         # mlp
-        x = x + gelu_mlp(_ln_apply(cfg, x, lp["ln2"]), lp["w1"], lp["b1"],
-                         lp["w2"], lp["b2"])
+        x = x + _mlp_apply(mlp_weights(lp, dtype),
+                           _ln_apply(cfg, x, ln["ln2"]))
     x = _ln_apply(cfg, x, fsdp.gather_tree(params["dec_norm"]))
     cache["cur"] = cur + 1
-    return _logits(cfg, params, x, split=False)[0], cache
+    return tp.gather_last(*_logits(cfg, params, x)), cache

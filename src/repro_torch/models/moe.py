@@ -195,11 +195,19 @@ def moe_ffn_decode(cfg, lp: dict, x, *, topi=None):
     Exact (no capacity drops).  At decode every expert's weights are read
     once either way, so the extra products cost little on the
     memory-bound step.  ``topi`` (B, k) pins the routing (see
-    :func:`route`)."""
+    :func:`route`).  Split over ``model`` (``lp["tp"]``,
+    :func:`moe_weights`), every rank routes every token (the router is
+    replicated) and returns its part, which the caller sums (``tp.g``):
+    under ``ep`` its experts' products weighted by their gates, under
+    ``tp`` every expert's products on its hidden columns."""
     e, k = cfg.n_experts, cfg.top_k
     _, topv, topi = route(lp["router"], x, k, topi)
     w = torch.zeros(x.shape[0], e, dtype=topv.dtype, device=x.device) \
         .scatter(-1, topi, topv)                        # (B, E) sparse
+    n_local = lp["moe_wi"].shape[0]
+    if n_local != e:                     # ep: this rank's experts' gates
+        lo = lp["tp"].rank * n_local
+        w = w[:, lo:lo + n_local]
     h = torch.einsum("bd,edf->ebf", x, lp["moe_wi"])
     g = torch.einsum("bd,edf->ebf", x, lp["moe_wg"])
     h = torch.nn.functional.silu(g) * h

@@ -23,7 +23,7 @@ from repro_torch.models.layers import ParamSpec, TensorSpec, rmsnorm, \
 from repro_torch.sharding import fsdp, tp
 
 __all__ = ["ssd_specs", "ssd_chunked", "ssd_block", "ssd_decode_state_specs",
-           "ssd_block_decode", "ssd_weights"]
+           "ssd_block_decode", "ssd_weights", "ssd_decode_weights"]
 
 
 def ssd_specs(cfg, n_layers: int, dtype) -> dict:
@@ -173,24 +173,77 @@ def ssd_decode_state_specs(cfg, n_layers: int, batch: int, dtype) -> dict:
     }
 
 
-def ssd_block_decode(cfg, lp: dict, x, state: dict, eps: float):
-    """x: (B, d_model); state {'ssm': (B,nh,hd,ds) f32, 'conv': (B,W-1,C)},
-    both written in place.  Returns (out (B, d_model), state)."""
-    b = x.shape[0]
-    nh, hd = cfg.ssm_n_heads, cfg.ssm_head_dim
-    di = cfg.ssm_d_inner
+def ssd_decode_weights(cfg, lp: dict, dtype) -> dict:
+    """The block's leaves of ``lp`` in ``dtype`` as
+    :func:`ssd_block_decode` takes them, with ``"tp"`` (the axis or
+    None).  Split over ``model`` (where :func:`ssd_weights` splits), a
+    rank takes its shards as they are placed (``tp.local``): its heads of
+    ``w_dt``, ``dt_bias``, ``A_log``, ``D``, ``gate_norm`` and ``w_out``,
+    and its contiguous chunk of ``w_zx``'s packed z | x columns, whose
+    product the rank gathers over ``model`` (activations, not the leaf);
+    ``w_bc`` and ``conv_bc`` whole, and ``conv_x`` gathered whole (W x
+    d_inner), since the rank convolves the channel block that its conv
+    state holds, which is not its heads' (see
+    :func:`ssd_block_decode`)."""
+    ax = tp.axis_of(lp["w_dt"])
+    if ax is None or not tp.splits(lp["w_zx"]):
+        return {**{k: fsdp.gather(v, dtype) for k, v in lp.items()
+                   if k in SSD_LEAVES}, "tp": None}
+    out = {k: tp.local(lp[k], dtype) for k in SSD_LEAVES if k != "conv_x"}
+    return {**out, "conv_x": fsdp.gather(lp["conv_x"], dtype), "tp": ax}
 
-    z, xin = (x @ lp["w_zx"]).chunk(2, dim=-1)
+
+def ssd_block_decode(cfg, lp: dict, x, state: dict, eps: float, ax=None):
+    """x: (B, d_model); state {'ssm': (B,nh,hd,ds) f32, 'conv': (B,W-1,C)},
+    both written in place.  Returns (out (B, d_model), state).
+
+    On a ``model`` axis the state is laid out by ``cache_pspecs``: the
+    SSM state is this rank's heads where the leaves split
+    (:func:`ssd_decode_weights`, ``lp["tp"]``), and the conv state its
+    contiguous block of the C = d_inner + 2 ds channels [x | B | C] where
+    ``ax`` divides C -- a block that is not the rank's heads' x channels
+    (every head reads all of B and C).  The conv is depthwise, so the
+    rank convolves its block's channels and gathers the (B, C) output
+    over ``model``, then takes its heads' x and the whole B and C; the
+    token's x enters its block through a gather of the ``w_zx`` product's
+    columns.  ``out`` is then this rank's part of the output product,
+    which the caller sums (``tp.g``); the gated norm's sum of squares
+    runs over the whole inner width (``tp.stat_sum``)."""
+    b = x.shape[0]
+    wax = lp.get("tp")
+    m = wax.size if wax is not None else 1
+    nh, hd = cfg.ssm_n_heads // m, cfg.ssm_head_dim
+    di = cfg.ssm_d_inner
+    if state["ssm"].shape[1] != nh:
+        raise ValueError(f"an SSM state of {state['ssm'].shape[1]} heads "
+                         f"for {nh} a rank: make it with "
+                         "StepBundle.init_cache")
+
+    # every head's z and x: this rank's columns gathered over ``model``
+    z, xin = tp.gather_last(x @ lp["w_zx"], wax).chunk(2, dim=-1)
     bc = x @ lp["w_bc"]
     dt = _dt(x, lp)                                          # (B,nh)
 
-    # conv ring: state['conv'] holds the previous W-1 inputs
+    # conv ring: state['conv'] holds the previous W-1 inputs of its
+    # channels, all C or this rank's block of them
     xbc = torch.cat([xin, bc], dim=-1)                       # (B, C)
     conv_w = torch.cat([lp["conv_x"], lp["conv_bc"]], dim=-1)  # (W, C)
-    hist = torch.cat([state["conv"], xbc[:, None, :]], dim=1)  # (B, W, C)
+    c, n = xbc.shape[-1], state["conv"].shape[-1]
+    if n != c:
+        if ax is None or c != n * ax.size:
+            raise ValueError(f"a conv state of {n} channels for {c}: make "
+                             "it with StepBundle.init_cache")
+        lo = ax.rank * n
+        xbc, conv_w = xbc[:, lo:lo + n], conv_w[:, lo:lo + n]
+    hist = torch.cat([state["conv"], xbc[:, None, :]], dim=1)  # (B, W, n)
     conv_out = F.silu(torch.einsum("bwc,wc->bc", hist, conv_w))
-    xin_c, bc_c = conv_out.split([di, conv_out.shape[-1] - di], dim=-1)
+    if n != c:
+        conv_out = tp.gather_last(conv_out, ax)              # (B, C)
+    xin_c, bc_c = conv_out.split([di, c - di], dim=-1)
     B_mat, C_mat = bc_c.chunk(2, dim=-1)                     # (B, ds)
+    if wax is not None:               # this rank's heads' z and x
+        lo = wax.rank * nh * hd
+        z, xin_c = z[:, lo:lo + nh * hd], xin_c[:, lo:lo + nh * hd]
 
     A = -torch.exp(lp["A_log"].float())
     xh = xin_c.reshape(b, nh, hd).float()
@@ -200,7 +253,7 @@ def ssd_block_decode(cfg, lp: dict, x, state: dict, eps: float):
     ssm.mul_(decay[..., None, None]).add_(dBx)
     y = torch.einsum("bn,bhpn->bhp", C_mat.float(), ssm)
     y = y + xh * lp["D"].float()[None, :, None]
-    y = y.reshape(b, di).to(x.dtype)
-    y = rmsnorm(y * F.silu(z), lp["gate_norm"], eps)
+    y = y.reshape(b, nh * hd).to(x.dtype)
+    y = _gated_norm(y * F.silu(z), lp["gate_norm"], eps, wax, di)
     state["conv"].copy_(hist[:, 1:, :])
-    return y @ lp["w_out"], state
+    return tp.row(y, lp["w_out"], wax), state

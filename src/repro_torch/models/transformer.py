@@ -54,7 +54,10 @@ embedding and the head on its rows of the vocabulary, and the loss's
 logsumexp over the ranks' columns.  Under ``"dots"`` each block is
 checkpointed alone and the sums over ``model`` run outside them, so the
 backward's recompute repeats no forward sum; ``"full"`` recomputes the
-whole layer, its sums too.  The decode step gathers every leaf whole.
+whole layer, its sums too.  The decode step computes on the same shards,
+against a cache laid out by ``train.step.cache_pspecs`` (K/V over
+``model`` by kv heads or by positions, the SSM state by heads, the conv
+state by channels; :func:`lm_decode_step`).
 ``shard`` is called where the reference calls it, with its specs.
 """
 from __future__ import annotations
@@ -391,13 +394,13 @@ def _layer_params(params, *idx) -> dict:
 # ---------------------------------------------------------------------------
 
 
-def _lookup(emb, tokens, dtype, split: bool = True):
+def _lookup(emb, tokens, dtype):
     """Rows ``tokens`` of the embedding table ``emb`` in ``dtype``: with
-    ``split`` and rows split over ``model``, each rank's rows looked up
-    and summed (``tp.vocab_lookup``); else gathered, then looked up -- the
-    values of casting the table first, without a cast copy of the whole
+    rows split over ``model``, each rank's rows looked up and summed
+    (``tp.vocab_lookup``); else gathered, then looked up -- the values of
+    casting the table first, without a cast copy of the whole
     vocabulary."""
-    ax = tp.model_axis(emb) if split and tp.splits(emb, 0) else None
+    ax = tp.model_axis(emb) if tp.splits(emb, 0) else None
     if ax is not None:
         return tp.vocab_lookup(tp.local(emb, dtype), tokens, ax)
     if fsdp.is_plain(emb):
@@ -496,15 +499,14 @@ def lm_trunk(cfg: ArchConfig, params, x, positions, *,
     return rmsnorm(x, fsdp.gather(params["final_norm"]), cfg.norm_eps), aux
 
 
-def vocab_logits(cfg, table, x, *, tied: bool, split: bool = True):
+def vocab_logits(cfg, table, x, *, tied: bool):
     """(logits, axis): ``x`` against the (un)embedding leaf ``table`` --
     (V, D) when ``tied``, else (D, V) -- with the padded columns at
-    -1e30.  With ``split`` and the vocabulary split over ``model``, the
-    logits are this rank's columns (masked by their global index) and
-    the axis is returned; else all of them, and None."""
+    -1e30.  With the vocabulary split over ``model``, the logits are this
+    rank's columns (masked by their global index) and the axis is
+    returned; else all of them, and None."""
     dtype = x.dtype
-    ax = tp.model_axis(table) if split and tp.splits(table,
-                                                     0 if tied else 1) \
+    ax = tp.model_axis(table) if tp.splits(table, 0 if tied else 1) \
         else None
     w = tp.local(table, dtype) if ax is not None \
         else fsdp.gather(table, dtype)
@@ -522,12 +524,11 @@ def _table(cfg, params):
         else (params["unembed"], False)
 
 
-def lm_logits(cfg, params, x, *, split: bool = True):
+def lm_logits(cfg, params, x):
     """(B, S, V) logits of ``x``: with the vocabulary split over
-    ``model``, each rank's columns gathered (``split=False`` computes them
-    on the whole leaf, as the decode step does)."""
+    ``model``, each rank's columns, gathered."""
     table, tied = _table(cfg, params)
-    logits, ax = vocab_logits(cfg, table, x, tied=tied, split=split)
+    logits, ax = vocab_logits(cfg, table, x, tied=tied)
     return tp.gather_last(logits, ax)
 
 
@@ -633,19 +634,159 @@ def init_cache(cfg, batch, seq_len, dtype, device):
     return cache_of(init_cache_specs(cfg, batch, seq_len, dtype), device)
 
 
-def _decode_attn(cfg, lp, x, k_cache, v_cache, pos_buf, cur: int, dtype):
-    """x: (B,D). Writes this step's k/v into the layer's cache slices in
-    place; returns (attn_out (B,D), k_cache, v_cache)."""
-    h = cfg.resolved_head_dim
-    b = x.shape[0]
-    q, k, v = _qkv(cfg, lp, x[:, None, :])                # (B,1,H*,h)
-    pos = torch.full((b, 1), cur, dtype=torch.int32, device=x.device)
-    q = apply_rope(q, pos, cfg.rope_theta)[:, 0]
-    k = apply_rope(k, pos, cfg.rope_theta)[:, 0]
+def decode_attn_weights(cfg, lp, dtype, prefix: str = "") -> dict:
+    """The attention leaves ``prefix + (wq, wk, wv, wo[, bq, bk, bv])`` of
+    ``lp`` in ``dtype`` as the decode step takes them, under the keys
+    without the prefix: the query side (``wq``, ``bq``, ``wo``) as
+    :func:`attn_weights` splits it -- this rank's query heads where they
+    split over ``model``, ``"tp"`` the axis (else whole, None) -- and the
+    kv side as the rules place it over ``model`` (``tp.local``): this
+    rank's ``kv_feat`` columns where they split, ``"kv_tp"`` their axis,
+    else whole.  No leaf is gathered over ``model``: where a rank needs
+    every kv head, it gathers the token's K/V (:func:`_decode_kv`)."""
+    ax = tp.axis_of(lp[prefix + "wq"])
+    if ax is not None and cfg.n_heads % ax.size:
+        ax = None
+    bias = cfg.qkv_bias
+    get = tp.local if ax is not None else fsdp.gather
+    out = {k: get(lp[prefix + k], dtype)
+           for k in ("wq", "wo") + (("bq",) if bias else ())}
+    out.update({k: tp.local(lp[prefix + k], dtype)
+                for k in ("wk", "wv") + (("bk", "bv") if bias else ())})
+    return {**out, "tp": ax, "kv_tp": tp.axis_of(lp[prefix + "wk"])}
 
-    sc = k_cache.shape[1]
-    k_cache[:, cur % sc] = k
-    v_cache[:, cur % sc] = v[:, 0]
+
+def _decode_q(cfg, w, x):
+    """The token's queries (B, heads, hd): this rank's query heads where
+    ``w["tp"]`` splits them."""
+    q = x @ w["wq"]
+    if cfg.qkv_bias:
+        q = q + w["bq"]
+    return q.reshape(x.shape[0], -1, cfg.resolved_head_dim)
+
+
+def _decode_kv(cfg, w, x, split):
+    """The token's k and v (B, heads, hd): this rank's kv heads where the
+    cache splits over ``model`` by heads, else every kv head -- this
+    rank's ``kv_feat`` columns gathered over ``model`` where they split
+    (``tp.gather_last`` of (B, Hkv * hd) activations)."""
+    k, v = x @ w["wk"], x @ w["wv"]
+    if cfg.qkv_bias:
+        k, v = k + w["bk"], v + w["bv"]
+    if split != "heads":
+        k, v = tp.gather_last(k, w["kv_tp"]), tp.gather_last(v, w["kv_tp"])
+    b, h = x.shape[0], cfg.resolved_head_dim
+    return k.reshape(b, -1, h), v.reshape(b, -1, h)
+
+
+def cache_split(cfg, ax, cache, n_pos: int):
+    """How ``cache_pspecs`` lays a K/V cache of ``n_pos`` positions over
+    the ``model`` axis ``ax`` (``tp.kv_split``): ``"heads"``, ``"seq"``
+    or None (whole, as without an axis); raises ``ValueError`` where the
+    rank's ``cache`` (B, S, Hkv, hd) is not that shard."""
+    m = ax.size if ax is not None else 1
+    split = tp.kv_split(cfg.plan.decode_kv_shard, m, cfg.n_kv_heads,
+                        n_pos) if ax is not None else None
+    want = (n_pos // m if split == "seq" else n_pos,
+            cfg.n_kv_heads // m if split == "heads" else cfg.n_kv_heads)
+    if tuple(cache.shape[1:3]) != want:
+        raise ValueError(
+            f"a K/V cache of {tuple(cache.shape)} for positions x kv heads "
+            f"{want} (split {split!r} over a model axis of {m}): make it "
+            "with StepBundle.init_cache")
+    return split
+
+
+def _write_slot(cache, new, slot: int, split, ax):
+    """``cache[:, slot] = new`` for the token's K or V: where the cache
+    splits by positions, only on the rank that holds ``slot``."""
+    if split == "seq":
+        slot -= ax.rank * cache.shape[1]
+        if not 0 <= slot < cache.shape[1]:
+            return
+    cache[:, slot] = new
+
+
+def _attend(q, k, v, valid, dtype, ax=None, constraint: bool = False):
+    """q (B, Hq, hd) against the cache k, v (B, S, Hkv, hd), each group of
+    Hq / Hkv query heads reading one kv head (GQA, no repeated K/V):
+    float32 scores over the ``valid`` positions (all, where None), the
+    probabilities in ``dtype``; (B, Hq, hd).  With ``ax`` the cache is
+    this rank's positions of every head, and the softmax runs over the
+    ranks' positions together (flash-decoding's combine): the scores' row
+    max over ``ax`` (an all-reduce MAX), then each rank's exponentials
+    against it and their sum and product with V, summed over ``ax`` (one
+    all-reduce SUM) and divided."""
+    b, hq, h = q.shape
+    hkv = k.shape[2]
+    qg = q.reshape(b, hkv, hq // hkv, h)
+    scores = torch.einsum("bgrd,bkgd->bgrk", qg.float(),
+                          k.float()) / math.sqrt(h)
+    if constraint:
+        scores = shard(scores, "data", None, None, "model")
+    if valid is not None:
+        scores = torch.where(valid, scores, -1e30)
+    if ax is None:
+        probs = torch.softmax(scores, dim=-1).to(dtype)
+        return torch.einsum("bgrk,bkgd->bgrd", probs, v).reshape(b, hq, h)
+    p = torch.exp(scores - tp.all_max(scores.amax(dim=-1), ax)[..., None])
+    part = torch.einsum("bgrk,bkgd->bgrd", p.to(dtype), v)
+    sums = tp.g(torch.cat([part.float(), p.sum(dim=-1, keepdim=True)], -1),
+                ax)
+    return (sums[..., :h] / sums[..., h:]).to(dtype).reshape(b, hq, h)
+
+
+def decode_out(cfg, w, q, k_cache, v_cache, valid, split, ax, dtype,
+               constraint: bool = False):
+    """The attention of the token's queries ``q`` (:func:`_decode_q`)
+    against the cache laid out by ``split`` over ``ax``
+    (:func:`cache_split`), then its output product: this rank's part
+    where ``w["tp"]`` splits the query heads, which the caller sums over
+    it (``tp.g``).  By heads, a rank's query heads read its kv heads; by
+    positions, every query head (gathered over ``model``) attends over
+    the rank's positions (:func:`_attend`'s combine) and the rank keeps
+    its heads of the output; a whole cache is read at the kv heads the
+    rank's query heads read (``rank_heads``)."""
+    b, _, h = q.shape
+    qax = w["tp"]
+    if split == "seq":
+        q = tp.gather_last(q.reshape(b, -1), qax).reshape(b, -1, h)
+        out = _attend(q, k_cache, v_cache, valid, dtype, ax, constraint)
+        if qax is not None:
+            hq = cfg.n_heads // qax.size
+            out = out[:, qax.rank * hq:(qax.rank + 1) * hq]
+    else:
+        if split is None and qax is not None:
+            lo, heads = rank_heads(cfg, qax.size, qax.rank)
+            k_cache = k_cache[:, :, lo:lo + heads.kv]
+            v_cache = v_cache[:, :, lo:lo + heads.kv]
+            if heads.kv_idx is not None:
+                idx = torch.tensor(heads.kv_idx, device=q.device)
+                k_cache = k_cache.index_select(2, idx)
+                v_cache = v_cache.index_select(2, idx)
+        out = _attend(q, k_cache, v_cache, valid, dtype, None, constraint)
+    return tp.row(out.reshape(b, -1), w["wo"], qax)
+
+
+def _decode_attn(cfg, w, x, k_cache, v_cache, pos_buf, cur: int, dtype,
+                 ax, rope: bool = True):
+    """x: (B, D), ``w`` from :func:`decode_attn_weights`.  Writes this
+    step's k/v (rotated by RoPE at ``cur`` with ``rope``, as q is) into
+    the layer's cache slices in place (laid out by ``cache_pspecs`` over
+    ``ax``, :func:`cache_split`); returns this rank's part of the
+    attention output (B, D) and the axis it is split over
+    (:func:`decode_out`)."""
+    sc = pos_buf.shape[0]
+    split = cache_split(cfg, ax, k_cache, sc)
+    q = _decode_q(cfg, w, x)
+    k, v = _decode_kv(cfg, w, x, split)
+    if rope:
+        pos = torch.full((x.shape[0], 1), cur, dtype=torch.int32,
+                         device=x.device)
+        q = apply_rope(q[:, None], pos, cfg.rope_theta)[:, 0]
+        k = apply_rope(k[:, None], pos, cfg.rope_theta)[:, 0]
+    _write_slot(k_cache, k, cur % sc, split, ax)
+    _write_slot(v_cache, v, cur % sc, split, ax)
     if cfg.plan.decode_seq_constraint:
         # the reference keeps the cache sequence-sharded here
         k_cache = shard(k_cache, "data", "model", None, None)
@@ -655,19 +796,11 @@ def _decode_attn(cfg, lp, x, k_cache, v_cache, pos_buf, cur: int, dtype):
     valid = (pos_buf >= 0) & (ages >= 0)
     if cfg.sliding_window:
         valid &= ages < cfg.sliding_window
-
-    # grouped GQA against the (B, S, Hkv, h) cache, no repeated K/V
-    rep = cfg.n_heads // cfg.n_kv_heads
-    qg = q.reshape(b, cfg.n_kv_heads, rep, h)
-    scores = torch.einsum("bgrd,bkgd->bgrk", qg.float(),
-                          k_cache.float()) / math.sqrt(h)
-    if cfg.plan.decode_seq_constraint:
-        scores = shard(scores, "data", None, None, "model")
-    scores = torch.where(valid, scores, -1e30)
-    probs = torch.softmax(scores, dim=-1).to(dtype)
-    out = torch.einsum("bgrk,bkgd->bgrd", probs, v_cache)
-    out = out.reshape(b, cfg.n_heads * h)
-    return out @ lp["wo"], k_cache, v_cache
+    if split == "seq":
+        n = k_cache.shape[1]
+        valid = valid[ax.rank * n:(ax.rank + 1) * n]
+    return decode_out(cfg, w, q, k_cache, v_cache, valid, split, ax, dtype,
+                      cfg.plan.decode_seq_constraint), w["tp"]
 
 
 def lm_decode_step(cfg: ArchConfig, params, cache, tokens, *,
@@ -676,19 +809,25 @@ def lm_decode_step(cfg: ArchConfig, params, cache, tokens, *,
 
     The cache is updated in place (K/V slots and ``pos_buf`` where the
     family has them, the SSM and conv state) and returned;
-    ``cache["cur"]`` advances by one.  Every leaf is gathered whole (no
-    tensor parallelism on the decode step).  ``unroll`` is accepted and
-    has no effect: the layer loop runs eagerly.
+    ``cache["cur"]`` advances by one.  On a mesh whose ``model`` axis
+    splits the layers (``fsdp_tp``), the cache is this rank's
+    ``cache_pspecs`` shard (``StepBundle.init_cache``) and each product
+    runs on this rank's shards: the attention (:func:`_decode_attn`), the
+    MLP, the Mamba-2 block (``ssd.ssd_block_decode``), the MoE layer, the
+    embedding and the logits, gathered over the ranks' columns.
+    ``unroll`` is accepted and has no effect: the layer loop runs
+    eagerly.
     """
     cur = cache["cur"]
-    x = _lookup(params["embed"], tokens, dtype, split=False)   # (B,D)
+    ax = tp.tree_axis(params)
+    x = _lookup(params["embed"], tokens, dtype)               # (B,D)
     pos_buf = cache.get("pos_buf")
     if pos_buf is not None:
         pos_buf[cur % pos_buf.shape[0]] = cur             # ring buffer slot
     if cfg.family == "ssm":
         for i in range(cfg.num_layers):
             x = _ssd_decode(cfg, params, cache["ssm"][i], cache["conv"][i],
-                            x, dtype, i)
+                            x, dtype, ax, i)
     elif cfg.family == "hybrid":
         n_chunks, period = cfg.num_layers // cfg.hybrid_period, \
             cfg.hybrid_period
@@ -696,44 +835,59 @@ def lm_decode_step(cfg: ArchConfig, params, cache, tokens, *,
         ssm = cache["ssm"].view((n_chunks, period) + cache["ssm"].shape[1:])
         conv = cache["conv"].view((n_chunks, period)
                                   + cache["conv"].shape[1:])
+        # gathered once: every chunk applies the same block
+        sp = params["shared"]
+        shared = {"ln1": fsdp.gather(sp["ln1"], dtype),
+                  "ln2": fsdp.gather(sp["ln2"], dtype),
+                  "attn": decode_attn_weights(cfg, sp, dtype),
+                  "mlp": mlp_weights(sp, dtype)}
         for c in range(n_chunks):
-            x = _shared_decode(cfg, params["shared"], x, cache["k"][c],
-                               cache["v"][c], pos_buf, cur, dtype)
+            x = _shared_decode(cfg, shared, x, cache["k"][c], cache["v"][c],
+                               pos_buf, cur, dtype, ax)
             for j in range(period):
                 x = _ssd_decode(cfg, params, ssm[c, j], conv[c, j], x,
-                                dtype, c, j)
+                                dtype, ax, c, j)
     else:
         for i in range(cfg.num_layers):
-            lp = _cast(_layer_params(params, i), dtype)
-            h = rmsnorm(x, lp["ln1"], cfg.norm_eps)
-            a, _, _ = _decode_attn(cfg, lp, h, cache["k"][i], cache["v"][i],
-                                   pos_buf, cur, dtype)
-            x = x + a
-            h2 = rmsnorm(x, lp["ln2"], cfg.norm_eps)
-            x = x + (moe_lib.moe_ffn_decode(cfg, lp, h2) if cfg.is_moe
-                     else gated_mlp(h2, lp["wi"], lp["wg"], lp["wo_mlp"]))
+            lp = _layer_params(params, i)
+            h = rmsnorm(x, fsdp.gather(lp["ln1"], dtype), cfg.norm_eps)
+            a, qax = _decode_attn(cfg, decode_attn_weights(cfg, lp, dtype),
+                                  h, cache["k"][i], cache["v"][i], pos_buf,
+                                  cur, dtype, ax)
+            x = x + tp.g(a, qax, dtype)
+            h2 = rmsnorm(x, fsdp.gather(lp["ln2"], dtype), cfg.norm_eps)
+            if cfg.is_moe:
+                w = moe_lib.moe_weights(lp, dtype)
+                m = moe_lib.moe_ffn_decode(cfg, w, h2)
+            else:
+                w = mlp_weights(lp, dtype)
+                m = gated_mlp(h2, w["wi"], w["wg"], w["wo_mlp"], w["tp"])
+            x = x + tp.g(m, w["tp"], dtype)
     x = rmsnorm(x, fsdp.gather(params["final_norm"]), cfg.norm_eps)
-    logits = lm_logits(cfg, params, x[:, None, :], split=False)[:, 0]
+    logits = lm_logits(cfg, params, x[:, None, :])[:, 0]
     cache["cur"] = cur + 1
     return logits, cache
 
 
-def _ssd_decode(cfg, params, ssm, conv, x, dtype, *idx):
+def _ssd_decode(cfg, params, ssm, conv, x, dtype, ax, *idx):
     """One Mamba-2 layer's decode step; its ``ssm``/``conv`` state views
-    are updated in place."""
-    lp = _cast(_layer_params(params, *idx), dtype)
-    h = rmsnorm(x, lp["ln1"], cfg.norm_eps)
-    out, _ = ssd_lib.ssd_block_decode(cfg, lp, h, {"ssm": ssm, "conv": conv},
-                                      cfg.norm_eps)
-    return x + out
+    (this rank's shards on a ``model`` axis ``ax``) are updated in
+    place."""
+    lp = _layer_params(params, *idx)
+    h = rmsnorm(x, fsdp.gather(lp["ln1"], dtype), cfg.norm_eps)
+    w = ssd_lib.ssd_decode_weights(cfg, lp, dtype)
+    out, _ = ssd_lib.ssd_block_decode(cfg, w, h, {"ssm": ssm, "conv": conv},
+                                      cfg.norm_eps, ax)
+    return x + tp.g(out, w["tp"], dtype)
 
 
-def _shared_decode(cfg, sp, x, k_cache, v_cache, pos_buf, cur: int, dtype):
-    """The hybrid family's shared block for one token; writes this step's
-    K/V into the chunk's cache slices in place."""
-    sp = _cast(sp, dtype)
-    h = rmsnorm(x, sp["ln1"], cfg.norm_eps)
-    a, _, _ = _decode_attn(cfg, sp, h, k_cache, v_cache, pos_buf, cur, dtype)
-    x = x + a
-    return x + gated_mlp(rmsnorm(x, sp["ln2"], cfg.norm_eps), sp["wi"],
-                         sp["wg"], sp["wo_mlp"])
+def _shared_decode(cfg, w, x, k_cache, v_cache, pos_buf, cur: int, dtype,
+                   ax):
+    """The hybrid family's shared block for one token on its leaves ``w``;
+    writes this step's K/V into the chunk's cache slices in place."""
+    h = rmsnorm(x, w["ln1"], cfg.norm_eps)
+    a, qax = _decode_attn(cfg, w["attn"], h, k_cache, v_cache, pos_buf, cur,
+                          dtype, ax)
+    x = x + tp.g(a, qax, dtype)
+    m, _ = mlp_block(cfg, w["mlp"], rmsnorm(x, w["ln2"], cfg.norm_eps))
+    return x + tp.g(m, w["mlp"]["tp"], dtype)

@@ -78,6 +78,30 @@ def model_axis(x) -> Axis | None:
     return Axis(mesh.get_group(i), mesh.size(i), mesh.get_coordinate()[i])
 
 
+def tree_axis(tree) -> Axis | None:
+    """The ``model`` axis (:func:`model_axis`) of the first leaf of the
+    (nested) dict ``tree`` placed on a mesh that has one wider than 1, or
+    None: the axis a step over ``tree``'s parameters runs on."""
+    for v in tree.values():
+        ax = tree_axis(v) if isinstance(v, dict) else model_axis(v)
+        if ax is not None:
+            return ax
+    return None
+
+
+def kv_split(mode: str, m: int, n_heads: int, n_pos: int) -> str | None:
+    """How a K/V cache of ``n_heads`` kv heads and ``n_pos`` positions
+    splits over a ``model`` axis of ``m`` under the plan's
+    ``decode_kv_shard`` ``mode`` (``train.step.cache_pspecs``' rule, which
+    the decode step follows): ``"heads"`` where the heads divide, else
+    ``"seq"`` where the positions do, else None (whole on every rank)."""
+    if mode in ("heads", "auto") and n_heads % m == 0:
+        return "heads"
+    if mode in ("seq", "auto") and n_pos % m == 0:
+        return "seq"
+    return None
+
+
 def splits(x, dim: int | None = None) -> bool:
     """Whether the leaf ``x``'s placements shard it over ``model`` (on
     tensor dim ``dim``, where given; a negative dim counts from the
@@ -207,6 +231,12 @@ def row(a, w, ax: Axis | None):
     return _RowPart.apply(a, w)
 
 
+def all_max(x, ax: Axis):
+    """The elementwise max of the ranks' ``x`` over ``ax`` (no
+    gradient)."""
+    return fsdp._all_reduce(x, ax.group, op=dist.ReduceOp.MAX)
+
+
 def stat_sum(x, ax: Axis | None):
     """A statistic that each rank computes on its shard, summed over
     ``ax`` both ways (``fsdp._AllReduceSum``): each rank uses the sum on
@@ -263,8 +293,7 @@ def vocab_logsumexp(logits, ax: Axis | None):
     if ax is None:
         return torch.logsumexp(logits, dim=-1)
     with torch.no_grad():
-        m = fsdp._all_reduce(logits.amax(dim=-1), ax.group,
-                             op=dist.ReduceOp.MAX)
+        m = all_max(logits.amax(dim=-1), ax)
     s = torch.exp(logits - m[..., None]).sum(dim=-1)
     return m + torch.log(g(s, ax))
 

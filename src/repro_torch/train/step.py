@@ -27,7 +27,9 @@ gradient comes back reduce-scattered: ``Partial`` over the axes the
 batch is split over (``StepBundle.batch_axes``), then divided by their
 width.  A plain leaf's gradient, the loss and the metrics are averaged
 over the world with ``all_reduce``.  The values are those of the
-replicated step on the global batch.
+replicated step on the global batch.  A decode cell's cache is placed
+by ``cache_pspecs`` (``StepBundle.init_cache``): each rank holds its
+shard as plain tensors, and the decode step computes on its shards.
 
 ``make_compressed_train_step`` is the int8 error-feedback data-parallel
 step: local gradients, ``ef_compress`` against this rank's residual, the
@@ -52,11 +54,14 @@ from repro_torch import resolve_device
 from repro_torch._tree import leaves, tree_map, unflatten_like
 from repro_torch.configs.base import ArchConfig, ShapeConfig
 from repro_torch.models.api import Model, build_model
+from repro_torch.models.layers import TensorSpec
+from repro_torch.models.transformer import cache_of
 from repro_torch.optim import (AdamWState, adamw_init, adamw_update,
                                dequantize_int8, quantize_int8,
                                warmup_cosine)
 from repro_torch.optim.compress import requantize_sum
 from repro_torch.sharding import fsdp
+from repro_torch.sharding import tp as tp_lib
 from repro_torch.sharding.rules import MeshRules, P
 
 DEFAULT_LR = dict(peak_lr=3e-4, warmup_steps=100, total_steps=10_000)
@@ -138,10 +143,11 @@ def cache_pspecs(cfg: ArchConfig, rules: MeshRules, cache_specs: dict,
     def kv_spec(s) -> P:
         # (L, B, S, Hkv, hd) or (chunks, B, S, Hkv, hd)
         _, b, sc, hkv, _ = s.shape
-        mode = cfg.plan.decode_kv_shard
-        if tp and mode in ("heads", "auto") and hkv % tp_size == 0:
+        how = tp_lib.kv_split(cfg.plan.decode_kv_shard, tp_size, hkv, sc) \
+            if tp else None
+        if how == "heads":
             return P(None, b_entry, None, tp, None)
-        if tp and mode in ("seq", "auto") and sc % tp_size == 0:
+        if how == "seq":
             return P(None, b_entry, tp, None, None)
         return P(None, b_entry, None, None, None)
 
@@ -373,24 +379,26 @@ def make_decode_step(model: Model):
 @dataclass
 class StepBundle:
     """One (arch x shape) cell: the model and its step, on one device or
-    on a mesh (``rules`` its sharding rules).  On a mesh
-    ``param_placements`` and ``opt_placements`` (an ``AdamWState`` of
-    trees) hold each leaf's DTensor placements, from ``param_pspecs`` and
-    ``opt_pspecs``: the counterparts of the reference's
-    ``in_shardings[0:2]``; ``batch_axes`` are the mesh axes the global
-    batch is split over."""
+    on a mesh (``rules`` its sharding rules), its fields in the
+    reference's order.  On a mesh ``param_placements`` and
+    ``opt_placements`` (an ``AdamWState`` of trees) hold each leaf's
+    DTensor placements, from ``param_pspecs`` and ``opt_pspecs``: the
+    counterparts of the reference's ``in_shardings[0:2]``; ``batch_axes``
+    are the mesh axes the global batch is split over; a decode cell's
+    ``cache_placements`` place each cache leaf by ``cache_pspecs``."""
 
     cfg: ArchConfig
     shape: ShapeConfig
+    mesh: object
+    rules: Optional[MeshRules]
     model: Model
     kind: str                 # "train" | "prefill" | "decode"
     step_fn: Callable
     device: torch.device
-    mesh: object = None
-    rules: Optional[MeshRules] = None
     param_placements: object = None
     opt_placements: object = None
     batch_axes: tuple = ()
+    cache_placements: Optional[dict] = None
 
     def _zeros(self, spec, places, device, dtype=None):
         return tree_map(lambda s, pl: fsdp.placed_zeros(
@@ -439,6 +447,38 @@ class StepBundle:
         params = self._zeros(self.model.specs(), self.param_placements,
                              "meta")
         return params, self._moments("meta")
+
+    # -- the decode cache ---------------------------------------------------
+    def _cache_leaves(self):
+        """(name, TensorSpec, this rank's shape) of each cache leaf: its
+        ``cache_pspecs`` shard on a mesh (``fsdp.local_shape``), else the
+        whole leaf."""
+        specs = self.model.cache_specs(self.shape.global_batch,
+                                       self.shape.seq_len)
+        return [(k, s, tuple(s.shape) if self.cache_placements is None
+                 else fsdp.local_shape(s.shape, self.mesh,
+                                       self.cache_placements[k]))
+                for k, s in specs.items()]
+
+    def init_cache(self, device=None) -> dict:
+        """This rank's decode cache: each leaf its ``cache_pspecs`` shard
+        as a plain tensor (rows over the batch axes; K/V heads or
+        positions, SSM heads and conv channels over ``model``), zeros,
+        ``pos_buf`` all -1 (whole on every rank) and the position ``cur``
+        0, a host int.  Off a mesh, and where the plan has no tensor
+        axis, the model's cache of the cell's rows."""
+        return cache_of({k: TensorSpec(shape, s.dtype)
+                         for k, s, shape in self._cache_leaves()},
+                        self.device if device is None else device)
+
+    def abstract_cache(self) -> dict:
+        """:meth:`init_cache` on ``meta``: nothing allocated."""
+        return self.init_cache("meta")
+
+    def cache_bytes(self) -> int:
+        """This rank's bytes of the decode cache by its placements."""
+        return sum(s.dtype.itemsize * math.prod(shape)
+                   for _, s, shape in self._cache_leaves())
 
     def state_shardings(self):
         """``(DeviceMesh, spec)`` of each sharded leaf of the state (None
@@ -499,6 +539,11 @@ def build_step_bundle(cfg: ArchConfig, shape: ShapeConfig, mesh=None, *,
         step_fn = make_prefill_step(model)
     else:
         step_fn = make_decode_step(model)
-    return StepBundle(cfg=cfg, shape=shape, model=model, kind=shape.kind,
-                      step_fn=step_fn, device=dev, mesh=mesh, rules=rules,
-                      **places)
+        if rules is not None:
+            b = shape.global_batch
+            places["cache_placements"] = tree_map(
+                rules.placements, cache_pspecs(
+                    cfg, rules, model.cache_specs(b, shape.seq_len), b))
+    return StepBundle(cfg=cfg, shape=shape, mesh=mesh, rules=rules,
+                      model=model, kind=shape.kind, step_fn=step_fn,
+                      device=dev, **places)

@@ -108,10 +108,9 @@ class Trainer:
     """Trainer on one device, or one rank of a ``mesh`` (bf16 compute over
     float32 parameters, the model's defaults)."""
 
-    def __init__(self, cfg: ArchConfig, shape: ShapeConfig,
+    def __init__(self, cfg: ArchConfig, shape: ShapeConfig, mesh=None,
                  tcfg: TrainerConfig = TrainerConfig(),
-                 gridpilot=None, seed: int = 0, *, mesh=None,
-                 device="cuda"):
+                 gridpilot=None, seed: int = 0, *, device="cuda"):
         self.cfg = cfg
         self.shape = shape
         self.device = resolve_device(device)
@@ -300,8 +299,8 @@ class Trainer:
         through the checkpoint manager (a checkpoint written at one width
         or device restores at another)."""
         mesh = new_mesh if isinstance(new_mesh, DeviceMesh) else None
-        t = Trainer(self.cfg, self.shape, self.tcfg, gridpilot=self.gp,
-                    seed=self.seed, mesh=mesh,
+        t = Trainer(self.cfg, self.shape, mesh, self.tcfg,
+                    gridpilot=self.gp, seed=self.seed,
                     device=self.device if mesh is not None else new_mesh)
         where = ({"device": str(t.device)} if mesh is None else
                  {"mesh": str(dict(zip(mesh.mesh_dim_names, mesh.shape)))})

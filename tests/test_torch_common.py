@@ -365,8 +365,8 @@ def _worker_data_parallel(in_path, out_dir):
             params, opt, {"tokens": torch.as_tensor(tokens[lo:hi])}, 150)
         out.update(flat_arrays(params, f"{name}/params"))
         out[f"{name}/loss"] = np.float32(met["loss"])
-        t = Trainer(cfg, ShapeConfig("dp", 16, 4, "train"),
-                    TrainerConfig(steps=3, log_every=0), mesh=m, device=CPU)
+        t = Trainer(cfg, ShapeConfig("dp", 16, 4, "train"), m,
+                    TrainerConfig(steps=3, log_every=0), device=CPU)
         out[f"{name}/trainer_loss"] = np.asarray(
             [h["loss"] for h in t.train()["history"]])
     rng = np.random.default_rng(dist.get_rank())
@@ -666,6 +666,47 @@ def test_port_takes_every_reference_parameter():
             missing[f"{rn}.{name}"] = sorted(lack)
     assert walked > 300
     assert not missing, missing
+
+
+# the port's parameters that stand where the reference takes a threefry
+# ``*key`` (ROADMAP C7): its seeds and explicit draws, in the key's place,
+# so a reference call that passes a key by position has no counterpart
+KEY_STANDINS = {
+    ("repro.core.engine", "EngineState"): {"seed"},   # its per-lane seeds
+    ("repro.data.tokens", "synthetic_batch"): {"seed", "step"},
+    ("repro.grid.frequency", "sample_events"): {"seeds"},
+    ("repro.grid.frequency", "baseline_wander"): {"seeds"},
+}
+
+
+def test_port_keeps_the_references_positional_order():
+    """Each shared public callable's positional parameters begin with the
+    reference's, in its order (less any ``*key``, the BY_DESIGN names the
+    port does not take and the KEY_STANDINS the port takes in a key's
+    place): a call that passes the reference's arguments by position
+    means the same on the port.  The port adds parameters only after
+    them or keyword-only."""
+    import inspect
+    pos = (inspect.Parameter.POSITIONAL_ONLY,
+           inspect.Parameter.POSITIONAL_OR_KEYWORD)
+    wrong, walked = {}, 0
+    for rn, name, ref, port in _shared_callables():
+        try:
+            want = inspect.signature(ref).parameters
+            got = inspect.signature(port).parameters
+        except (TypeError, ValueError):
+            continue
+        walked += 1
+        absent = BY_DESIGN.get((rn, name), set())
+        standins = KEY_STANDINS.get((rn, name), set())
+        r = [p for p, v in want.items() if v.kind in pos
+             and not p.endswith("key") and p not in absent]
+        p_ = [p for p, v in got.items() if v.kind in pos
+              and not p.endswith("key") and p not in standins]
+        if p_[:len(r)] != r:
+            wrong[f"{rn}.{name}"] = (r, p_)
+    assert walked > 300
+    assert not wrong, wrong
 
 
 def test_point_objective_scales_revenue_by_price_rel():

@@ -148,16 +148,16 @@ def test_trainer_on_a_world_of_one_mesh(world_of_one, tmp_path):
     from repro_torch.train.trainer import Trainer, TrainerConfig
     cfg = get_arch("smollm-135m").reduced()
     shape = ShapeConfig("dp", 16, 4, "train")
-    one = Trainer(cfg, shape, TrainerConfig(steps=3, log_every=0),
+    one = Trainer(cfg, shape, tcfg=TrainerConfig(steps=3, log_every=0),
                   device=CPU).train()
     tc = TrainerConfig(steps=3, log_every=0, ckpt_dir=str(tmp_path))
-    t = Trainer(cfg, shape, tc, mesh=world_of_one, device=CPU)
+    t = Trainer(cfg, shape, world_of_one, tc, device=CPU)
     assert t.health.n_hosts == 1 and t._rows == (0, 4)
     dp = t.train()
     assert [h["loss"] for h in dp["history"]] == [
         h["loss"] for h in one["history"]]
-    t2 = Trainer(cfg, shape, TrainerConfig(steps=5, log_every=0,
-                                           ckpt_dir=str(tmp_path)),
+    t2 = Trainer(cfg, shape, tcfg=TrainerConfig(steps=5, log_every=0,
+                                                ckpt_dir=str(tmp_path)),
                  device=CPU).resize(world_of_one)
     out = t2.train()
     ev = [e for e in t2.events if e["event"] in ("resized", "restored")]
@@ -165,7 +165,7 @@ def test_trainer_on_a_world_of_one_mesh(world_of_one, tmp_path):
     assert ev[1]["event"] == "restored" and ev[1]["step"] == 3
     assert [h["step"] for h in out["history"]] == [3, 4]
     with pytest.raises(ValueError, match="cpu mesh"):
-        Trainer(cfg, shape, tc, mesh=world_of_one, device="meta")
+        Trainer(cfg, shape, world_of_one, tc, device="meta")
 
 
 @pytest.fixture(scope="module")

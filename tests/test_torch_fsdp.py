@@ -240,9 +240,9 @@ def _trainer_runs(mesh, ckpt_dir, rank):
     cfg, shape = _trainer_cfg()
     out = {}
     with f32_trainers():
-        t = Trainer(cfg, shape, TrainerConfig(
+        t = Trainer(cfg, shape, mesh, TrainerConfig(
             steps=3, log_every=0, ckpt_dir=str(ckpt_dir / "t_sharded")),
-            mesh=mesh, device=CPU)
+            device=CPU)
         init = t.init_state()
         whole = fsdp.full_leaves(init, keep=rank == 0)
         h = t.train()["history"]
@@ -257,7 +257,7 @@ def _trainer_runs(mesh, ckpt_dir, rank):
             out["replicated_then"] = np.asarray(
                 [x["loss"] for x in t2.train()["history"]])
         dist.barrier()
-        t3 = Trainer(cfg, shape, TrainerConfig(
+        t3 = Trainer(cfg, shape, tcfg=TrainerConfig(
             steps=5, log_every=0, ckpt_dir=str(ckpt_dir / "t_replicated")),
             device=CPU).resize(mesh)
         out["sharded_then"] = np.asarray([x["loss"]
@@ -468,9 +468,9 @@ def runs(tmp_path_factory):
                     _port_state(inputs[CKPT_CASE]))
     cfg, shape = _trainer_cfg()
     with f32_trainers():
-        Trainer(cfg, shape, TrainerConfig(steps=3, log_every=0,
-                                          ckpt_dir=str(d / "t_replicated")),
-                device=CPU).train()
+        Trainer(cfg, shape, tcfg=TrainerConfig(
+            steps=3, log_every=0, ckpt_dir=str(d / "t_replicated")),
+            device=CPU).train()
     ranks, _ = launch(d, MESHES, trainer=True)
     return inputs, ranks
 
@@ -541,7 +541,7 @@ def test_trainer_saves_sharded_and_resumes_either_way(runs):
     from repro_torch.train.trainer import Trainer, TrainerConfig
     cfg, shape = _trainer_cfg()
     with f32_trainers():
-        t = Trainer(cfg, shape, TrainerConfig(steps=5, log_every=0),
+        t = Trainer(cfg, shape, tcfg=TrainerConfig(steps=5, log_every=0),
                     device=CPU)
         init = leaves(t.init_state())
         want = np.asarray([h["loss"] for h in t.train()["history"]])

@@ -22,8 +22,8 @@ ISLAND_PORT = 47671        # the reference's tests use 47521
 
 def _trainer(steps=12, device=CPU, **kw):
     cfg = get_arch("smollm-135m").reduced()
-    return Trainer(cfg, SHAPE, TrainerConfig(steps=steps, log_every=0, **kw),
-                   device=device)
+    return Trainer(cfg, SHAPE, tcfg=TrainerConfig(steps=steps, log_every=0,
+                                                  **kw), device=device)
 
 
 def test_loss_decreases():
@@ -270,3 +270,23 @@ def test_launcher_cli_trains_ssm_and_hybrid(arch, capsys):
     first, last = (float(v) for v in
                    done.split("loss ")[1].split(",")[0].split(" -> "))
     assert np.isfinite(first) and np.isfinite(last)
+
+
+def test_trainer_takes_the_references_positional_order(monkeypatch):
+    """``Trainer(cfg, shape, mesh, tcfg)``, as ``examples/quickstart.py``
+    calls the reference's, on a CPU world of one: it trains a step."""
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import make_local_mesh
+    for var in ("REPRO_COORD_ADDR", "REPRO_NUM_PROCESSES",
+                "REPRO_PROCESS_ID"):
+        monkeypatch.delenv(var, raising=False)
+    mesh = make_local_mesh(CPU)
+    try:
+        t = Trainer(get_arch("smollm-135m").reduced(), SHAPE, mesh,
+                    TrainerConfig(steps=1, log_every=0), device=CPU)
+        assert t.mesh is mesh and t.tcfg.steps == 1
+        out = t.train()
+    finally:
+        dist.destroy_process_group()
+    assert [h["step"] for h in out["history"]] == [0]
+    assert np.isfinite(out["history"][0]["loss"])

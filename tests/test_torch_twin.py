@@ -278,7 +278,7 @@ def test_twin_tick_on_the_card_matches_the_cpu():
     inp = twin.stack_scenarios([scen])
     H, C = cfg.n_hosts, cfg.chips_per_host
     noise = twin.plant_noise(inp.seed, 0, 301, H, C)
-    carry = twin.twin_carry_init(1, H, C, CPU)
+    carry = twin.twin_carry_init(H, C, 1, CPU)
 
     def tick(carry, t, dev):
         def on(x):
@@ -309,7 +309,7 @@ def _hour_in_float64(cfg, inp, noise, dev):
     (host power (T, H), a-priori AR(4) error (T, H), IT power (T,))."""
     f64 = torch.float64
     H, C = cfg.n_hosts, cfg.chips_per_host
-    rls, power, caps = twin.twin_carry_init(1, H, C, dev)
+    rls, power, caps = twin.twin_carry_init(H, C, 1, dev)
     carry = (rls._replace(theta=rls.theta.to(f64), P=rls.P.to(f64),
                           hist=rls.hist.to(f64)),
              power.to(f64), caps.to(f64))
