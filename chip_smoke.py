@@ -39,6 +39,21 @@ nonzero exit and no result line:
               same inputs) and the sequential recurrence, with the device
               time of each of the bf16 path's three kernels and their
               launches per call (no PyTorch call computes the SSD scan)
+  kernel_long flash_attention and ssd_scan at the registered long shapes'
+              calls, the kernels' longest: attention at qwen2-1.5b's and
+              yi-9b's prefill_32k calls (2, 32768, 12, 2, 128) and (1,
+              32768, 32, 4, 128) and zamba2-2.7b's windowed (4,096) calls
+              at 32,768 and 524,288 positions, in f32 and bf16 against
+              the plain version on three 512-row bands (the first rows, a
+              middle band off the 128-row q-tiles against the keys it
+              sees, the last rows; f32 2e-5, bf16 2e-2); the scan at
+              mamba2-1.3b's and zamba2-2.7b's calls at 32,768 (128
+              chunks) and 524,288 positions (2,048 chunks) against the
+              plain version on 32,768-position segments chained through
+              initial_state (f32 1e-4, bf16 1e-2 norm-relative); each
+              call's cold-L2 device time, the plain version's over every
+              band or segment, SDPA's where one call computes the same
+              function (no window) and the bound
   tier1       the Tier-1 closed loop: pid_rollout_grid over the (4 targets
               x 3 loads) product, 32768 chips per cell (a ~10 MW site of
               300 W chips), 200 ticks = 1 s of the 200 Hz loop; counts the
@@ -62,11 +77,14 @@ nonzero exit and no result line:
   prefill_ssm, decode_vs_forward_ssm, serve (mamba2-1.3b)
               the same three at full mamba2-1.3b width and depth: exactly
               48 ssd_scan launches per forward; decode against forward at
-              S = 256 (a multiple of the 256-token SSD chunk)
+              S = 256 (a multiple of the 256-token SSD chunk) on its first
+              64 positions (the cut printed: 256 host-bound steps at 48
+              layers took ~22 s)
   prefill_hybrid, decode_vs_forward_hybrid
               zamba2-2.7b at full width and depth: exactly 54 ssd_scan and
               9 flash_attention launches per forward; decode against
-              forward at S = 256
+              forward at S = 256 on its first 64 positions (~32 s for all
+              256 at 54 layers)
   prefill_moe olmoe-1b-7b at full width and depth (bf16 over f32, (2,
               4096) tokens, last_only): exactly 16 flash_attention
               launches, the slots its capacity drops per layer; then
@@ -90,6 +108,37 @@ nonzero exit and no result line:
               in f32 at S = 64, teacher-forced decode after encode and
               precompute_cross_kv against decode_train (2e-3); run_serve,
               its frames encoded into the cache's cross K/V first
+  prefill_32k the registered 32,768-position prefill, bf16, last_only, on
+              the weights of the prefill phases: qwen2-1.5b and
+              mamba2-1.3b at 2 rows, zamba2-2.7b at 1 (printed as the cut
+              from the registered 32): exactly 28 flash_attention, 48
+              ssd_scan, 54 ssd_scan + 9 flash_attention launches, finite
+              logits, ms and peak memory of a first forward, a second
+              one's ms and a third's device ms under the profiler
+  long_500k   the registered 524,288-position shape (sub_quadratic archs,
+              one row): a bf16 forward of mamba2-1.3b and zamba2-2.7b at
+              full depth (the same launches, finite logits, ms, peak
+              memory); then 12 decode steps from cur 524,280 of
+              mamba2-1.3b, zamba2-2.7b (its shared attention a 4,096-slot
+              ring) and the mixtral-8x22b cut (2 layers, window 4,096),
+              the cache seeded in the state a 524,280-token prompt leaves
+              (the ring's slots with their pos_buf): each step's bf16
+              logits against an f32 step on the same values and token,
+              norm-relative, within a fixed limit per arch
+              (LONG_BF16_LIMIT: bf16 compute alone moves full-depth
+              random-weight logits 2-8 %), which the same weights' step
+              on a shallow 64-position cache also meets; the ring's
+              pos_buf after the wrap
+  yi9b        yi-9b at full width and depth (48 layers, its 35 GB of f32
+              weights drawn once): prefill_32k at (1, 32768) (48
+              launches, finite logits), decode against forward in f32 at
+              S = 64 (2e-3), run_serve with its FFR shed under 700 ms
+  decode_32k  decode steps against a full 32,768-position bf16 cache of
+              seeded K/V (pos_buf 0..32,766, cur 32,767): qwen2-1.5b at 32
+              rows, yi-9b at 8 (the cut from the registered 128 printed);
+              ms a token, the cache's bytes and the bytes a step must read
+              over 3.35 TB/s; row 0's bf16 logits against an f32 step on
+              the same values, gated as long_500k's
   flash_bwd   flash_attention's two backward wrappers (flash_bwd_dq,
               flash_bwd_dkdv; in bf16 the wgmma kernels and, when the GQA
               group is split, flash_bwd_dkdv_sum) against autograd through
@@ -175,8 +224,9 @@ nonzero exit and no result line:
               gradient is ill-conditioned (the plain versions' bf16
               gradient more than 2e-2 from float64, and rounding the
               weights alone to bf16 moving their f32 gradient more than
-              2e-2) may miss 2e-2 if the kernels' bf16 gradient lies no
-              farther from float64 than the plain versions' does
+              2e-2) may miss 2e-2 if every backward kernel call of the
+              cut's bf16 step lies within 1e-2 of its plain version on
+              the call's own inputs (per gradient, norm-relative)
   train_fsdp  the sharded training state (after train_ssm): (a) the
               Trainer at full mamba2-1.3b width and depth on
               make_local_mesh() -- a world of one on NCCL, (1, 1) -- its
@@ -194,13 +244,14 @@ nonzero exit and no result line:
               (8, 2048) in 4 microbatches, in bf16 and in f32: 4
               replicated steps past the warm-up (ids 146-149, lr 3e-4)
               give both runs nonzero moments and moved weights, then
-              steps 150 and 151 run sharded and replicated from that
-              state; fails unless each rank's resident bytes equal its
-              shards' by placement, every loss is finite, and the
-              losses, grad norms and every leaf after the steps meet
-              one process's replicated step on the same global batch
-              (f32 1e-4 norm-relative per leaf, the parameters' change
-              over the two steps too; bf16 2e-2); the collectives are
+              step 150 runs sharded and replicated from that state (cut
+              from steps 150 and 151 for the run time, printed in
+              `reduced`); fails unless each rank's resident bytes equal
+              its shards' by placement, every loss is finite, and the
+              loss, grad norm and every leaf after the step meet one
+              process's replicated step on the same global batch (f32
+              1e-4 norm-relative per leaf, the parameters' change too;
+              bf16 2e-2); the collectives are
               torch.distributed's
               on CUDA tensors over gloo (DTensor's own redistribution
               faults there on torch 2.11), their bytes and seconds
@@ -235,11 +286,12 @@ nonzero exit and no result line:
               printed), phi-3-vision-4.2b on 576 embeddings and 1,472
               tokens (the D = 96 backward), whisper-medium on (1, 448)
               tokens and (1, 1500, 1024) frames (the non-causal backward)
-  The phases engine to e8 below are host-bound: they run in three
-  processes of this script (--host-group 0: engine, sweep, reserve;
-  1: mesh, service, fr_latency, e8, cpu_vs_gpu; 2: bidding,
-  tier1_bench, twin) started beside the build, and their records are printed when
-  they are joined, before kernel, followed by
+  The phases engine to e8 below are host-bound: they run in four
+  processes of this script (--host-group 0: engine, reserve; 1: mesh,
+  service; 2: bidding, fr_latency, e8, cpu_vs_gpu; 3: sweep,
+  tier1_bench, twin; three groups ran 122-133 s beside a 72 s build on a
+  fast host) started beside the build, and their records are printed
+  when they are joined, before kernel, followed by
   host_groups each group's phases and seconds, and the wait for them
 
   engine      engine_rollout(reduce="summary") on the full E9 batch (288
@@ -333,6 +385,7 @@ Then a {"kernels": [...]} line, the card's name and power limit as
 nvidia-smi reports them, and the last line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}.
 """
+import contextlib
 import itertools
 import json
 import math
@@ -383,6 +436,11 @@ FLASH_PREV_MS = {128: 0.924, 80: 1.372}
 FLASH_PREV_PTXAS = {128: "Used 188 registers, used 16 barriers",
                     80: "Used 162 registers, used 16 barriers"}
 DECODE_TOL = dict(atol=2e-3, rtol=2e-3)  # tests/test_models.py
+# decode_vs_forward_ssm and _hybrid: the f32 forward at S = 256 (one SSD
+# chunk), teacher-forced decode at full depth on its first 64 positions
+# (each step is host-bound, one step a layer: 256 steps at 48 and 54
+# layers took ~22 and ~32 s)
+DECODE_SSM_STEPS = 64
 # olmoe-1b-7b's decode-vs-forward calls: (1, 4) cannot drop a slot (one
 # group of 4 tokens, capacity 4), (2, 64) may from position 0 on
 MOE_DECODE_CALLS = ((1, 4), (2, 64))
@@ -463,7 +521,7 @@ def cuda_time_ms(torch, fn, reps=100):
 
 
 def profile_calls(torch, fn, reps, match=(), groups=None, require=(),
-                  once=False):
+                  once=False, warm=True):
     """Run ``fn`` ``reps`` times under torch.profiler (CUPTI): device time
     and kernel launches per call, the device time per call and per launch
     of the kernels whose name holds each string of ``match`` (the latter
@@ -480,7 +538,8 @@ def profile_calls(torch, fn, reps, match=(), groups=None, require=(),
     CUPTI's dropped events do not move, and a window is taken again only
     where it holds no device time or a group of ``require`` no kernel.
     Under start_host_groups the windows of the groups' processes take
-    turns (PROFILE_LOCK_ENV)."""
+    turns (PROFILE_LOCK_ENV).  ``warm=False`` skips the call before the
+    first window (a call that took seconds has warmed it already)."""
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.obs.trace import kernel_base
     cuda = torch.autograd.DeviceType.CUDA
@@ -520,7 +579,8 @@ def profile_calls(torch, fn, reps, match=(), groups=None, require=(),
         raise RuntimeError("the profiler recorded no device time, or none "
                            "of a group's kernels, in six windows")
 
-    fn()
+    if warm:
+        fn()
     torch.cuda.synchronize()
     lock = os.environ.get(PROFILE_LOCK_ENV)
     if lock:
@@ -838,7 +898,13 @@ def time_flash(torch, g, shape, window, causal=True, sk=None):
                                               enable_gqa=True)
 
     kept = []
-    prof_k = profile_calls(torch, cycled(sets, kernel, kept), 20)
+    # the call launches its one kernel once: timed by its mean per launch,
+    # which the events CUPTI drops do not move (a window that kept none
+    # of its events is taken again)
+    name = fa.KERNELS[torch.bfloat16]
+    prof_k = profile_calls(torch, cycled(sets, kernel, kept), 20,
+                           groups={name: (name,)}, require=(name,),
+                           once=True)
     kept.clear()
     prof_p = profile_calls(torch, cycled(sets, plain, kept), 3)
     kept.clear()
@@ -846,9 +912,7 @@ def time_flash(torch, g, shape, window, causal=True, sk=None):
     kept.clear()
     bound_ms, bound_by, flops, nbytes = flash_bound_ms(shape, "bfloat16",
                                                        window, causal, sk)
-    # each kernel's mean per launch times its launches per call: a window
-    # where CUPTI dropped events read whisper's encoder call at a third
-    ms = prof_k["rounded_us_per_call"] / 1e3
+    ms = prof_k["group_us_per_call"][name] / 1e3
     library_ms = prof_l["rounded_us_per_call"] / 1e3
     return {"shape": list(shape), "dtype": "bfloat16", "window": window,
             "causal": causal, "sk": sk or shape[1],
@@ -1170,62 +1234,79 @@ def moe_routing(torch, fn, pinned=None):
     return out, picks, dropped, differ[0]
 
 
-def phase_prefill(torch, phase, cfg, expect, shape=None, extra=None):
-    """Model.forward at full width and depth (random weights from a seed,
-    bf16 compute) on ``shape`` (default (2, 4096)) positions, last_only;
-    for the MoE family the slots its capacity drops per layer; returns the
-    launches of one forward and the (f32) parameters."""
+def phase_prefill(torch, phase, cfg, expect, shape=None, extra=None,
+                  params=None, show=True):
+    """Model.forward at full width (bf16 compute, last_only) on ``shape``
+    (default (2, 4096)) positions, on ``params`` where given, else on
+    weights drawn from a seed: the launches of the first forward
+    (enforced), finite (B, 1, V) logits, its ms and the peak memory; for
+    the MoE family the slots its capacity drops per layer.  Then as many
+    timed forwards as the length allows (3 up to 8,192 positions, 1 up to
+    32,768, none beyond) and, after any, a profiled one's device ms.
+    Returns the record, printed as its own line with ``show``, and the
+    (f32) parameters."""
     from repro_torch.models import build_model
     model = build_model(cfg, compute_dtype=torch.bfloat16, device="cuda")
-    t0 = time.perf_counter()
-    params = model.init(0)
-    torch.cuda.synchronize()
-    init_s = time.perf_counter() - t0
+    init_s = None
+    if params is None:
+        t0 = time.perf_counter()
+        params = model.init(0)
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
     n_params = sum(p.numel() for p in all_tensors(params))
     b, s = shape or PREFILL_SHAPE[:2]
+    reps = 3 if s <= 8192 else 1 if s <= PREFILL_32K_SEQ else 0
     g = torch.Generator(device="cuda").manual_seed(2)
     batch = prefill_batch(torch, cfg, b, s, g)
-    _, _, dropped, _ = moe_routing(      # first launches
-        torch, lambda: model.forward(params, batch, last_only=True))
+
+    def forward():
+        return model.forward(params, batch, last_only=True)
     torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    (logits, _, dropped, _), launches = count_launches(
+        torch, lambda: moe_routing(torch, forward))
+    first_ms = (time.perf_counter() - t0) * 1e3
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    check_launches(f"{phase} {cfg.name} ({b}, {s})", launches, expect)
+    if tuple(logits.shape) != (b, 1, cfg.padded_vocab) or \
+            not all_finite(torch, logits):
+        raise RuntimeError(f"{phase} {cfg.name} ({b}, {s}): logits "
+                           f"{tuple(logits.shape)} are not finite (B, 1, V)")
     if cfg.is_moe:
         extra = dict(extra or {}, dropped_slots_per_layer=[
             int(d.sum()) for d in dropped], slots_per_layer=b * s * cfg.top_k)
-    torch.cuda.reset_peak_memory_stats()
-    t0 = time.perf_counter()
-    logits, launches = count_launches(
-        torch, lambda: model.forward(params, batch, last_only=True))
-    first_ms = (time.perf_counter() - t0) * 1e3
-    peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    check_launches(phase, launches, expect)
-    if tuple(logits.shape) != (b, 1, cfg.padded_vocab) or \
-            not all_finite(torch, logits):
-        raise RuntimeError(f"{phase}: logits {tuple(logits.shape)} are not "
-                           "finite (B, 1, V)")
+    rec = {"phase": phase, "arch": cfg.name, "params": n_params,
+           "param_gb_f32": n_params * 4 / 1e9, "init_s": init_s,
+           "batch": b, "seq": s, "depth": cfg.num_layers,
+           "compute_dtype": "bfloat16", "launches": launches,
+           "first_ms": first_ms, "peak_gb": peak_gb,
+           "logits_absmax": float(logits[..., :cfg.vocab_size].abs().max())}
+    del logits
     times = []
-    for _ in range(3):
+    for _ in range(reps):
         t0 = time.perf_counter()
-        model.forward(params, batch, last_only=True)
+        forward()
         torch.cuda.synchronize()
         times.append((time.perf_counter() - t0) * 1e3)
-    prof = profile_calls(
-        torch, lambda i=0: model.forward(params, batch, last_only=True), 1,
-        match=("flash_fwd", "ssd_scan"))
-    ms = statistics.median(times)
-    emit({"phase": phase, "arch": cfg.name, "params": n_params,
-          "param_gb_f32": n_params * 4 / 1e9, "init_s": init_s,
-          "batch": b, "seq": s, "compute_dtype": "bfloat16",
-          "launches": launches, "ms_per_forward": ms,
-          "first_ms": first_ms, "forwards_ms": times,
-          "tokens_per_s": b * s / (ms * 1e-3), "peak_gb": peak_gb,
-          "device_ms_per_forward": prof["device_us_per_call"] / 1e3,
-          "kernel_device_ms": {k: v / 1e3 for k, v in
-                               prof["matched_us_per_call"].items()},
-          "launches_per_forward": prof["launches_per_call"],
-          "top_kernels_us": prof["kernels"],
-          "logits_absmax": float(logits[..., :cfg.vocab_size].abs().max()),
-          **(extra or {})})
-    return launches, params
+    ms = statistics.median(times) if times else first_ms
+    rec.update(ms_per_forward=ms, forwards_ms=times,
+               tokens_per_s=b * s / (ms * 1e-3))
+    if reps:
+        prof = profile_calls(torch, lambda i=0: forward(), 1,
+                             match=("flash_fwd", "ssd_scan"), warm=False)
+        rec.update(device_ms_per_forward=prof["device_us_per_call"] / 1e3,
+                   kernel_device_ms={k: v / 1e3 for k, v in
+                                     prof["matched_us_per_call"].items()},
+                   launches_per_forward=prof["launches_per_call"],
+                   top_kernels_us=prof["kernels"])
+    rec.update(extra or {})
+    del batch
+    torch.cuda.empty_cache()
+    if show:
+        emit(rec)
+    return rec, params
 
 
 def all_tensors(tree):
@@ -1236,15 +1317,20 @@ def all_tensors(tree):
             yield v
 
 
-def phase_decode_vs_forward(torch, phase, cfg, params, seq, expect):
+def phase_decode_vs_forward(torch, phase, cfg, params, seq, expect,
+                            show=True, steps=None):
     """Full width, f32: teacher-forced decode logits against the forward's
-    (the kernels against the decode path, on the card, without JAX); for
-    the SSM and hybrid families also the bf16 forward against the f32."""
+    at S = ``seq`` (the kernels against the decode path, on the card,
+    without JAX), on the first ``steps`` positions where given (the
+    forward is causal); for the SSM and hybrid families also the bf16
+    forward against the f32.  Returns the record, printed as its own line
+    with ``show``."""
     from repro_torch.kernels.flash_attention import flash_attention_ref
     from repro_torch.kernels.ssd_scan import ssd_scan_ref
     from repro_torch.models import build_model
     model = build_model(cfg, compute_dtype=torch.float32, device="cuda")
     b = 2
+    steps = steps or seq
     g = torch.Generator(device="cuda").manual_seed(3)
     tokens = torch.randint(0, cfg.vocab_size, (b, seq), generator=g,
                            device="cuda")
@@ -1254,19 +1340,19 @@ def phase_decode_vs_forward(torch, phase, cfg, params, seq, expect):
     cache = model.init_cache(b, seq)
     dec = []
     t0 = time.perf_counter()
-    for i in range(seq):
+    for i in range(steps):
         logits, cache = model.decode_step(params, cache, tokens[:, i])
         dec.append(logits)
     torch.cuda.synchronize()
-    step_ms = (time.perf_counter() - t0) / seq * 1e3
+    step_ms = (time.perf_counter() - t0) / steps * 1e3
     dec = torch.stack(dec, 1)
     # where a decode step's time goes: one step on a cache of its own
     prof_cache = model.init_cache(b, 4)
     prof = profile_calls(torch, lambda i=0: model.decode_step(
         params, prof_cache, tokens[:, 0]), 2)
     v = cfg.vocab_size
-    err = float((dec[..., :v] - full[..., :v]).abs().max())
-    torch.testing.assert_close(dec, full, **DECODE_TOL)
+    err = float((dec[..., :v] - full[:, :steps, :v]).abs().max())
+    torch.testing.assert_close(dec, full[:, :steps], **DECODE_TOL)
     bf16 = {}
     if cfg.family in ("ssm", "hybrid"):
         # the same weights in a bf16 forward through the kernels' bf16
@@ -1302,39 +1388,54 @@ def phase_decode_vs_forward(torch, phase, cfg, params, seq, expect):
                 "bf16_tol": {"rel": SSM_BF16_REL,
                              "vs_plain": SSM_BF16_VS_PLAIN},
                 "bf16_launches": launches_bf}
-    emit({"phase": phase, "arch": cfg.name, "batch": b, "seq": seq,
-          "dtype": "float32", "depth": cfg.num_layers, "cut": None,
-          "max_abs_err": err, "tol": DECODE_TOL, "launches": launches,
-          **bf16,
-          "decode_ms_per_step": step_ms,
-          "decode_device_ms_per_step": prof["device_us_per_call"] / 1e3,
-          "decode_launches_per_step": prof["launches_per_call"],
-          "decode_top_host_ops_us": prof["top_host_ops_us"],
-          "logits_absmax": float(full[..., :v].abs().max())})
+    rec = {"phase": phase, "arch": cfg.name, "batch": b, "seq": seq,
+           "decoded": steps, "dtype": "float32", "depth": cfg.num_layers,
+           "max_abs_err": err, "tol": DECODE_TOL, "launches": launches,
+           **bf16,
+           "decode_ms_per_step": step_ms,
+           "decode_device_ms_per_step": prof["device_us_per_call"] / 1e3,
+           "decode_launches_per_step": prof["launches_per_call"],
+           "decode_top_host_ops_us": prof["top_host_ops_us"],
+           "logits_absmax": float(full[..., :v].abs().max())}
+    if steps < seq:
+        rec["reduced"] = {
+            "decoded_positions": [seq, steps],
+            "why": "the smoke's run time (ROADMAP 19): each teacher-forced "
+                   "step is host-bound, one step a layer; the forward is "
+                   "causal, so its first positions are compared"}
+    if show:
+        emit(rec)
+    return rec
 
 
-def phase_serve(torch, arch):
-    """run_serve at full width with GridPilot on; returns nothing, fails
-    unless the FFR shed lands at the middle decode step under budget."""
+def phase_serve(torch, arch, params=None, show=True):
+    """run_serve at full width with GridPilot on (on ``params`` where
+    given, else weights it draws); fails unless the FFR shed lands at the
+    middle decode step under budget.  Returns the record, printed as its
+    own line with ``show``."""
     from repro_torch.launch.serve import build_parser, run_serve
     from repro_torch.obs import trace
     args = build_parser().parse_args(["--gridpilot", "--arch", arch])
     trace.get_tracer().clear()
-    out = run_serve(args, cfg=get_cfg(arch), device="cuda")
+    out = run_serve(args, cfg=get_cfg(arch), params=params, device="cuda")
     budget_ms = 700.0  # FFR activation budget
     if out["shed_at"] != args.decode_tokens // 2 or \
             not out["active"] < out["batch"] or out["response_ms"] is None \
             or not out["response_ms"] < budget_ms:
         raise RuntimeError(f"serve: no FFR shed within budget: {out}")
-    emit({"phase": "serve", "arch": args.arch, "requests": args.requests,
-          "prompt_len": args.prompt_len,
-          "decode_tokens": args.decode_tokens,
-          "prefill_ms": out["t_prefill_s"] * 1e3,
-          "decode_ms_per_tok": out["t_decode_s"] / args.decode_tokens * 1e3,
-          "shed_at": out["shed_at"], "batch": out["batch"],
-          "active": out["active"], "response_ms": out["response_ms"],
-          "budget_ms": budget_ms,
-          "sheds": trace.metrics.counters.get("serve.sheds")})
+    rec = {"phase": "serve", "arch": args.arch, "requests": args.requests,
+           "prompt_len": args.prompt_len,
+           "decode_tokens": args.decode_tokens,
+           "prefill_ms": out["t_prefill_s"] * 1e3,
+           "decode_ms_per_tok": out["t_decode_s"] / args.decode_tokens
+           * 1e3,
+           "shed_at": out["shed_at"], "batch": out["batch"],
+           "active": out["active"], "response_ms": out["response_ms"],
+           "budget_ms": budget_ms,
+           "sheds": trace.metrics.counters.get("serve.sheds")}
+    if show:
+        emit(rec)
+    return rec
 
 
 def phase_decode_vs_forward_moe(torch, cfg, params):
@@ -2411,6 +2512,10 @@ TRAIN_CUT_LAYERS = 2               # the kernels-vs-plain check's depth
 TRAIN_CUTS = (("olmoe-1b-7b", (1, 2048)), ("phi-3-vision-4.2b", (1, 2048)),
               ("whisper-medium", (1, 448)))
 TRAIN_CUT_REL = 2e-2               # bf16, norm-relative per leaf
+# the hybrid's third conditioning witness: each backward kernel call of
+# the cut's bf16 step within 1e-2 of its plain version on the call's own
+# inputs, per gradient, norm-relative (the scan's bf16 gate, SSD_BF16_REL)
+TRAIN_CUT_CALL_REL = 1e-2
 TRAIN_CUT_F32_REL = 1e-4           # the same cut in f32 compute, per leaf
 # the SSM and hybrid train phases: mamba2-1.3b and zamba2-2.7b under their
 # configs' plan (remat "dots", 4 microbatches), one 2048-token sequence per
@@ -3070,17 +3175,86 @@ def leaf_rels(torch, got, want):
         for path, g in leaves_with_paths(got)}
 
 
-def cut_readings(torch, cfg, batch_shape):
+class _SavedOnce:
+    """An autograd context whose saved tensors were unpacked already (a
+    checkpointed node's may be unpacked once): the same context to its
+    backward otherwise."""
+
+    def __init__(self, ctx, saved):
+        self._ctx, self.saved_tensors = ctx, saved
+
+    def __getattr__(self, name):
+        return getattr(self._ctx, name)
+
+
+@contextlib.contextmanager
+def recorded_backwards(calls):
+    """Each backward of the model kernels' autograd nodes inside the block
+    appended to ``calls``: (kernel, the plain version's arguments, its
+    keyword arguments, the kernels' gradients)."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ssd_scan as sk
+    orig = {fa.FlashAttentionFn: fa.FlashAttentionFn.backward,
+            sk.SsdScanFn: sk.SsdScanFn.backward}
+
+    def flash(ctx, do):
+        q, k, v, out, lse = saved = ctx.saved_tensors
+        grads = orig[fa.FlashAttentionFn](_SavedOnce(ctx, saved), do)
+        calls.append(("flash_attention_bwd", (q, k, v, out, do, lse),
+                      {"causal": ctx.causal, "window": ctx.window},
+                      grads[:3]))
+        return grads
+
+    def scan(ctx, dy):
+        saved = ctx.saved_tensors
+        grads = orig[sk.SsdScanFn](_SavedOnce(ctx, saved), dy)
+        calls.append(("ssd_scan_bwd", (*saved, dy), {"chunk": ctx.chunk},
+                      grads[:5]))
+        return grads
+    fa.FlashAttentionFn.backward = staticmethod(flash)
+    sk.SsdScanFn.backward = staticmethod(scan)
+    try:
+        yield calls
+    finally:
+        for fn, backward in orig.items():
+            fn.backward = staticmethod(backward)
+
+
+def backward_call_rels(torch, calls):
+    """Each recorded backward call's gradients against its plain version
+    on the same inputs (ssd_scan_bwd_ref, flash_attention_bwd_ref),
+    norm-relative per gradient."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ssd_scan as sk
+    out = []
+    with torch.no_grad():
+        for name, args, kw, got in calls:
+            if name == "ssd_scan_bwd":
+                names, want = SSD_BWD_NAMES, sk.ssd_scan_bwd_ref(
+                    *args, kw["chunk"])[:5]
+            else:
+                names, want = ("dq", "dk", "dv"), \
+                    fa.flash_attention_bwd_ref(*args, **kw)
+            out.append({"kernel": name, "shape": list(args[0].shape),
+                        "rel": {n: rel_err(torch, g, w)
+                                for n, g, w in zip(names, got, want)}})
+    return out
+
+
+def cut_readings(torch, cfg, batch_shape, seed=0):
     """A TRAIN_CUT_LAYERS-layer cut of ``cfg`` at full width (the hybrid's
-    with one shared block): the first step's loss and gradients on
-    ``batch_shape`` tokens through the kernels and through the plain
-    versions in bf16 (the main path) and in f32, and through the plain
-    versions in float64 (the yardstick no kernel touches).  Returns the
-    losses, each kernel's launches in the bf16 kernels' run, the
-    launches :func:`train_launches_expected` gives, and per leaf the
-    norm-relative distances: kernels from plain in bf16 and in f32, and
-    each of the four from the float64 gradient, and how far rounding the
-    weights to bf16 alone moves the plain versions' f32 gradient."""
+    with one shared block), its weights and batch drawn from ``seed``:
+    the first step's loss and gradients on ``batch_shape`` tokens
+    through the kernels and through the plain versions in bf16 (the main
+    path) and in f32, and through the plain versions in float64 (the
+    yardstick no kernel touches).  Returns the losses, each kernel's
+    launches in the bf16 kernels' run, the launches
+    :func:`train_launches_expected` gives, per leaf the norm-relative
+    distances: kernels from plain in bf16 and in f32, and each of the
+    four from the float64 gradient, and how far rounding the weights to
+    bf16 alone moves the plain versions' f32 gradient; and each backward
+    kernel call of the bf16 kernels' run against its plain version on
+    the call's own inputs (backward_call_rels)."""
     import dataclasses
     from repro_torch._tree import tree_map
     from repro_torch.data.tokens import TokenPipeline
@@ -3090,14 +3264,18 @@ def cut_readings(torch, cfg, batch_shape):
         over["hybrid_period"] = TRAIN_CUT_LAYERS
     cut = dataclasses.replace(cfg, **over)
     model = build_model(cut, device="cuda")
-    params = model.init(0)
+    params = model.init(seed)
     b, s = batch_shape
-    batch = TokenPipeline(b, s, cut.vocab_size, device="cuda").batch_at(0)
+    batch = TokenPipeline(b, s, cut.vocab_size, seed=seed,
+                          device="cuda").batch_at(0)
     counters = train_launch_counters()
     before = {k: c.launches for k, c in counters.items()}
-    loss_k, _, kb = cut_grads(torch, model, params, batch, False)
+    with recorded_backwards([]) as calls:
+        loss_k, _, kb = cut_grads(torch, model, params, batch, False)
     torch.cuda.synchronize()
     launched = {k: c.launches - before[k] for k, c in counters.items()}
+    call_rels = backward_call_rels(torch, calls)
+    del calls
     loss_p, _, pb = cut_grads(torch, model, params, batch, True)
     m32 = build_model(cut, compute_dtype=torch.float32, device="cuda")
     m64 = build_model(cut, compute_dtype=torch.float64, device="cuda")
@@ -3121,7 +3299,7 @@ def cut_readings(torch, cfg, batch_shape):
               for leaf in rels["bf16"]}
     del grads, kb, pb
     return {"loss_kernels": float(loss_k), "loss_plain": float(loss_p),
-            "launches": launched,
+            "launches": launched, "backward_calls": call_rels,
             "launches_expected": train_launches_expected(cut, 1,
                                                          microbatches=1),
             "leaves": leaves}
@@ -3136,26 +3314,31 @@ def train_cut_check(torch, cfg, phase, batch_shape, conditioned=False):
     on two witnesses of its conditioning that involve no kernel -- the
     plain versions' bf16 gradient lies more than TRAIN_CUT_REL from the
     float64 one, and rounding the weights alone to bf16 moves their f32
-    gradient more than TRAIN_CUT_REL -- and only if the kernels' bf16
-    gradient lies no farther from the float64 gradient than the plain
-    versions' does."""
+    gradient more than TRAIN_CUT_REL -- and a third that holds the
+    kernels where the leaf's conditioning does not reach: every backward
+    kernel call of the bf16 step within TRAIN_CUT_CALL_REL of its plain
+    version on the call's own inputs, per gradient."""
     r = cut_readings(torch, cfg, batch_shape)
     leaves = r["leaves"]
     loss_rel = abs(r["loss_kernels"] - r["loss_plain"]) / abs(
         r["loss_plain"])
+    calls_worst = max((v for c in r["backward_calls"]
+                       for v in c["rel"].values()), default=0.0)
     missed = {leaf: v for leaf, v in leaves.items()
               if not v["bf16"] <= TRAIN_CUT_REL}
     held = {leaf: v for leaf, v in missed.items() if conditioned
             and v["plain_bf16_from_f64"] > TRAIN_CUT_REL
             and v["bf16_weights_move_f32"] > TRAIN_CUT_REL
-            and v["kernels_bf16_from_f64"] <= v["plain_bf16_from_f64"]}
+            and calls_worst <= TRAIN_CUT_CALL_REL}
     bad = [leaf for leaf in missed if leaf not in held]
     bad += [f"{leaf} (f32)" for leaf, v in leaves.items()
             if not v["f32"] <= TRAIN_CUT_F32_REL]
     if bad or not loss_rel <= TRAIN_CUT_REL:
         raise RuntimeError(f"{phase}: the {TRAIN_CUT_LAYERS}-layer cut's "
                            f"kernels miss the plain versions: loss "
-                           f"{loss_rel}, leaves {bad}: {leaves}")
+                           f"{loss_rel}, leaves {bad} (backward calls' "
+                           f"worst {calls_worst}: {r['backward_calls']}): "
+                           f"{leaves}")
     if r["launches"] != r["launches_expected"]:
         raise RuntimeError(f"{phase}: the cut launched {r['launches']}, "
                            f"expected {r['launches_expected']}")
@@ -3167,6 +3350,9 @@ def train_cut_check(torch, cfg, phase, batch_shape, conditioned=False):
             "grad_rel_err_max": leaves[worst]["bf16"],
             "grad_rel_err_leaf": worst, "tol_rel": TRAIN_CUT_REL,
             "held_by_conditioning": held,
+            "backward_calls": r["backward_calls"],
+            "backward_calls_worst": calls_worst,
+            "backward_calls_tol_rel": TRAIN_CUT_CALL_REL,
             "f32_grad_rel_err_max": leaves[worst_f32]["f32"],
             "f32_grad_rel_err_leaf": worst_f32,
             "f32_worst_leaf_from_f64": {
@@ -3780,7 +3966,7 @@ def phase_e8(torch):
           "seconds": time.perf_counter() - t_phase})
 
 
-def phase_families(torch, flash_rec, free):
+def phase_families(torch, flash_rec, free, long):
     """The MoE, VLM and enc-dec families at full width: prefill_moe
     (olmoe-1b-7b, then mixtral-8x22b cut to MIXTRAL_CUT_LAYERS layers on
     MIXTRAL_PREFILL_SHAPE tokens), decode_vs_forward_moe and serve on
@@ -3788,12 +3974,13 @@ def phase_families(torch, flash_rec, free):
     tokens), prefill_encdec (whisper-medium, (2, 448) tokens and (2, 1500,
     1024) frames), decode_vs_forward_encdec and serve on whisper; each
     forward's flash_attention launches enforced and added to
-    ``flash_rec``."""
+    ``flash_rec``; on the mixtral cut's weights long_500k's decode steps
+    (long_decode), after which the long_500k line is printed."""
     import dataclasses
     olmoe = get_cfg("olmoe-1b-7b")
-    launches, params = phase_prefill(torch, "prefill_moe", olmoe,
-                                     {"flash_attention": olmoe.num_layers})
-    flash_rec["launches_olmoe"] = launches["flash_attention"]
+    rec, params = phase_prefill(torch, "prefill_moe", olmoe,
+                                {"flash_attention": olmoe.num_layers})
+    flash_rec["launches_olmoe"] = rec["launches"]["flash_attention"]
     phase_decode_vs_forward_moe(torch, olmoe, params)
     del params
     free()
@@ -3801,7 +3988,7 @@ def phase_families(torch, flash_rec, free):
     free()
     full = get_cfg("mixtral-8x22b")
     mixtral = dataclasses.replace(full, num_layers=MIXTRAL_CUT_LAYERS)
-    launches, params = phase_prefill(
+    rec, params = phase_prefill(
         torch, "prefill_moe", mixtral, {"flash_attention": MIXTRAL_CUT_LAYERS},
         shape=MIXTRAL_PREFILL_SHAPE,
         extra={"reduced": {"num_layers": [full.num_layers,
@@ -3810,26 +3997,575 @@ def phase_families(torch, flash_rec, free):
                            "why": "full width on one 80 GB card: 2 layers "
                                   "are 21.6 GB of f32 weights, 56 would be "
                                   "563 GB"}})
-    flash_rec["launches_mixtral_cut"] = launches["flash_attention"]
+    flash_rec["launches_mixtral_cut"] = rec["launches"]["flash_attention"]
+    long["long_500k"].append({
+        "arch": full.name, "decode": long_decode(torch, mixtral, params),
+        "reduced": {"num_layers": [full.num_layers, MIXTRAL_CUT_LAYERS],
+                    "why": "as prefill_moe's cut: 2 of 56 layers are 21.6 "
+                           "GB of f32 weights"}})
     del params
     free()
+    emit({"phase": "long_500k", "runs": long["long_500k"]})
     phi3 = get_cfg("phi-3-vision-4.2b")
-    launches, params = phase_prefill(torch, "prefill_vlm", phi3,
-                                     {"flash_attention": phi3.num_layers})
-    flash_rec["launches_phi3"] = launches["flash_attention"]
+    rec, params = phase_prefill(torch, "prefill_vlm", phi3,
+                                {"flash_attention": phi3.num_layers})
+    flash_rec["launches_phi3"] = rec["launches"]["flash_attention"]
     del params
     free()
     whisper = get_cfg("whisper-medium")
-    launches, params = phase_prefill(
+    rec, params = phase_prefill(
         torch, "prefill_encdec", whisper,
         {"flash_attention": whisper.encoder_layers + 2 * whisper.num_layers},
         shape=WHISPER_PREFILL_SHAPE)
-    flash_rec["launches_whisper"] = launches["flash_attention"]
+    flash_rec["launches_whisper"] = rec["launches"]["flash_attention"]
     phase_decode_vs_forward_encdec(torch, whisper, params)
     del params
     free()
     phase_serve(torch, "whisper-medium")
     free()
+
+
+# ---------------------------------------------------------------------------
+# The registered long shapes (src/repro/configs/base.py SHAPES): prefill_32k,
+# decode_32k and long_500k on one card, and the kernels at their calls
+# ---------------------------------------------------------------------------
+
+PREFILL_32K_SEQ = 32_768
+PREFILL_32K_GLOBAL = 32          # prefill_32k's registered global batch
+# the rows each arch runs of it on one card
+PREFILL_32K_ROWS = {"qwen2-1.5b": 2, "mamba2-1.3b": 2, "zamba2-2.7b": 1,
+                    "yi-9b": 1}
+LONG_SEQ = 524_288               # long_500k: one row, sub_quadratic archs
+LONG_CUR = 524_280               # the decode steps' first position
+# past a 4,096-slot ring's wrap: slot 4,088 at 524,280, slot 0 at 524,288
+LONG_DECODE_STEPS = 12
+DECODE_32K_SEQ = 32_768
+DECODE_32K_GLOBAL = 128          # decode_32k's registered global batch
+DECODE_32K_ROWS = {"qwen2-1.5b": 32, "yi-9b": 8}
+DECODE_32K_STEPS = 4             # timed steps after a first one
+# bf16 decode logits against an f32 step on the same cache values and token
+# (an MoE's f32 step on the bf16 step's expert picks), norm-relative: a
+# fixed limit per arch, held by every deep step and by the same weights'
+# step on the FLOOR_ROWS rows of a shallow FLOOR_SEQ-position cache (no
+# deep position in it), so a fault at every depth fails too.  At full
+# depth with random weights bf16 compute alone moves the logits 2-8 % at
+# any cache depth (qwen2-1.5b 3.9-4.9 % on the CPU, 64 to 1,024
+# positions), past the 2e-2 of the SSM families' forward (SSM_BF16_REL).
+# Each limit is 1.25x the largest shallow reading of this script's earlier
+# runs on an H100, rounded up (PERF.md, section 6, lists the readings)
+LONG_BF16_LIMIT = {"mamba2-1.3b": 0.051, "zamba2-2.7b": 0.076,
+                   "mixtral-8x22b": 0.033, "qwen2-1.5b": 0.064,
+                   "yi-9b": 0.098}
+FLOOR_ROWS, FLOOR_SEQ = 8, 64
+FLASH_BAND = 512                 # query rows of a plain-version band
+SSD_SEGMENT = 32_768             # positions of a plain-version segment
+# flash_attention at the new calls: (call, (B, S, H, Hkv, D), window)
+LONG_FLASH_CALLS = (
+    ("qwen2-1.5b prefill_32k", (2, 32_768, 12, 2, 128), 0),
+    ("yi-9b prefill_32k", (1, 32_768, 32, 4, 128), 0),
+    ("zamba2-2.7b prefill_32k", (1, 32_768, 32, 32, 80), 4096),
+    ("zamba2-2.7b long_500k", (1, LONG_SEQ, 32, 32, 80), 4096))
+# ssd_scan at the new calls: (call, (b, s, nh, hd, ds, chunk))
+LONG_SSD_CALLS = (
+    ("mamba2-1.3b prefill_32k", (2, 32_768, 64, 64, 128, 256)),
+    ("mamba2-1.3b long_500k", (1, LONG_SEQ, 64, 64, 128, 256)),
+    ("zamba2-2.7b prefill_32k", (1, 32_768, 80, 64, 64, 256)),
+    ("zamba2-2.7b long_500k", (1, LONG_SEQ, 80, 64, 64, 256)))
+
+
+def flash_bands(s):
+    """(r0, r1) of the bands the plain version checks: the first rows, a
+    middle band that starts off the kernel's 128-row q-tiles, the last
+    rows."""
+    mid = s // 2 + 37
+    return ((0, FLASH_BAND), (mid, mid + FLASH_BAND), (s - FLASH_BAND, s))
+
+
+def flash_band_ref(q, k, v, window, r0, r1):
+    """The plain version on query rows r0:r1 of a causal call, against
+    the keys they can see (from the window's first, else from 0)."""
+    from repro_torch.kernels import flash_attention as fa
+    c0 = max(0, r0 - window + 1) if window else 0
+    return fa.flash_attention_ref(q[:, r0:r1], k[:, c0:r1], v[:, c0:r1],
+                                  causal=True, window=window, q_start=r0,
+                                  k_start=c0)
+
+
+def event_ms(torch, fn):
+    """Device time of one call of ``fn`` between two CUDA events."""
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    fn()
+    b.record()
+    b.synchronize()
+    return a.elapsed_time(b)
+
+
+def flash_long(torch, g, name, shape, window):
+    """flash_attention at one long call: in bf16 and f32 against its plain
+    version on three bands of rows (f32 2e-5, bf16 2e-2); the bf16
+    kernel's cold-L2 device time (one input set is more than four L2s),
+    the plain version's over every band of the call, SDPA's where one
+    PyTorch call computes the same function (causal, no window), and the
+    bound."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as fa
+    b, s = shape[:2]
+    checks = []
+    for dt in ("float32", "bfloat16"):
+        q, k, v = flash_inputs(torch, g, shape, getattr(torch, dt))
+        got = fa.flash_attention(q, k, v, causal=True, window=window)
+        worst = 0.0
+        for r0, r1 in flash_bands(s):
+            want = flash_band_ref(q, k, v, window, r0, r1)
+            part = got[:, r0:r1].float()
+            torch.testing.assert_close(part, want.float(), **FLASH_TOL[dt],
+                                       msg=lambda m: f"{name} {dt} rows "
+                                       f"{r0}:{r1}: {m}")
+            worst = max(worst, float((part - want.float()).abs().max()))
+        checks.append({"dtype": dt, "bands": flash_bands(s),
+                       "max_abs_err": worst, "tol": FLASH_TOL[dt]})
+        if dt == "float32":
+            del q, k, v, got
+            torch.cuda.empty_cache()
+    prof_k = profile_calls(torch, lambda i=0: fa.flash_attention(
+        q, k, v, causal=True, window=window), 3 if s > 100_000 else 10)
+
+    def plain_all():
+        for r0 in range(0, s, FLASH_BAND):
+            flash_band_ref(q, k, v, window, r0, min(s, r0 + FLASH_BAND))
+    plain_ms = event_ms(torch, plain_all)
+    library_ms, library = None, (
+        "none: SDPA takes a window only as a dense (Sq, Sk) mask, "
+        f"{s * s / 1e9:.0f} G entries here")
+    if not window:
+        qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+        prof_l = profile_calls(torch, lambda i=0: F.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=True, enable_gqa=True), 10)
+        library_ms = prof_l["rounded_us_per_call"] / 1e3
+        library = ("torch.nn.functional.scaled_dot_product_attention("
+                   "is_causal=True, enable_gqa=True) on (B, H, S, D)")
+        del qt, kt, vt
+    bound_ms, bound_by, flops, nbytes = flash_bound_ms(shape, "bfloat16",
+                                                       window)
+    ms = prof_k["rounded_us_per_call"] / 1e3
+    del q, k, v, got
+    torch.cuda.empty_cache()
+    return {"call": name, "shape": list(shape), "window": window,
+            "checks": checks, "ms": ms, "plain_ms": plain_ms,
+            "plain": f"the plain version over every {FLASH_BAND}-row band "
+                     "(CUDA events)",
+            "library_ms": library_ms, "library": library,
+            "ms_over_library": ms / library_ms if library_ms else None,
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "bound_share": bound_ms / ms, "gflop": flops / 1e9,
+            "tflop_s": flops / (ms * 1e-3) / 1e12,
+            "kernel": [k for k in prof_k["kernels"] if "flash_fwd" in k]}
+
+
+def ssd_long(torch, g, name, shape):
+    """ssd_scan at one long call, against its plain version on segments of
+    SSD_SEGMENT positions chained through ``initial_state`` (the plain
+    version's (L, L) blocks of the whole call would not fit): f32 1e-4,
+    bf16 1e-2 norm-relative against the f32 plain version on the same
+    inputs; the bf16 path's device time (each of its three kernels' mean
+    per launch), the chained plain version's and the bound."""
+    from repro_torch.kernels import ssd_scan as sk
+    *dims, chunk = shape
+    s = dims[1]
+    checks = []
+    for dt in ("float32", "bfloat16"):
+        x, dtt, A, B, C = ssd_inputs(torch, g, *dims, getattr(torch, dt))
+        got = sk.ssd_scan(x, dtt, A, B, C, chunk=chunk)
+        num = den = worst = 0.0
+        state = None
+        for s0 in range(0, s, SSD_SEGMENT):
+            sl = slice(s0, s0 + SSD_SEGMENT)
+            want, state = sk.ssd_scan_ref(x[:, sl].float(), dtt[:, sl], A,
+                                          B[:, sl], C[:, sl], chunk,
+                                          initial_state=state)
+            part = got[:, sl].float()
+            if dt == "float32":
+                torch.testing.assert_close(part, want, **SSD_TOL["chunked"])
+            d = part - want
+            num += float(d.pow(2).sum())
+            den += float(want.pow(2).sum())
+            worst = max(worst, float(d.abs().max()))
+            del want, part, d
+        rel = math.sqrt(num / den)
+        if dt == "bfloat16" and not rel <= SSD_BF16_REL:
+            raise RuntimeError(f"ssd_scan bf16 at {name} {shape}: "
+                               f"norm-relative error {rel} > {SSD_BF16_REL}")
+        checks.append({"dtype": dt, "segments": -(-s // SSD_SEGMENT),
+                       "max_abs_err": worst, "rel_err": rel,
+                       "tol": SSD_TOL["chunked"] if dt == "float32"
+                       else {"rel": SSD_BF16_REL}})
+        del got
+        if dt == "float32":
+            del x, dtt, A, B, C
+            torch.cuda.empty_cache()
+    prof = profile_calls(torch, lambda i=0: sk.ssd_scan(
+        x, dtt, A, B, C, chunk=chunk), 3, match=sk.KERNELS)
+    per_launch = prof["matched_us_per_launch"]
+    if not all(per_launch.values()):
+        raise RuntimeError(f"ssd_scan at {name}: kernels missing from the "
+                           f"profile: {per_launch}")
+
+    def plain_all():
+        state = None
+        for s0 in range(0, s, SSD_SEGMENT):
+            sl = slice(s0, s0 + SSD_SEGMENT)
+            _, state = sk.ssd_scan_ref(x[:, sl], dtt[:, sl], A, B[:, sl],
+                                       C[:, sl], chunk, initial_state=state)
+    plain_ms = event_ms(torch, plain_all)
+    bound_ms, bound_by, _, flops, nbytes = ssd_bound_ms(shape, "bfloat16")
+    ms = sum(per_launch.values()) / 1e3
+    del x, dtt, A, B, C
+    torch.cuda.empty_cache()
+    return {"call": name, "shape": list(shape), "chunks": s // chunk,
+            "checks": checks, "ms": ms,
+            "kernel_ms": {k: v / 1e3 for k, v in per_launch.items()},
+            "plain_ms": plain_ms,
+            "plain": f"the plain version over {SSD_SEGMENT}-position "
+                     "segments chained by initial_state (CUDA events)",
+            "library_ms": None,
+            "library": "none: no PyTorch call computes the SSD scan",
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "bound_share": bound_ms / ms, "gbytes": nbytes / 1e9,
+            "gflop": flops / 1e9}
+
+
+def phase_kernel_long(torch, flash_rec, ssd_rec):
+    """flash_attention and ssd_scan at the long shapes' calls (the
+    kernels' longest): the checks and times of flash_long and ssd_long,
+    added to the kernels' records under ``long_calls``."""
+    g = torch.Generator(device="cuda").manual_seed(6)
+    fl = [flash_long(torch, g, *c) for c in LONG_FLASH_CALLS]
+    ss = [ssd_long(torch, g, *c) for c in LONG_SSD_CALLS]
+    keys = ("shape", "ms", "plain_ms", "library_ms", "bound_ms", "bound_by")
+    flash_rec["long_calls"] = {r["call"]: {k: r[k] for k in keys + ("window",)}
+                               for r in fl}
+    ssd_rec["long_calls"] = {r["call"]: {k: r[k] for k in keys} for r in ss}
+    for rec, rows in ((flash_rec, fl), (ssd_rec, ss)):
+        rec["max_abs_err"] = max(rec["max_abs_err"], max(
+            c["max_abs_err"] for r in rows for c in r["checks"]))
+    emit({"phase": "kernel_long", "flash_attention": fl, "ssd_scan": ss})
+
+
+def seeded_cache(torch, model, b, total, cur, g):
+    """``model.init_cache(b, total)`` in the state a prompt of ``cur``
+    tokens leaves, with seeded values (no prefill writes the cache: the
+    reference fills it by teacher forcing): every K/V slot drawn and the
+    ring's last positions in ``pos_buf`` at their slots ``p % slots``;
+    the SSM state and the conv window drawn; ``cur`` set."""
+    cache = model.init_cache(b, total)
+    if "pos_buf" in cache:
+        slots = cache["pos_buf"].shape[0]
+        pos = torch.arange(max(0, cur - slots), cur, device="cuda")
+        cache["pos_buf"][pos % slots] = pos.to(torch.int32)
+        for name in ("k", "v"):
+            cache[name].normal_(0.0, 0.5, generator=g)
+    if "ssm" in cache:
+        cache["ssm"].normal_(0.0, 0.1, generator=g)
+        cache["conv"].normal_(0.0, 0.5, generator=g)
+    cache["cur"] = cur
+    return cache
+
+
+def as_f32_cache(torch, cache, rows=None):
+    """The same cache values in float32 (rows ``:rows`` of each batch
+    dimension where given), for the f32 step the bf16 one is held to."""
+    out = {}
+    for k, v in cache.items():
+        if k == "cur" or k == "pos_buf":
+            out[k] = v if k == "cur" else v.clone()
+            continue
+        part = v[:, :rows] if rows is not None else v
+        out[k] = part.to(torch.float32, copy=True)
+    return out
+
+
+def rel_norm(torch, got, want):
+    return float((got.float() - want.float()).norm() / want.float().norm())
+
+
+def decode_pair(torch, cfg, params, m16, m32, c16, c32, tok, times=None):
+    """One bf16 and one f32 decode step of ``tok`` on caches holding the
+    same values; for an MoE arch the f32 step takes the bf16 step's
+    expert picks in each layer (``moe_ffn_decode(topi=)``), so a pick
+    that bf16 rounding flips does not read as an error.  Returns both
+    logits and how many picks the f32 router would have made otherwise
+    (0 off the MoE family); appends the bf16 step's wall ms to
+    ``times`` where given."""
+    def bf16_step():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = m16.decode_step(params, c16, tok)[0]
+        torch.cuda.synchronize()
+        if times is not None:
+            times.append((time.perf_counter() - t0) * 1e3)
+        return out
+
+    if not cfg.is_moe:
+        return bf16_step(), m32.decode_step(params, c32, tok)[0], 0
+    from repro_torch.models import moe as moe_lib
+    orig = moe_lib.moe_ffn_decode
+    picks, differ = [], [0]
+
+    def record(cfg_, lp, x, *, topi=None):
+        out = orig(cfg_, lp, x, topi=topi)
+        picks.append(moe_lib.route(lp["router"], x, cfg_.top_k)[2])
+        return out
+
+    def replay(cfg_, lp, x, *, topi=None):
+        own = moe_lib.route(lp["router"], x, cfg_.top_k)[2]
+        pin = picks[replay.i]
+        replay.i += 1
+        differ[0] += int((own.sort(-1).values != pin.sort(-1).values).sum())
+        return orig(cfg_, lp, x, topi=pin)
+    replay.i = 0
+    try:
+        moe_lib.moe_ffn_decode = record
+        l16 = bf16_step()
+        moe_lib.moe_ffn_decode = replay
+        l32 = m32.decode_step(params, c32, tok)[0]
+    finally:
+        moe_lib.moe_ffn_decode = orig
+    return l16, l32, differ[0]
+
+
+def bf16_floor(torch, cfg, params, m16, m32, phase):
+    """The bf16 decode step's own distance from the f32 one on these
+    weights where no deep position enters: one step (decode_pair) of
+    FLOOR_ROWS rows of a FLOOR_SEQ-position cache seeded as seeded_cache
+    seeds one (cur FLOOR_SEQ - 1), the largest of the rows' norm-relative
+    distances, held to the arch's LONG_BF16_LIMIT.  Returns it and the
+    limit."""
+    g = torch.Generator(device="cuda").manual_seed(10)
+    c16 = seeded_cache(torch, m16, FLOOR_ROWS, FLOOR_SEQ, FLOOR_SEQ - 1, g)
+    c32 = as_f32_cache(torch, c16)
+    tok = torch.randint(0, cfg.vocab_size, (FLOOR_ROWS,), generator=g,
+                        device="cuda")
+    l16, l32, _ = decode_pair(torch, cfg, params, m16, m32, c16, c32, tok)
+    v = cfg.vocab_size
+    floor = max(rel_norm(torch, l16[i, :v], l32[i, :v])
+                for i in range(FLOOR_ROWS))
+    limit = LONG_BF16_LIMIT[cfg.name]
+    if not floor <= limit:
+        raise RuntimeError(f"{phase} {cfg.name}: bf16 decode logits on a "
+                           f"{FLOOR_SEQ}-position cache miss f32 by "
+                           f"{floor} > {limit}")
+    return floor, limit
+
+
+def long_decode(torch, cfg, params, steps=LONG_DECODE_STEPS):
+    """long_500k's decode: ``steps`` bf16 decode steps from a seeded
+    cache at ``cur`` LONG_CUR (total context LONG_SEQ, one row), each
+    beside an f32 step from the same values (the bf16 cache's, copied)
+    and token; each step's bf16 logits within the arch's LONG_BF16_LIMIT
+    (norm-relative) of the f32 ones, as bf16_floor's shallow step, no
+    kernel launched; ms a token of
+    the bf16 steps, the cache's bytes and the ring's pos_buf after the
+    steps."""
+    from repro_torch.models import build_model
+    g = torch.Generator(device="cuda").manual_seed(8)
+    m16 = build_model(cfg, compute_dtype=torch.bfloat16, device="cuda")
+    m32 = build_model(cfg, compute_dtype=torch.float32, device="cuda")
+    floor, gate = bf16_floor(torch, cfg, params, m16, m32, "long_500k")
+    c16 = seeded_cache(torch, m16, 1, LONG_SEQ, LONG_CUR, g)
+    tok = torch.randint(0, cfg.vocab_size, (steps, 1), generator=g,
+                        device="cuda")
+    v = cfg.vocab_size
+    rels, times, flips = [], [], []
+
+    def run():
+        for i in range(steps):
+            c32 = as_f32_cache(torch, c16)
+            l16, l32, n = decode_pair(torch, cfg, params, m16, m32, c16,
+                                      c32, tok[i], times)
+            flips.append(n)
+            if not all_finite(torch, l16):
+                raise RuntimeError(f"long_500k {cfg.name}: step {i} logits "
+                                   "are not finite")
+            rels.append(rel_norm(torch, l16[:, :v], l32[:, :v]))
+    _, launches = count_launches(torch, run)
+    check_launches(f"long_500k decode {cfg.name}", launches, {})
+    if not max(rels) <= gate:
+        raise RuntimeError(f"long_500k {cfg.name}: bf16 decode logits miss "
+                           f"f32 by {max(rels)} > {gate} (the shallow "
+                           f"cache's {floor})")
+    rec = {"arch": cfg.name, "cur_from": LONG_CUR, "steps": steps,
+           "cur_after": c16["cur"], "bf16_rel_err": rels,
+           "bf16_floor": floor, "tol_rel": gate,
+           "moe_picks_f32_would_differ": flips if cfg.is_moe else None,
+           "ms_per_token": statistics.median(times[1:]),
+           "first_step_ms": times[0],
+           "cache_gb": sum(t.numel() * t.element_size() for k, t in
+                           c16.items() if k != "cur") / 1e9}
+    if "pos_buf" in c16:
+        pos = c16["pos_buf"]
+        last = LONG_CUR + steps - 1
+        if int(pos.max()) != last or int(pos[last % pos.shape[0]]) != last \
+                or int(pos.min()) != last - pos.shape[0] + 1:
+            raise RuntimeError(f"long_500k {cfg.name}: the ring's pos_buf "
+                               f"spans {int(pos.min())}..{int(pos.max())}")
+        rec.update(ring_slots=pos.shape[0], pos_buf_span=[
+            int(pos.min()), int(pos.max())])
+    del c16
+    torch.cuda.empty_cache()
+    return rec
+
+
+def decode_32k(torch, cfg, params):
+    """decode_32k on one card: DECODE_32K_ROWS[cfg.name] rows of a bf16
+    cache of DECODE_32K_SEQ positions filled with seeded K/V, pos_buf
+    0 .. 32,766 and cur 32,767, stepped again and again at cur 32,767
+    (each step rewrites slot 32,767 and attends over the whole cache):
+    ms a token beside the bytes a step must read at least (the K/V cache
+    and the f32 weights it casts) over the HBM rate; row 0's bf16
+    logits within the arch's LONG_BF16_LIMIT of an f32 step on the same
+    values, as bf16_floor's shallow step."""
+    from repro_torch.models import build_model
+    rows = DECODE_32K_ROWS[cfg.name]
+    cur = DECODE_32K_SEQ - 1
+    g = torch.Generator(device="cuda").manual_seed(9)
+    m16 = build_model(cfg, compute_dtype=torch.bfloat16, device="cuda")
+    m32 = build_model(cfg, compute_dtype=torch.float32, device="cuda")
+    floor, gate = bf16_floor(torch, cfg, params, m16, m32, "decode_32k")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    c16 = seeded_cache(torch, m16, rows, DECODE_32K_SEQ, cur, g)
+    tok = torch.randint(0, cfg.vocab_size, (rows,), generator=g,
+                        device="cuda")
+    times = []
+
+    def run():
+        out = None
+        for i in range(DECODE_32K_STEPS + 1):
+            c16["cur"] = cur
+            t0 = time.perf_counter()
+            logits, _ = m16.decode_step(params, c16, tok)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+            out = logits if out is None else out
+        return out
+    l16, launches = count_launches(torch, run)
+    check_launches(f"decode_32k {cfg.name}", launches, {})
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    if not all_finite(torch, l16):
+        raise RuntimeError(f"decode_32k {cfg.name}: logits are not finite")
+    kv_bytes = sum(c16[k].numel() * c16[k].element_size() for k in ("k", "v"))
+    param_bytes = sum(p.numel() * p.element_size()
+                      for p in all_tensors(params))
+    c32 = as_f32_cache(torch, c16, rows=1)
+    del c16
+    torch.cuda.empty_cache()
+    c32["cur"] = cur
+    l32, _ = m32.decode_step(params, c32, tok[:1])
+    v = cfg.vocab_size
+    rel = rel_norm(torch, l16[:1, :v], l32[:, :v])
+    if not rel <= gate:
+        raise RuntimeError(f"decode_32k {cfg.name}: row 0's bf16 logits "
+                           f"miss f32 by {rel} > {gate} (the shallow "
+                           f"cache's {floor})")
+    del c32
+    torch.cuda.empty_cache()
+    ms = statistics.median(times[1:])
+    step_bytes = kv_bytes + param_bytes
+    return {"arch": cfg.name, "rows": rows, "seq": DECODE_32K_SEQ,
+            "cur": cur, "cache_dtype": "bfloat16",
+            "reduced": {"batch": [DECODE_32K_GLOBAL, rows],
+                        "why": "the registered batch's cache does not fit "
+                               "one card: "
+                               f"{kv_bytes / rows * DECODE_32K_GLOBAL / 1e9:.1f}"
+                               " GB of K/V at 128 rows"},
+            "ms_per_token": ms, "first_step_ms": times[0],
+            "steps_ms": times, "cache_gb": kv_bytes / 1e9,
+            "param_gb_f32": param_bytes / 1e9,
+            "step_read_gb_min": step_bytes / 1e9,
+            "step_bound_ms": step_bytes / HBM_BYTES_PER_S * 1e3,
+            "bound_share": step_bytes / HBM_BYTES_PER_S * 1e3 / ms,
+            "peak_gb": peak_gb, "row0_bf16_rel_err": rel,
+            "bf16_floor": floor, "tol_rel": gate}
+
+
+def prefill_32k_reduced(cfg):
+    rows = PREFILL_32K_ROWS[cfg.name]
+    return {"batch": [PREFILL_32K_GLOBAL, rows],
+            "why": f"{rows} of the registered {PREFILL_32K_GLOBAL} rows at "
+                   "full depth on one 80 GB card; the rows are independent"}
+
+
+def part(rec):
+    """A phase's part, on stderr as it completes (the phase's line on
+    stdout comes once its last part has run)."""
+    print(json.dumps({"part": rec, "t_s": time.perf_counter() - T_START}),
+          file=sys.stderr, flush=True)
+    return rec
+
+
+def prefill_32k_run(torch, cfg, params, expect):
+    """prefill_32k's part of one arch: phase_prefill at its rows of
+    (PREFILL_32K_GLOBAL, PREFILL_32K_SEQ) on ``params``."""
+    rec, _ = phase_prefill(
+        torch, "prefill_32k", cfg, expect,
+        shape=(PREFILL_32K_ROWS[cfg.name], PREFILL_32K_SEQ),
+        extra={"reduced": prefill_32k_reduced(cfg)}, params=params,
+        show=False)
+    return part(rec)
+
+
+def long_500k_run(torch, cfg, params, expect):
+    """long_500k's part of an SSM or hybrid arch at full depth: a bf16
+    forward at (1, LONG_SEQ) (phase_prefill, one call) and the decode
+    steps from LONG_CUR (long_decode)."""
+    fwd, _ = phase_prefill(torch, "long_500k", cfg, expect,
+                           shape=(1, LONG_SEQ), params=params, show=False)
+    return {"arch": cfg.name, "forward": part(fwd),
+            "decode": part(long_decode(torch, cfg, params))}
+
+
+def long_launches(long, flash_rec, ssd_rec):
+    """Each kernel's launches per forward in the long phases' runs, into
+    its record of the kernels line."""
+    runs = {"prefill_32k": long["prefill_32k"],
+            "long_500k": [r["forward"] for r in long["long_500k"]
+                          if "forward" in r]}
+    for key, rs in runs.items():
+        for rec in (flash_rec, ssd_rec):
+            rec[f"launches_{key}"] = {
+                r["arch"]: r["launches"][rec["name"]] for r in rs
+                if r["launches"].get(rec["name"])}
+
+
+def phase_yi9b(torch, long, flash_rec):
+    """yi-9b at full width and depth (48 layers, 35 GB of f32 weights,
+    drawn once): prefill_32k at (1, 32768) (48 flash_attention launches,
+    finite logits), decode against forward in f32 at S = 64 (2e-3),
+    decode_32k's 8 rows, and run_serve with its FFR shed under 700 ms;
+    prints the yi9b line, then decode_32k's (qwen2-1.5b's part taken
+    earlier in ``long``)."""
+    from repro_torch.models import build_model
+    cfg = get_cfg("yi-9b")
+    expect = {"flash_attention": cfg.num_layers}
+    t0 = time.perf_counter()
+    params = build_model(cfg, device="cuda").init(0)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    pre = prefill_32k_run(torch, cfg, params, expect)
+    flash_rec["launches_yi9b_prefill_32k"] = pre["launches"][
+        "flash_attention"]
+    dvf = phase_decode_vs_forward(torch, "decode_vs_forward", cfg, params,
+                                  64, expect, show=False)
+    long["decode_32k"].append(decode_32k(torch, cfg, params))
+    serve = phase_serve(torch, "yi-9b", params=params, show=False)
+    del params
+    torch.cuda.empty_cache()
+    emit({"phase": "yi9b", "arch": cfg.name, "depth": cfg.num_layers,
+          "init_s": init_s, "prefill_32k": pre, "decode_vs_forward": dvf,
+          "serve": serve})
+    emit({"phase": "decode_32k", "runs": long["decode_32k"]})
 
 
 TRAIN_FSDP_STEPS = 3              # (a): the sharded trainer's steps
@@ -3839,7 +4575,8 @@ TRAIN_FSDP_F32_REL = 1e-4         # (b) in f32 compute, per leaf
 # and steps): on a (2, 1) mesh, 4 rows a rank, 1 a microbatch
 TRAIN_FSDP_ARCH = "mamba2-1.3b"
 TRAIN_FSDP_WARM_IDS = (146, 147, 148, 149)  # (b): replicated, past warm-up
-TRAIN_FSDP_STEP_IDS = (150, 151)  # (b): sharded against replicated
+TRAIN_FSDP_STEP_IDS = (150, 151)  # train_tp's steps against replicated
+TRAIN_FSDP_B_STEP_IDS = TRAIN_FSDP_STEP_IDS[:1]  # (b)'s: the run time
 DRYRUN_CELLS = (("mamba2-1.3b", "train_4k"), ("qwen2-1.5b", "decode_32k"))
 DRYRUN_TIMEOUT_S = 900
 
@@ -3871,12 +4608,12 @@ def fsdp_run(torch, bundle, mesh, warm, warm_step, tokens, chunks, places,
     """train_fsdp (b), in train_tp's mamba2-1.3b world: the warm state
     (``warm``: parameters, mu, nu on the host; ``warm_step``) placed by
     ``bundle`` on the (2, 1) ``mesh`` -- FSDP over ``data`` -- takes
-    TRAIN_FSDP_STEP_IDS on this rank's rows.  Each rank holds its shard
+    TRAIN_FSDP_B_STEP_IDS on this rank's rows.  Each rank holds its shard
     of every leaf against ``chunks``, its chunk of the replicated state
     after the same steps (whose losses and grad norms are ``rep`` and
     ``rep_norms``), and the ranks' squared sums are added (each element
     once), so no leaf is gathered for the comparison; in f32 also each
-    parameter's change over the two steps."""
+    parameter's change over the steps."""
     from repro_torch._tree import leaves, tree_map
     from repro_torch.optim import AdamWState
     from repro_torch.sharding import fsdp
@@ -3900,7 +4637,7 @@ def fsdp_run(torch, bundle, mesh, warm, warm_step, tokens, chunks, places,
     losses, norms, dts = [], [], []
     coll = fsdp.reset_collective_stats()
     torch.cuda.synchronize()
-    for i in TRAIN_FSDP_STEP_IDS:
+    for i in TRAIN_FSDP_B_STEP_IDS:
         t0 = time.perf_counter()
         params, opt, m = bundle.step_fn(params, opt, batch, i)
         losses.append(float(m["loss"]))
@@ -4262,8 +4999,9 @@ def tp_worker(out_dir, arch):
     FLOPs), step 151 under the profiler (device time; the replicated ones
     one rank after the other).  Records each kernel call's shapes, the
     launches and the collectives a step.  For TRAIN_FSDP_ARCH the same
-    warm state also takes the steps on a (2, 1) mesh (train_fsdp (b),
-    fsdp_run), then decode_tp's runs follow (decode_tp_runs)."""
+    warm state also takes TRAIN_FSDP_B_STEP_IDS on a (2, 1) mesh
+    (train_fsdp (b), fsdp_run), then decode_tp's runs follow
+    (decode_tp_runs)."""
     import dataclasses
     import torch
     import torch.distributed as dist
@@ -4324,6 +5062,13 @@ def tp_worker(out_dir, arch):
         rep_flops = fc.get_total_flops()
         rep.append(float(mr["loss"]))
         rep_norms.append(float(mr["grad_norm"]))
+        if fmesh is not None:         # (b)'s chunks, after its one step
+            fbundle = st.build_step_bundle(cfg, shape, fmesh, device="cuda",
+                                           model_kw=kw)
+            fplaces = leaf_places(fbundle, fmesh)
+            fchunks = [(r_ if pl is None else fsdp.local_chunk(r_, fmesh, pl))
+                       .detach().cpu() for (_, r_), (pl, _) in zip(
+                           leaves_with_paths((p, o.mu, o.nu)), fplaces)]
         for r in range(world):        # one rank at a time on the card
             dist.barrier()
             if r == rank:
@@ -4338,13 +5083,6 @@ def tp_worker(out_dir, arch):
         chunks = [(r_ if pl is None else fsdp.local_chunk(r_, mesh, pl))
                   .detach().clone()
                   for (_, r_), (pl, _) in zip(named, places)]
-        if fmesh is not None:
-            fbundle = st.build_step_bundle(cfg, shape, fmesh, device="cuda",
-                                           model_kw=kw)
-            fplaces = leaf_places(fbundle, fmesh)
-            fchunks = [(r_ if pl is None else fsdp.local_chunk(r_, fmesh, pl))
-                       .detach().cpu()
-                       for (_, r_), (pl, _) in zip(named, fplaces)]
         del p, o, rb, named, whole
         torch.cuda.empty_cache()
         secs["replicated_steps"] = time.perf_counter() - t0
@@ -4424,7 +5162,7 @@ def tp_worker(out_dir, arch):
         if fmesh is not None:
             rec["fsdp_runs"][dname] = fsdp_run(
                 torch, fbundle, fmesh, warm, warm_step, tokens, fchunks,
-                fplaces, names, rep, rep_norms)
+                fplaces, names, rep[:1], rep_norms[:1])
             del fbundle, fchunks
         del warm
     rec["decode"] = decode_tp_runs(torch, arch, mesh)
@@ -4730,10 +5468,13 @@ def phase_train_tp(torch):
           "reduced": f"depth cut to {TRAIN_TP_LAYERS} layers: two ranks on "
                      "one card over gloo, whose CUDA tensors go through "
                      "host memory (no deployment's wire); in train_tp's "
-                     f"{TRAIN_FSDP_ARCH} world, from its warm state",
+                     f"{TRAIN_FSDP_ARCH} world, from its warm state; "
+                     f"{len(TRAIN_FSDP_B_STEP_IDS)} of its "
+                     f"{len(TRAIN_FSDP_STEP_IDS)} steps (the smoke's run "
+                     "time, ROADMAP 19)",
           "batch_x_seq": list(TRAIN_TP_SHAPE),
           "warm_steps": list(TRAIN_FSDP_WARM_IDS),
-          "steps": list(TRAIN_FSDP_STEP_IDS),
+          "steps": list(TRAIN_FSDP_B_STEP_IDS),
           "route": "torch.distributed on CUDA tensors over gloo",
           "ranks": fsdp_ranks,
           "seconds": sum(run["seconds"]
@@ -4776,23 +5517,23 @@ def host_group(i):
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     if i == 0:
-        engine = phase_engine(torch)
-        phase_sweep(torch)
-        phase_reserve(torch, engine)
+        phase_reserve(torch, phase_engine(torch))
     elif i == 1:
         phase_mesh(torch)
         phase_service(torch)
+    elif i == 2:
+        phase_bidding(torch)
         phase_fr_latency(torch)
         phase_e8(torch)
         phase_cpu_vs_gpu(torch)
     else:
-        phase_bidding(torch)
+        phase_sweep(torch)
         phase_tier1_bench(torch)
         phase_twin(torch)
     return 0
 
 
-def start_host_groups(n=3):
+def start_host_groups(n=4):
     """The host-bound phases (engine to e8: their ticks keep the card busy
     a tenth of the time or less) in ``n`` processes of this script, one
     per group of host_group, started beside the build and joined by
@@ -4927,8 +5668,8 @@ def main() -> int:
     sys.path.insert(0, os.path.join(ROOT, "src"))
     import repro_torch  # noqa: F401  (fails outside a checkout)
 
-    whole = not {"--flash-only", "--ssd-only", "--train-only"} & set(
-        sys.argv[1:])
+    whole = not {"--flash-only", "--ssd-only",
+                 "--train-only"} & set(sys.argv[1:])
     if whole:
         # on the host's other cores beside the build: the host-bound
         # phases, read before the first timed kernel
@@ -4961,28 +5702,36 @@ def main() -> int:
     pid_rec = phase_kernel(torch)
     flash_rec = phase_flash_kernel(torch)
     ssd_rec = phase_ssd_kernel(torch)
+    phase_kernel_long(torch, flash_rec, ssd_rec)
     pid_rec["launches"] = phase_tier1(torch)
 
     def free():
         torch.cuda.synchronize()
         torch.cuda.empty_cache()
 
+    # the long shapes' runs, each on the weights of its arch's phases,
+    # printed as one line a phase once its last part has run
+    long = {"prefill_32k": [], "long_500k": [], "decode_32k": []}
     qwen2 = get_cfg("qwen2-1.5b")
-    launches, params = phase_prefill(
-        torch, "prefill", qwen2, {"flash_attention": qwen2.num_layers})
-    flash_rec["launches"] = launches["flash_attention"]
+    dense = {"flash_attention": qwen2.num_layers}
+    rec, params = phase_prefill(torch, "prefill", qwen2, dense)
+    flash_rec["launches"] = rec["launches"]["flash_attention"]
     phase_decode_vs_forward(torch, "decode_vs_forward", qwen2, params, 64,
-                            {"flash_attention": qwen2.num_layers})
+                            dense)
+    long["prefill_32k"].append(prefill_32k_run(torch, qwen2, params, dense))
+    long["decode_32k"].append(part(decode_32k(torch, qwen2, params)))
     del params
     free()
     phase_serve(torch, "qwen2-1.5b")
     free()
     mamba2 = get_cfg("mamba2-1.3b")
-    launches, params = phase_prefill(
-        torch, "prefill_ssm", mamba2, {"ssd_scan": mamba2.num_layers})
-    ssd_rec["launches"] = launches["ssd_scan"]
+    ssm = {"ssd_scan": mamba2.num_layers}
+    rec, params = phase_prefill(torch, "prefill_ssm", mamba2, ssm)
+    ssd_rec["launches"] = rec["launches"]["ssd_scan"]
     phase_decode_vs_forward(torch, "decode_vs_forward_ssm", mamba2, params,
-                            256, {"ssd_scan": mamba2.num_layers})
+                            256, ssm, steps=DECODE_SSM_STEPS)
+    long["prefill_32k"].append(prefill_32k_run(torch, mamba2, params, ssm))
+    long["long_500k"].append(long_500k_run(torch, mamba2, params, ssm))
     del params
     free()
     phase_serve(torch, "mamba2-1.3b")
@@ -4992,10 +5741,17 @@ def main() -> int:
               "flash_attention": zamba2.num_layers // zamba2.hybrid_period}
     _, params = phase_prefill(torch, "prefill_hybrid", zamba2, hybrid)
     phase_decode_vs_forward(torch, "decode_vs_forward_hybrid", zamba2,
-                            params, 256, hybrid)
+                            params, 256, hybrid, steps=DECODE_SSM_STEPS)
+    long["prefill_32k"].append(prefill_32k_run(torch, zamba2, params,
+                                               hybrid))
+    emit({"phase": "prefill_32k", "runs": long["prefill_32k"]})
+    long["long_500k"].append(long_500k_run(torch, zamba2, params, hybrid))
     del params
     free()
-    phase_families(torch, flash_rec, free)
+    phase_families(torch, flash_rec, free, long)
+    phase_yi9b(torch, long, flash_rec)
+    free()
+    long_launches(long, flash_rec, ssd_rec)
     bwd_recs = phase_flash_bwd(torch)
     free()
     train = phase_train(torch)

@@ -101,11 +101,20 @@ def check_args(q, k, v, *, window: int) -> None:
         raise ValueError(f"window must be >= 0, got {window}")
 
 
-def flash_attention_ref(q, k, v, *, causal: bool = True, window: int = 0):
+def flash_attention_ref(q, k, v, *, causal: bool = True, window: int = 0,
+                        q_start: int = 0, k_start: int = 0):
     """Plain torch version: dense masked softmax in float32, output in
-    q.dtype."""
+    q.dtype.  Row i of q is position ``q_start + i`` and row j of k and v
+    position ``k_start + j`` of the masks (both 0 for a whole call, as
+    the kernel numbers them: with Sq != Sk its rows and columns both
+    start at 0).  So a band of rows ``q[:, r0:r1]`` of a call too long
+    for the dense (B, H, Sq, Sk) scores is
+    ``flash_attention_ref(q[:, r0:r1], k[:, c0:r1], v[:, c0:r1],
+    q_start=r0, k_start=c0)`` for any c0 below the band's first visible
+    column (0, or r0 - window + 1 with a window)."""
     check_args(q, k, v, window=window)
-    return _out_ref(_scores_ref(q, k, causal, window), v).to(q.dtype)
+    return _out_ref(_scores_ref(q, k, causal, window, q_start, k_start),
+                    v).to(q.dtype)
 
 
 def flash_attention_lse_ref(q, k, v, *, causal: bool = True,
@@ -126,18 +135,19 @@ def _out_ref(s, v):
                         v.float().repeat_interleave(rep, dim=2))
 
 
-def _scores_ref(q, k, causal, window):
+def _scores_ref(q, k, causal, window, q_start=0, k_start=0):
     """(B, H, Sq, Sk) float32 scaled scores, NEG_INF where masked."""
     sq, h, d = q.shape[1], q.shape[2], q.shape[3]
     sk, rep = k.shape[1], h // k.shape[2]
     kk = k.float().repeat_interleave(rep, dim=2)
     s = torch.einsum("bqhd,bkhd->bhqk", q.float(), kk) / math.sqrt(d)
-    return torch.where(_mask(sq, sk, causal, window, q.device), s, NEG_INF)
+    return torch.where(_mask(sq, sk, causal, window, q.device, q_start,
+                             k_start), s, NEG_INF)
 
 
-def _mask(sq, sk, causal, window, device):
-    q_pos = torch.arange(sq, device=device)[:, None]
-    k_pos = torch.arange(sk, device=device)[None, :]
+def _mask(sq, sk, causal, window, device, q_start=0, k_start=0):
+    q_pos = q_start + torch.arange(sq, device=device)[:, None]
+    k_pos = k_start + torch.arange(sk, device=device)[None, :]
     mask = torch.ones(sq, sk, dtype=torch.bool, device=device)
     if causal:
         mask &= q_pos >= k_pos

@@ -18,7 +18,9 @@ is the serving-side trigger-to-target latency (compare against the 700 ms
 FFR activation budget), and the shed itself is a traced ``serve.shed``
 event.  ``run_serve`` returns the stats dict so tests can drive the full
 path in-process; its ``cfg=`` serves another arch config (the full-width
-one on a card) than the reduced default.
+one on a card) than the reduced default, and ``params=`` weights the
+caller holds already (``Model.init(0)``'s when not given; yi-9b's f32
+weights are 35 GB, so a caller that holds them passes them on).
 """
 from __future__ import annotations
 
@@ -48,14 +50,15 @@ def _sync(dev: torch.device) -> None:
         torch.cuda.synchronize(dev)
 
 
-def run_serve(args, *, cfg=None, device="cuda") -> dict:
+def run_serve(args, *, cfg=None, params=None, device="cuda") -> dict:
     from repro_torch.configs import get_arch
     from repro_torch.models import build_model
 
     dev = resolve_device(device)
     cfg = cfg if cfg is not None else get_arch(args.arch).reduced()
     model = build_model(cfg, compute_dtype=torch.float32, device=dev)
-    params = model.init(0)
+    if params is None:
+        params = model.init(0)
 
     b, s = args.requests, args.prompt_len
     total = s + args.decode_tokens

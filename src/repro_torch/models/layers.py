@@ -151,8 +151,16 @@ def layernorm(x, scale, bias, eps=1e-5):
 
 
 def rope_freqs(head_dim: int, theta: float, device=None) -> torch.Tensor:
-    return 1.0 / (theta ** (torch.arange(0, head_dim, 2, dtype=torch.float32,
-                                         device=device) / head_dim))
+    """(head_dim / 2,) float32 inverse frequencies, bit for bit those the
+    reference's models run: their frequencies depend on constants only,
+    so XLA folds ``1 / theta ** e`` when it compiles the model, in float64
+    from the float32 exponents e, and rounds once.  (Taken op by op,
+    float32 pow and reciprocal round twice: at head dim 128 and theta 1e6
+    25 of 64 frequencies then differ by an ulp, 0.03 rad of rotation at
+    position 524,287.)"""
+    e = torch.arange(0, head_dim, 2, dtype=torch.float32,
+                     device=device) / head_dim
+    return (1.0 / theta ** e.double()).float()
 
 
 def apply_rope(x: torch.Tensor, positions: torch.Tensor,
