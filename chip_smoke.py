@@ -6,7 +6,8 @@
     python3 chip_smoke.py --ssd-only     # build and ssd_scan only
     python3 chip_smoke.py --train-only   # build, flash_bwd, train, ssd_bwd,
                                          # train_ssm, train_fsdp, train_tp,
-                                         # train_hybrid and train_cuts only
+                                         # train_hybrid, train_cuts and
+                                         # train_encdec/_vlm/_moe only
 
 Phases, each printing one JSON line; any failure ends the run with a
 nonzero exit and no result line:
@@ -43,7 +44,13 @@ nonzero exit and no result line:
               calls, the kernels' longest: attention at qwen2-1.5b's and
               yi-9b's prefill_32k calls (2, 32768, 12, 2, 128) and (1,
               32768, 32, 4, 128) and zamba2-2.7b's windowed (4,096) calls
-              at 32,768 and 524,288 positions, in f32 and bf16 against
+              at 32,768 and 524,288 positions, and the other archs'
+              prefill_32k calls: phi-3-vision-4.2b's (1, 32768, 32, 32,
+              96), olmoe-1b-7b's (1, 32768, 16, 16, 128), the mixtral cut's
+              (1, 32768, 48, 8, 128) window 4,096, whisper-medium's causal
+              (1, 32768, 16, 16, 64) and non-causal cross (Sq 32,768, Sk
+              1,500), smollm-135m's (2, 32768, 9, 3, 64);
+              in f32 and bf16 against
               the plain version on three 512-row bands (the first rows, a
               middle band off the 128-row q-tiles against the keys it
               sees, the last rows; f32 2e-5, bf16 2e-2); the scan at
@@ -114,7 +121,13 @@ nonzero exit and no result line:
               from the registered 32): exactly 28 flash_attention, 48
               ssd_scan, 54 ssd_scan + 9 flash_attention launches, finite
               logits, ms and peak memory of a first forward, a second
-              one's ms and a third's device ms under the profiler
+              one's ms and a third's device ms under the profiler; then
+              (printed after serve (whisper)) olmoe-1b-7b (16 launches, the
+              slots its capacity drops per layer), the mixtral cut (2),
+              phi-3-vision-4.2b (576 embeddings + 32,192 tokens, 32),
+              whisper-medium (32,768 decoder tokens beside (1, 1500, 1024)
+              frames, 72) at 1 row and smollm-135m at 2 (its own weights,
+              30)
   long_500k   the registered 524,288-position shape (sub_quadratic archs,
               one row): a bf16 forward of mamba2-1.3b and zamba2-2.7b at
               full depth (the same launches, finite logits, ms, peak
@@ -286,6 +299,22 @@ nonzero exit and no result line:
               printed), phi-3-vision-4.2b on 576 embeddings and 1,472
               tokens (the D = 96 backward), whisper-medium on (1, 448)
               tokens and (1, 1500, 1024) frames (the non-causal backward)
+  train_encdec, train_vlm, train_moe
+              the train phase's Trainer for the enc-dec, VLM and MoE
+              families under their configs' plan: whisper-medium at full
+              depth on (4, 448) tokens and (4, 1500, 1024) frames (1
+              microbatch, its attention not under remat), phi-3-vision-4.2b
+              at full depth on (4, 2048) (576 embeddings and 1,472 tokens a
+              row; 4 microbatches, remat "dots"), olmoe-1b-7b at 8 of its
+              16 layers on (4, 2048) (4 microbatches, remat "dots"; 16
+              layers are 110.8 GB of f32 state, printed in "reduced"); 3
+              steps (cut from 4 for the run time), an FFR trigger after
+              step 1 shedding step 2: fails unless every loss
+              is finite, steps were shed, each kernel launched as the plan
+              says, and the step-0 loss lies within 2e-2 of the step's
+              loss of the same batch and initial weights through the plain
+              versions (no gradient, bf16); ms a step, peak memory, one
+              profiled step's busy share
   The phases engine to e8 below are host-bound: they run in four
   processes of this script (--host-group 0: engine, reserve; 1: mesh,
   service; 2: bidding, fr_latency, e8, cpu_vs_gpu; 3: sweep,
@@ -381,7 +410,8 @@ nonzero exit and no result line:
               world on meta tensors; fails unless both exit 0 with status
               ok; their records printed
 
-Then a {"kernels": [...]} line, the card's name and power limit as
+Then a run_time line (the build's and the whole run's seconds), a
+{"kernels": [...]} line, the card's name and power limit as
 nvidia-smi reports them, and the last line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}.
 """
@@ -693,6 +723,7 @@ def phase_build():
                         for k, v in paths.items()},
           "ptxas": ptxas, "torch": torch.__version__,
           "torch_cuda": torch.version.cuda})
+    return time.perf_counter() - t0
 
 
 def phase_kernel(torch):
@@ -1034,9 +1065,11 @@ def time_ssd(torch, g, shape):
     sets = [ssd_inputs(torch, g, *dims, torch.bfloat16)
             for _ in range(n_sets)]
     kept = []
+    # a window where CUPTI lost most of a kernel's events is taken again
     prof_k = profile_calls(torch, cycled(
         sets, lambda *a: sk.ssd_scan(*a, chunk=chunk), kept), 10,
-        match=sk.KERNELS)
+        match=sk.KERNELS, groups={k: (k,) for k in sk.KERNELS},
+        require=sk.KERNELS)
     kept.clear()
     prof_p = profile_calls(torch, cycled(
         sets, lambda *a: sk.ssd_scan_ref(*a, chunk)[0], kept), 3)
@@ -2527,6 +2560,24 @@ TRAIN_SSM_TRIGGER_AFTER = 1
 # (the trainer's default quantum of 10 would run all of steps 2-3)
 TRAIN_SSM_DUTY_QUANTUM = 2
 TRAIN_SSM_PORTS = {"train_ssm": 47682, "train_hybrid": 47683}
+# the MoE, VLM and enc-dec families through the Trainer at full width:
+# (phase, arch, (batch, positions), layers, or None for the config's
+# depth); whisper's 448 decoder tokens come with (4, 1500, 1024) frames,
+# phi-3-vision's 2048 positions are 576 image embeddings and 1,472 tokens;
+# olmoe-1b-7b at 8 of its 16 layers: 16 are 110.8 GB of f32 parameters,
+# moments and gradients
+TRAIN_FAMILIES = (("train_encdec", "whisper-medium", (4, 448), None),
+                  ("train_vlm", "phi-3-vision-4.2b", (4, 2048), None),
+                  ("train_moe", "olmoe-1b-7b", (4, 2048), 8))
+# 3 steps (cut from train_ssm's 4 for the run time), an FFR trigger after
+# step 1 and a shed quantum of 3: steps 0 and 1 run, the shed skips step 2
+TRAIN_FAMILY_STEPS = 3
+TRAIN_FAMILY_DUTY_QUANTUM = 3
+TRAIN_FAMILY_PORTS = {"train_encdec": 47684, "train_vlm": 47685,
+                      "train_moe": 47686}
+# the trainer's step-0 loss against the plain versions' on the same batch
+# and weights, bf16 (tests/test_torch_train.py's BF16_LOSS)
+STEP0_LOSS_TOL = dict(rtol=2e-2, atol=2e-2)
 CKPT_ARCH, CKPT_SHAPE = "smollm-135m", (2, 512)
 CKPT_STEPS, CKPT_RESTART_STEPS = 4, 6
 CKPT_LOSS_RTOL = 1e-5
@@ -3146,23 +3197,46 @@ def train_launches_expected(cfg, runs, microbatches=None):
             "ssd_scan_bwd": n * ssd}
 
 
-def cut_grads(torch, model, params, batch, plain):
-    """loss and gradients of one batch through the kernels or, with
-    ``plain``, through their plain versions."""
+@contextlib.contextmanager
+def plain_ops():
+    """Within the block the models' kernels are their plain versions
+    (``ops.flash_attention``, ``ops.ssd_scan``)."""
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ops
     from repro_torch.kernels import ssd_scan as sk
-    from repro_torch.train.step import loss_and_grads
-    if not plain:
-        return loss_and_grads(model, params, batch)
     kernels = ops.flash_attention, ops.ssd_scan
     ops.flash_attention = fa.flash_attention_ref
     ops.ssd_scan = (lambda x, dt, A, B, C, *, chunk=256:
                     sk.ssd_scan_ref(x, dt, A, B, C, chunk)[0])
     try:
-        return loss_and_grads(model, params, batch)
+        yield
     finally:
         ops.flash_attention, ops.ssd_scan = kernels
+
+
+def cut_grads(torch, model, params, batch, plain):
+    """loss and gradients of one batch through the kernels or, with
+    ``plain``, through their plain versions."""
+    from repro_torch.train.step import loss_and_grads
+    if not plain:
+        return loss_and_grads(model, params, batch)
+    with plain_ops():
+        return loss_and_grads(model, params, batch)
+
+
+def plain_step_loss(torch, model, params, batch, microbatches):
+    """The train step's loss of ``batch`` through the plain versions, no
+    gradient, in the model's compute dtype: ``Model.loss`` of each of the
+    ``microbatches`` the step splits it into, averaged as the step
+    averages them."""
+    total = 0.0
+    with plain_ops(), torch.no_grad():
+        for i in range(microbatches):
+            mb = {k: v.reshape((microbatches, v.shape[0] // microbatches)
+                               + tuple(v.shape[1:]))[i]
+                  for k, v in batch.items()}
+            total += float(model.loss(params, mb)[0])
+    return total / microbatches
 
 
 def leaf_rels(torch, got, want):
@@ -3451,7 +3525,7 @@ def phase_train_cuts(torch):
 
 
 def run_trainer(torch, phase, cfg, batch_shape, steps, trigger_after, port,
-                duty_quantum_steps=10):
+                duty_quantum_steps=10, step0=False):
     """The Trainer at full width and depth (bf16 compute over f32
     parameters, the config's remat and microbatches, random weights from
     seed 0, AdamW state on the card) for ``steps`` steps of ``batch_shape``
@@ -3461,7 +3535,11 @@ def run_trainer(torch, phase, cfg, batch_shape, steps, trigger_after, port,
     is finite, steps were shed with an ffr_shed event and each kernel
     launched as
     :func:`train_launches_expected` says.  Then one more step under the
-    profiler.  Returns the run's numbers and launches."""
+    profiler.  With ``step0``, before training the step's loss of the
+    trainer's first batch on the initial weights through the plain
+    versions (:func:`plain_step_loss`), which the trainer's step-0 loss
+    must meet within STEP0_LOSS_TOL.  Returns the run's numbers and
+    launches."""
     from repro_torch.configs.base import ShapeConfig
     from repro_torch.core.controller import GridPilot
     from repro_torch.kernels import flash_attention as fa
@@ -3480,6 +3558,12 @@ def run_trainer(torch, phase, cfg, batch_shape, steps, trigger_after, port,
             gridpilot=gp, device="cuda")
         params, opt = trainer.init_state()
         torch.cuda.synchronize()
+        plain0 = None
+        if step0:
+            plain0 = plain_step_loss(torch, trainer.bundle.model, params,
+                                     trainer._pipeline().batch_at(0),
+                                     cfg.plan.microbatches)
+            torch.cuda.empty_cache()
 
         def on_step(step, metrics):
             if step == trigger_after:
@@ -3507,6 +3591,16 @@ def run_trainer(torch, phase, cfg, batch_shape, steps, trigger_after, port,
             raise RuntimeError(
                 f"{phase}: losses {losses}, skipped {skipped}, "
                 f"ffr_shed {shed}, launches {launches} (expected {want})")
+        gate0 = None
+        if step0:
+            got0 = hist[0]["loss"]
+            gate0 = {"step": hist[0]["step"], "trainer": got0,
+                     "plain": plain0, "abs_err": abs(got0 - plain0),
+                     "tol": STEP0_LOSS_TOL}
+            if hist[0]["step"] != 0 or not np.isclose(got0, plain0,
+                                                      **STEP0_LOSS_TOL):
+                raise RuntimeError(f"{phase}: the step-0 loss misses the "
+                                   f"plain versions': {gate0}")
         # where a step's time goes: one more step under the profiler
         batch = trainer._pipeline().batch_at(steps)
         step_fn = trainer.bundle.step_fn
@@ -3516,9 +3610,10 @@ def run_trainer(torch, phase, cfg, batch_shape, steps, trigger_after, port,
         step_wall_ms = (time.perf_counter() - t1) * 1e3
         groups = {**fa.BWD_KERNELS[torch.bfloat16],
                   "ssd_scan_bwd": sk.BWD_KERNELS[torch.bfloat16]}
+        # the step just timed warms the profiled one
         prof = profile_calls(
             torch, lambda i=0: step_fn(params, opt, batch, steps + 1), 1,
-            match=("flash_fwd", "ssd_scan"), groups=groups)
+            match=("flash_fwd", "ssd_scan"), groups=groups, warm=False)
     finally:
         gp.close()
     del params, opt, out, trainer
@@ -3532,7 +3627,7 @@ def run_trainer(torch, phase, cfg, batch_shape, steps, trigger_after, port,
             "compute_dtype": "bfloat16", "param_dtype": "float32",
             "remat": cfg.plan.remat,
             "plan": {"mu": plan.mu, "rho": plan.rho},
-            "losses": losses, "ms_per_step": ms,
+            "losses": losses, "ms_per_step": ms, "step0_loss": gate0,
             "loss_by_step": {h["step"]: h["loss"] for h in hist},
             "step_ms": [d * 1e3 for d in dts], "wall_s": wall_s,
             "tokens_per_s": b * s / (ms * 1e-3), "peak_gb": peak_gb,
@@ -3616,6 +3711,46 @@ def phase_train(torch):
           "cut_check": cut, "restart_check": restart,
           "seconds": time.perf_counter() - t_phase})
     return res
+
+
+def phase_train_families(torch):
+    """:func:`run_trainer` for the MoE, VLM and enc-dec families
+    (TRAIN_FAMILIES: whisper-medium and phi-3-vision-4.2b at full depth,
+    olmoe-1b-7b at 8 of 16 layers) under their configs' plan (phi-3-vision
+    and olmoe 4 microbatches and remat "dots"; whisper 1, its attention
+    not under remat) for TRAIN_FAMILY_STEPS steps, an FFR trigger after
+    step 1 that sheds step 2, each with the step-0 gate; one line each.
+    Returns each phase's launches."""
+    import dataclasses
+    launches = {}
+    for phase, arch, shape, layers in TRAIN_FAMILIES:
+        t_phase = time.perf_counter()
+        full = get_cfg(arch)
+        cfg = full if layers is None else dataclasses.replace(
+            full, num_layers=layers)
+        res = run_trainer(torch, phase, cfg, shape, TRAIN_FAMILY_STEPS,
+                          TRAIN_SSM_TRIGGER_AFTER, TRAIN_FAMILY_PORTS[phase],
+                          TRAIN_FAMILY_DUTY_QUANTUM, step0=True)
+        reduced = {"batch_x_seq": [list(shape), [256, 4096]],
+                   "why": "one card; the reference's train_4k is 256 x "
+                          "4096 on a pod",
+                   "steps": [TRAIN_SSM_STEPS, TRAIN_FAMILY_STEPS],
+                   "why_steps": "the smoke's run time"}
+        if layers is not None:
+            reduced.update(
+                num_layers=[full.num_layers, layers],
+                state_gb_f32={n: 16 * dataclasses.replace(
+                    full, num_layers=n).param_count() / 1e9
+                    for n in (full.num_layers, layers)},
+                why_layers="parameters, AdamW moments and one gradient "
+                           "tree in f32 (16 B a parameter): the full depth "
+                           "does not fit one 80 GB card")
+        emit({"phase": phase, **res, "reduced": reduced,
+              "seconds": time.perf_counter() - t_phase})
+        launches[phase] = res["launches"]
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+    return launches
 
 
 # --- train_dp: the int8-compressed data-parallel step at full width ----------
@@ -3975,13 +4110,18 @@ def phase_families(torch, flash_rec, free, long):
     1024) frames), decode_vs_forward_encdec and serve on whisper; each
     forward's flash_attention launches enforced and added to
     ``flash_rec``; on the mixtral cut's weights long_500k's decode steps
-    (long_decode), after which the long_500k line is printed."""
+    (long_decode), after which the long_500k line is printed; on each
+    arch's weights (smollm-135m's its own) its prefill_32k part, after
+    which the prefill_32k line is printed."""
     import dataclasses
+    from repro_torch.models import build_model
     olmoe = get_cfg("olmoe-1b-7b")
     rec, params = phase_prefill(torch, "prefill_moe", olmoe,
                                 {"flash_attention": olmoe.num_layers})
     flash_rec["launches_olmoe"] = rec["launches"]["flash_attention"]
     phase_decode_vs_forward_moe(torch, olmoe, params)
+    long["prefill_32k"].append(prefill_32k_run(
+        torch, olmoe, params, {"flash_attention": olmoe.num_layers}))
     del params
     free()
     phase_serve(torch, "olmoe-1b-7b")
@@ -3998,11 +4138,15 @@ def phase_families(torch, flash_rec, free, long):
                                   "are 21.6 GB of f32 weights, 56 would be "
                                   "563 GB"}})
     flash_rec["launches_mixtral_cut"] = rec["launches"]["flash_attention"]
+    cut = {"num_layers": [full.num_layers, MIXTRAL_CUT_LAYERS],
+           "why": "as prefill_moe's cut: 2 of 56 layers are 21.6 GB of "
+                  "f32 weights"}
     long["long_500k"].append({
         "arch": full.name, "decode": long_decode(torch, mixtral, params),
-        "reduced": {"num_layers": [full.num_layers, MIXTRAL_CUT_LAYERS],
-                    "why": "as prefill_moe's cut: 2 of 56 layers are 21.6 "
-                           "GB of f32 weights"}})
+        "reduced": cut})
+    long["prefill_32k"].append(prefill_32k_run(
+        torch, mixtral, params, {"flash_attention": MIXTRAL_CUT_LAYERS},
+        reduced=cut))
     del params
     free()
     emit({"phase": "long_500k", "runs": long["long_500k"]})
@@ -4010,19 +4154,30 @@ def phase_families(torch, flash_rec, free, long):
     rec, params = phase_prefill(torch, "prefill_vlm", phi3,
                                 {"flash_attention": phi3.num_layers})
     flash_rec["launches_phi3"] = rec["launches"]["flash_attention"]
+    long["prefill_32k"].append(prefill_32k_run(
+        torch, phi3, params, {"flash_attention": phi3.num_layers}))
     del params
     free()
     whisper = get_cfg("whisper-medium")
-    rec, params = phase_prefill(
-        torch, "prefill_encdec", whisper,
-        {"flash_attention": whisper.encoder_layers + 2 * whisper.num_layers},
-        shape=WHISPER_PREFILL_SHAPE)
+    encdec = {"flash_attention": whisper.encoder_layers
+              + 2 * whisper.num_layers}
+    rec, params = phase_prefill(torch, "prefill_encdec", whisper, encdec,
+                                shape=WHISPER_PREFILL_SHAPE)
     flash_rec["launches_whisper"] = rec["launches"]["flash_attention"]
     phase_decode_vs_forward_encdec(torch, whisper, params)
+    long["prefill_32k"].append(prefill_32k_run(torch, whisper, params,
+                                               encdec))
     del params
     free()
     phase_serve(torch, "whisper-medium")
     free()
+    smollm = get_cfg("smollm-135m")
+    params = build_model(smollm, device="cuda").init(0)
+    long["prefill_32k"].append(prefill_32k_run(
+        torch, smollm, params, {"flash_attention": smollm.num_layers}))
+    del params
+    free()
+    emit({"phase": "prefill_32k", "runs": long["prefill_32k"]})
 
 
 # ---------------------------------------------------------------------------
@@ -4034,7 +4189,9 @@ PREFILL_32K_SEQ = 32_768
 PREFILL_32K_GLOBAL = 32          # prefill_32k's registered global batch
 # the rows each arch runs of it on one card
 PREFILL_32K_ROWS = {"qwen2-1.5b": 2, "mamba2-1.3b": 2, "zamba2-2.7b": 1,
-                    "yi-9b": 1}
+                    "yi-9b": 1, "phi-3-vision-4.2b": 1, "olmoe-1b-7b": 1,
+                    "mixtral-8x22b": 1, "whisper-medium": 1,
+                    "smollm-135m": 2}
 LONG_SEQ = 524_288               # long_500k: one row, sub_quadratic archs
 LONG_CUR = 524_280               # the decode steps' first position
 # past a 4,096-slot ring's wrap: slot 4,088 at 524,280, slot 0 at 524,288
@@ -4059,12 +4216,19 @@ LONG_BF16_LIMIT = {"mamba2-1.3b": 0.051, "zamba2-2.7b": 0.076,
 FLOOR_ROWS, FLOOR_SEQ = 8, 64
 FLASH_BAND = 512                 # query rows of a plain-version band
 SSD_SEGMENT = 32_768             # positions of a plain-version segment
-# flash_attention at the new calls: (call, (B, S, H, Hkv, D), window)
+# flash_attention at the new calls: (call, (B, S, H, Hkv, D), window), and
+# for a non-causal (cross) call the keys' length Sk after the window
 LONG_FLASH_CALLS = (
     ("qwen2-1.5b prefill_32k", (2, 32_768, 12, 2, 128), 0),
     ("yi-9b prefill_32k", (1, 32_768, 32, 4, 128), 0),
     ("zamba2-2.7b prefill_32k", (1, 32_768, 32, 32, 80), 4096),
-    ("zamba2-2.7b long_500k", (1, LONG_SEQ, 32, 32, 80), 4096))
+    ("zamba2-2.7b long_500k", (1, LONG_SEQ, 32, 32, 80), 4096),
+    ("phi-3-vision-4.2b prefill_32k", (1, 32_768, 32, 32, 96), 0),
+    ("olmoe-1b-7b prefill_32k", (1, 32_768, 16, 16, 128), 0),
+    ("mixtral-8x22b prefill_32k", (1, 32_768, 48, 8, 128), 4096),
+    ("whisper-medium prefill_32k", (1, 32_768, 16, 16, 64), 0),
+    ("whisper-medium prefill_32k cross", (1, 32_768, 16, 16, 64), 0, 1500),
+    ("smollm-135m prefill_32k", (2, 32_768, 9, 3, 64), 0))
 # ssd_scan at the new calls: (call, (b, s, nh, hd, ds, chunk))
 LONG_SSD_CALLS = (
     ("mamba2-1.3b prefill_32k", (2, 32_768, 64, 64, 128, 256)),
@@ -4081,10 +4245,13 @@ def flash_bands(s):
     return ((0, FLASH_BAND), (mid, mid + FLASH_BAND), (s - FLASH_BAND, s))
 
 
-def flash_band_ref(q, k, v, window, r0, r1):
+def flash_band_ref(q, k, v, window, r0, r1, causal=True):
     """The plain version on query rows r0:r1 of a causal call, against
-    the keys they can see (from the window's first, else from 0)."""
+    the keys they can see (from the window's first, else from 0); of a
+    non-causal call, against every key."""
     from repro_torch.kernels import flash_attention as fa
+    if not causal:
+        return fa.flash_attention_ref(q[:, r0:r1], k, v, causal=False)
     c0 = max(0, r0 - window + 1) if window else 0
     return fa.flash_attention_ref(q[:, r0:r1], k[:, c0:r1], v[:, c0:r1],
                                   causal=True, window=window, q_start=r0,
@@ -4102,23 +4269,24 @@ def event_ms(torch, fn):
     return a.elapsed_time(b)
 
 
-def flash_long(torch, g, name, shape, window):
-    """flash_attention at one long call: in bf16 and f32 against its plain
-    version on three bands of rows (f32 2e-5, bf16 2e-2); the bf16
-    kernel's cold-L2 device time (one input set is more than four L2s),
-    the plain version's over every band of the call, SDPA's where one
-    PyTorch call computes the same function (causal, no window), and the
-    bound."""
+def flash_long(torch, g, name, shape, window, sk=None):
+    """flash_attention at one long call (causal, or with ``sk`` keys a
+    non-causal cross call): in bf16 and f32 against its plain version on
+    three bands of rows (f32 2e-5, bf16 2e-2); the bf16 kernel's cold-L2
+    device time (one input set is more than four L2s), the plain
+    version's over every band of the call, SDPA's where one PyTorch call
+    computes the same function (no window), and the bound."""
     import torch.nn.functional as F
     from repro_torch.kernels import flash_attention as fa
     b, s = shape[:2]
+    causal = sk is None
     checks = []
     for dt in ("float32", "bfloat16"):
-        q, k, v = flash_inputs(torch, g, shape, getattr(torch, dt))
-        got = fa.flash_attention(q, k, v, causal=True, window=window)
+        q, k, v = flash_inputs(torch, g, shape, getattr(torch, dt), sk)
+        got = fa.flash_attention(q, k, v, causal=causal, window=window)
         worst = 0.0
         for r0, r1 in flash_bands(s):
-            want = flash_band_ref(q, k, v, window, r0, r1)
+            want = flash_band_ref(q, k, v, window, r0, r1, causal)
             part = got[:, r0:r1].float()
             torch.testing.assert_close(part, want.float(), **FLASH_TOL[dt],
                                        msg=lambda m: f"{name} {dt} rows "
@@ -4130,11 +4298,12 @@ def flash_long(torch, g, name, shape, window):
             del q, k, v, got
             torch.cuda.empty_cache()
     prof_k = profile_calls(torch, lambda i=0: fa.flash_attention(
-        q, k, v, causal=True, window=window), 3 if s > 100_000 else 10)
+        q, k, v, causal=causal, window=window), 3 if s > 100_000 else 10)
 
     def plain_all():
         for r0 in range(0, s, FLASH_BAND):
-            flash_band_ref(q, k, v, window, r0, min(s, r0 + FLASH_BAND))
+            flash_band_ref(q, k, v, window, r0, min(s, r0 + FLASH_BAND),
+                           causal)
     plain_ms = event_ms(torch, plain_all)
     library_ms, library = None, (
         "none: SDPA takes a window only as a dense (Sq, Sk) mask, "
@@ -4142,17 +4311,18 @@ def flash_long(torch, g, name, shape, window):
     if not window:
         qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
         prof_l = profile_calls(torch, lambda i=0: F.scaled_dot_product_attention(
-            qt, kt, vt, is_causal=True, enable_gqa=True), 10)
+            qt, kt, vt, is_causal=causal, enable_gqa=True), 10)
         library_ms = prof_l["rounded_us_per_call"] / 1e3
         library = ("torch.nn.functional.scaled_dot_product_attention("
-                   "is_causal=True, enable_gqa=True) on (B, H, S, D)")
+                   f"is_causal={causal}, enable_gqa=True) on (B, H, S, D)")
         del qt, kt, vt
-    bound_ms, bound_by, flops, nbytes = flash_bound_ms(shape, "bfloat16",
-                                                       window)
+    bound_ms, bound_by, flops, nbytes = flash_bound_ms(
+        shape, "bfloat16", window, causal, sk)
     ms = prof_k["rounded_us_per_call"] / 1e3
     del q, k, v, got
     torch.cuda.empty_cache()
     return {"call": name, "shape": list(shape), "window": window,
+            "causal": causal, "sk": sk or s,
             "checks": checks, "ms": ms, "plain_ms": plain_ms,
             "plain": f"the plain version over every {FLASH_BAND}-row band "
                      "(CUDA events)",
@@ -4244,8 +4414,8 @@ def phase_kernel_long(torch, flash_rec, ssd_rec):
     fl = [flash_long(torch, g, *c) for c in LONG_FLASH_CALLS]
     ss = [ssd_long(torch, g, *c) for c in LONG_SSD_CALLS]
     keys = ("shape", "ms", "plain_ms", "library_ms", "bound_ms", "bound_by")
-    flash_rec["long_calls"] = {r["call"]: {k: r[k] for k in keys + ("window",)}
-                               for r in fl}
+    flash_rec["long_calls"] = {r["call"]: {k: r[k] for k in keys + (
+        "window", "causal", "sk")} for r in fl}
     ssd_rec["long_calls"] = {r["call"]: {k: r[k] for k in keys} for r in ss}
     for rec, rows in ((flash_rec, fl), (ssd_rec, ss)):
         rec["max_abs_err"] = max(rec["max_abs_err"], max(
@@ -4505,14 +4675,15 @@ def part(rec):
     return rec
 
 
-def prefill_32k_run(torch, cfg, params, expect):
+def prefill_32k_run(torch, cfg, params, expect, reduced=None):
     """prefill_32k's part of one arch: phase_prefill at its rows of
-    (PREFILL_32K_GLOBAL, PREFILL_32K_SEQ) on ``params``."""
+    (PREFILL_32K_GLOBAL, PREFILL_32K_SEQ) on ``params`` (an MoE's slots
+    dropped per layer with it); ``reduced`` adds the arch's other cuts."""
     rec, _ = phase_prefill(
         torch, "prefill_32k", cfg, expect,
         shape=(PREFILL_32K_ROWS[cfg.name], PREFILL_32K_SEQ),
-        extra={"reduced": prefill_32k_reduced(cfg)}, params=params,
-        show=False)
+        extra={"reduced": {**prefill_32k_reduced(cfg), **(reduced or {})}},
+        params=params, show=False)
     return part(rec)
 
 
@@ -5674,7 +5845,7 @@ def main() -> int:
         # on the host's other cores beside the build: the host-bound
         # phases, read before the first timed kernel
         hosts = start_host_groups()
-    phase_build()
+    build = phase_build()
     torch.backends.cuda.matmul.allow_tf32 = False  # f32 products in f32
     torch.backends.cudnn.allow_tf32 = False
     if "--flash-only" in sys.argv[1:]:
@@ -5697,6 +5868,7 @@ def main() -> int:
         phase_train_tp(torch)
         phase_train_ssm(torch, "train_hybrid", "zamba2-2.7b")
         phase_train_cuts(torch)
+        phase_train_families(torch)
         return 0
     host = join_host_groups(hosts)
     pid_rec = phase_kernel(torch)
@@ -5744,7 +5916,6 @@ def main() -> int:
                             params, 256, hybrid, steps=DECODE_SSM_STEPS)
     long["prefill_32k"].append(prefill_32k_run(torch, zamba2, params,
                                                hybrid))
-    emit({"phase": "prefill_32k", "runs": long["prefill_32k"]})
     long["long_500k"].append(long_500k_run(torch, zamba2, params, hybrid))
     del params
     free()
@@ -5776,6 +5947,7 @@ def main() -> int:
     free()
     phase_train_cuts(torch)
     free()
+    families = phase_train_families(torch)
     for rec in bwd_recs:
         rec["launches"] = train_launches[rec["name"]]
         rec["launches_train_dp"] = dp_launches[rec["name"]]
@@ -5795,8 +5967,14 @@ def main() -> int:
     flash_rec["launches_train_tp"] = tp_launches["flash_attention"]
     ssd_rec["launches_train_tp"] = tp_launches["ssd_scan"]
     ssd_bwd_rec["launches_train_tp"] = tp_launches["ssd_scan_bwd"]
+    # the MoE, VLM and enc-dec families' trainer runs
+    for phase, got in families.items():
+        for rec in (flash_rec, *bwd_recs):
+            rec[f"launches_{phase}"] = got[rec["name"]]
     pid_rec["launches_e4"] = host["tier1_bench"]["pid_update_launches"]
     phase_dryrun(dryruns)
+    emit({"phase": "run_time", "build_s": build,
+          "total_s": time.perf_counter() - T_START})
     emit({"kernels": [pid_rec, flash_rec, ssd_rec, *bwd_recs, ssd_bwd_rec]})
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",

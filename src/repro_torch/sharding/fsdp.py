@@ -44,6 +44,9 @@ import torch.distributed as dist
 # (``grad_partial``); None outside a step: a gathered leaf's gradient
 # then stays Replicate
 _PARTIAL: list = [None]
+# whether unstack gives each layer of an accumulating leaf a gradient leaf
+# of its own (``layer_leaves``)
+_LAYER_LEAVES: list = [False]
 # the gathers' and reduce-scatters' collectives since the last
 # ``reset_collective_stats``: wall seconds, calls, output bytes by op
 COLLECTIVE_STATS: dict = {}
@@ -424,16 +427,50 @@ def _drop_lead(placements, shape, n: int = 1) -> tuple:
                  for p in placements)
 
 
+@contextlib.contextmanager
+def layer_leaves():
+    """Within the block, :func:`unstack` gives each layer of a stacked
+    gradient leaf whose ``.grad`` is set (an accumulator) a gradient leaf
+    of its own, whose ``.grad`` is the accumulator's view of that layer:
+    autograd adds a layer's gradient into the accumulator in place as
+    soon as the layer's backward has run.  An ``unbind`` would hold every
+    layer's gradient until the backward reaches layer 0, then stack them:
+    a second gradient tree beside the accumulators.  The microbatched
+    train step runs its forwards and backwards in it."""
+    prev = _LAYER_LEAVES[0]
+    _LAYER_LEAVES[0] = True
+    try:
+        yield
+    finally:
+        _LAYER_LEAVES[0] = prev
+
+
+def _layers(t) -> tuple:
+    """``t``'s slices along dim 0: its ``unbind``, or within
+    :func:`layer_leaves` for a leaf with an accumulator, a leaf a slice
+    (a view of ``t``) with ``.grad`` the accumulator's slice."""
+    if not (_LAYER_LEAVES[0] and t.is_leaf and t.grad is not None):
+        return t.unbind(0)
+    base, acc = t.detach(), t.grad
+    out = []
+    for i in range(t.shape[0]):
+        v = base[i].requires_grad_(True)
+        v.grad = acc[i]
+        out.append(v)
+    return tuple(out)
+
+
 def unstack(x) -> tuple:
     """The slices of a stacked leaf along its leading (layer) dim: one
     ``unbind`` of a plain tensor, or of a sharded leaf's local shard into
     LocalShards (the layer dim is never sharded).  Either way the
-    backward stacks the layers' gradients once."""
+    backward stacks the layers' gradients once -- or, within
+    :func:`layer_leaves`, adds each into its layer of the accumulator."""
     if is_plain(x):
-        return x.unbind(0)
+        return _layers(x)
     loc, mesh, placements, shape = _parts(x)
     pl = _drop_lead(placements, shape)
-    return tuple(LocalShard(v, mesh, pl, shape[1:]) for v in loc.unbind(0))
+    return tuple(LocalShard(v, mesh, pl, shape[1:]) for v in _layers(loc))
 
 
 def layer_slice(x, *idx):

@@ -7,8 +7,10 @@ flash_attention backward kernels), gradient accumulation over
 ``microbatches`` as the reference's ``lax.scan`` does it (sum the
 microbatches' losses, gradients and metrics, then scale by 1/m), the
 warm-up-cosine learning rate, and AdamW, which updates the parameters and
-moments in place.  ``make_prefill_step`` and ``make_decode_step`` are the
-serving steps.
+moments in place.  The microbatches' gradients add up in one float32 tree
+as they form (each leaf's ``.grad``; a stacked leaf's layer by layer,
+``fsdp.layer_leaves``), so a step holds one gradient tree at most.
+``make_prefill_step`` and ``make_decode_step`` are the serving steps.
 
 The partition specs (``param_pspecs``, ``opt_pspecs``, ``batch_pspec``,
 ``cache_pspecs``, ...) are the reference's, from a
@@ -252,23 +254,29 @@ def make_train_step(model: Model, *, lr_kw: Optional[dict] = None,
             # the enc-dec family's loss reports ce alone
             metrics = {k: torch.zeros((), dtype=torch.float32, device=dev)
                        for k in metrics_spec(model)}
-            acc = [torch.zeros(fsdp.local(p).shape, dtype=torch.float32,
-                               device=dev) for p in flat]
+            # one float32 gradient tree for the step: each leaf's .grad,
+            # into which autograd adds each microbatch's gradient in place
+            # as it forms (a stacked leaf's layer by layer,
+            # fsdp.layer_leaves), the sums 0 + g0 + g1 + ... in order
+            ps = [fsdp.local(p).detach().to(torch.float32) for p in flat]
+            for q in ps:
+                q.requires_grad_(True)
+                q.grad = torch.zeros_like(q)
+            inputs = unflatten_like(params, [fsdp.as_input(q, p)
+                                             for q, p in zip(ps, flat)])
             for i in range(microbatches):
-                li, mi, gi = loss_and_grads(
-                    model, params, {k: v[i] for k, v in mb.items()},
-                    partial)
-                loss = loss + li
-                metrics = {k: v + mi[k] for k, v in metrics.items()}
-                for a, g in zip(acc, leaves(gi)):
-                    a.add_(fsdp.local(g))
-                # the next microbatch's gradients form without this set
-                del gi
+                with torch.enable_grad(), fsdp.layer_leaves(), \
+                        fsdp.grad_partial(*(partial or (None, ()))):
+                    li, mi = model.loss(inputs,
+                                        {k: v[i] for k, v in mb.items()})
+                    torch.autograd.backward(li)
+                loss = loss + li.detach()
+                metrics = {k: v + mi[k].detach() for k, v in metrics.items()}
             inv = 1.0 / microbatches
             loss = loss * inv
-            grads = unflatten_like(params, [fsdp.like(a.mul_(inv), p)
-                                            for a, p in zip(acc, flat)])
-            del acc
+            grads = unflatten_like(params, [fsdp.like(q.grad.mul_(inv), p)
+                                            for q, p in zip(ps, flat)])
+            del ps, inputs
             metrics = {k: v * inv for k, v in metrics.items()}
         else:
             loss, metrics, grads = loss_and_grads(model, params, batch,

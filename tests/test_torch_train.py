@@ -118,6 +118,9 @@ def _adamw_np(ref_cfg, seed=3, step=150):
 def _step_both(arch, microbatches, batch=2):
     rc, pc, rp, pp, rm, pm = _models(arch)
     rb, pb = _batch(rc, b=batch, seed=4)
+    if rc.frontend != "none":      # the VLM's image embeddings
+        e = _batch_np(rc, b=batch, seed=4)["embeds"]
+        rb["embeds"], pb["embeds"] = jnp.asarray(e), torch.from_numpy(e)
     st = _adamw_np(rc)
     r_opt = RAdamWState(step=jnp.int32(st["step"]),
                         mu=jax.tree.map(jnp.asarray, st["mu"]),
@@ -134,8 +137,13 @@ def _step_both(arch, microbatches, batch=2):
 @pytest.mark.parametrize("arch,microbatches", [("smollm-135m", 1),
                                                ("qwen2-1.5b", 1),
                                                ("qwen2-1.5b", 2),
-                                               ("mamba2-1.3b", 2)])
+                                               ("mamba2-1.3b", 2),
+                                               ("olmoe-1b-7b", 4),
+                                               ("phi-3-vision-4.2b", 2)])
 def test_train_step_matches_reference(arch, microbatches):
+    """One step from the same parameters, batch (the VLM's with its
+    embeds) and AdamW state past warm-up; with microbatches the MoE's aux
+    loss accumulates over them as the reference's does."""
     (rp, ro, rm), (pp, po, pm) = _step_both(arch, microbatches, batch=4)
     for name, want, got in (("params", rp, pp), ("mu", ro.mu, po.mu),
                             ("nu", ro.nu, po.nu)):
@@ -144,9 +152,11 @@ def test_train_step_matches_reference(arch, microbatches):
             np.testing.assert_allclose(got[k], want[k], **STEP_F32,
                                        err_msg=f"{name}/{k}")
     assert int(po.step) == int(ro.step) == 151
-    for k in ("loss", "ce", "zloss", "grad_norm", "lr"):
+    for k in ("loss", "ce", "zloss", "aux", "grad_norm", "lr"):
         np.testing.assert_allclose(float(pm[k]), float(rm[k]), rtol=1e-5,
                                    err_msg=k)
+    if arch == "olmoe-1b-7b":
+        assert float(pm["aux"]) > 0
 
 
 def _loss_grads(pc, pp, pb):
